@@ -124,6 +124,33 @@ def main() -> int:
         m, r, s, a, ln = cols(blob, ml)
         return a, s, sk.sha512_ram(m, r, a, ln), r
 
+    def hold_sha(blob, ml) -> int:
+        """Kernel 1 vs its plain version on one blob: digests equal."""
+        m, r, _, a, ln = cols(blob, ml)
+        got = sha(blob, ml)
+        want = sk.sha512_ram_plain(m, r, a, ln)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sha512 {tuple(blob.shape)}: "
+                                 f"{int((got != want).any(1).sum())} lanes "
+                                 f"differ from plain")
+        return int((got.to(torch.int16) - want).abs().max())
+
+    def hold_tail(args):
+        """Kernel 2 vs its plain version on the same inputs: equal ok
+        bits and equal canonical X and Z.  Returns (max error, kernel
+        outputs, plain outputs)."""
+        got, want = vt.verify_tail(*args), vt.verify_tail_plain(*args)
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(
+                f"verify_tail {len(got[0])} lanes: "
+                f"{int((got[0] != want[0]).sum())} ok bits differ from plain")
+        err = max(int((fe.canonical(k) - fe.canonical(p)).abs().max())
+                  for k, p in zip(got[1:], want[1:]))
+        if err:
+            raise AssertionError(f"verify_tail {len(got[0])} lanes: X/Z "
+                                 f"differ from plain, max {err}")
+        return err, got, want
+
     # ---- phase 1: build every kernel from the checkout's sources
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -161,14 +188,8 @@ def main() -> int:
     # ---- phase 3: verify tail kernel vs plain on adversarial lanes
     msgs, lens, sigs, pubs, kinds = V.make_adversarial_batch(TAIL_LANES, 128)
     ablob = torch.from_numpy(V.pack_blob(msgs, lens, sigs, pubs)).to(dev)
-    ok_k, x_k, z_k = vt.verify_tail(*tail_args(ablob, 128))
-    ok_p, x_p, z_p = vt.verify_tail_plain(*tail_args(ablob, 128))
-    if not torch.equal(ok_k, ok_p):
-        raise AssertionError("verify_tail: ok bits differ from plain")
-    tail_err = max(int((fe.canonical(k) - fe.canonical(p)).abs().max())
-                   for k, p in ((x_k, x_p), (z_k, z_p)))
-    if tail_err:
-        raise AssertionError(f"verify_tail: X/Z differ, max {tail_err}")
+    tail_err, (_, x_k, z_k), (_, x_p, z_p) = hold_tail(
+        tail_args(ablob, 128))
     xs_k, zs_k = fe.to_ints(x_k), fe.to_ints(z_k)
     xs_p, zs_p = fe.to_ints(x_p), fe.to_ints(z_p)
     aff = [(x * pow(z, fe.P - 2, fe.P) % fe.P, u * pow(w, fe.P - 2, fe.P)
@@ -243,6 +264,33 @@ def main() -> int:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel did not carry the path: {launches}")
     print(f"launches on the main path: {launches}")
+    # each kernel against its plain version at every shape the path gave it
+    for batch, bml, blob_np, *_ in buckets:
+        blob = torch.from_numpy(blob_np).to(dev)
+        sha_err = max(sha_err, hold_sha(blob, bml))
+        tail_err = max(tail_err, hold_tail(tail_args(blob, bml))[0])
+        print(f"{batch}x{bml}: sha512 and verify_tail kernels == plain "
+              f"(digests; ok bits, canonical X and Z)")
+
+    # ---- what the profiler sees of one dispatch and of the torch finish
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        """(runtime launch calls, device kernels, device busy ms, wall
+        ms) of one call under torch.profiler."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.events()
+        calls = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                    for e in ev)
+        kern = [e for e in ev if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        return calls, len(kern), busy, wall
 
     # ---- phase 6: timings (CUDA events; median of {RUNS} after warmup)
     def bound(nbytes: float, nops: float):
@@ -278,6 +326,16 @@ def main() -> int:
              f"(bound {tb[0]:.5f} ms, {tb[1]}), _compressed_r_check "
              f"{t_r:.5f} ms, dispatch_blob end to end {t_e2e:.4f} ms = "
              f"{batch / t_e2e * 1e3:.1f} verifies/s")
+        for what, fn in (
+                ("_compressed_r_check",
+                 lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t)),
+                ("dispatch_blob",
+                 lambda: np.asarray(ver.dispatch_blob(blob_np)))):
+            calls, nk, busy, wall = profiled(fn)
+            note(f"{batch}x{bml}: {what} under torch.profiler: {calls} "
+                 f"kernel launch calls, {nk} device ops busy {busy:.4f} ms "
+                 f"of {wall:.4f} ms wall (device idle "
+                 f"{max(0.0, 1 - busy / wall):.4f})")
     batch, bml, blob_np = buckets[0][:3]
     blob = torch.from_numpy(blob_np).to(dev)
     m_, r_, _, a_, ln_ = cols(blob, bml)

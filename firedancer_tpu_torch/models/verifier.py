@@ -83,13 +83,10 @@ class SigVerifier:
                                        self._to_device(sigs),
                                        self._to_device(pubkeys)))
 
-    def packed_dispatch(self, msgs, lens, sigs, pubs,
-                        ml: int | None = None) -> Verdict:
-        """Pack the four arrays into one blob (msgs trimmed to ml columns)
-        and dispatch it: one host-to-device copy per batch."""
-        msgs = np.asarray(msgs)
-        ml = msgs.shape[1] if ml is None else ml
-        return self.dispatch_blob(pack_blob(msgs[:, :ml], lens, sigs, pubs))
+    def packed_dispatch(self, msgs, lens, sigs, pubs) -> Verdict:
+        """Pack the four arrays into one blob and dispatch it: one
+        host-to-device copy per batch."""
+        return self.dispatch_blob(pack_blob(msgs, lens, sigs, pubs))
 
     def dispatch_blob(self, blob, maxlen: int | None = None) -> Verdict:
         """Dispatch an already packed (batch, ml + PACKED_EXTRA) blob; it

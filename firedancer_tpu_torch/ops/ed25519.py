@@ -85,13 +85,10 @@ def verify_batch(msgs, msg_len, sigs, pubkeys):
                         sigs[:, 32:], pubkeys)
 
 
-def verify_blob(blob, maxlen: int | None = None, ml: int | None = None):
+def verify_blob(blob):
     """verify_batch over a packed blob (batch, ml + PACKED_EXTRA), read in
-    place.  ml is the packed message width (the row width less
-    PACKED_EXTRA by default); maxlen, the JAX package's padded width,
-    changes nothing here, since the kernels read each row to its own
-    length."""
-    ml = blob.shape[1] - PACKED_EXTRA if ml is None else ml
+    place; the kernels read each row to its own length."""
+    ml = blob.shape[1] - PACKED_EXTRA
     return _verify_rows(blob[:, :ml], blob[:, ml + 96:ml + 100],
                         blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
                         blob[:, ml + 64:ml + 96])

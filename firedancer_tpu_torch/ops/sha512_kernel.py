@@ -10,6 +10,7 @@ raises; on a CPU tensor it runs the plain version.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,6 +45,7 @@ def _rows(t, width: int | None, name: str):
         raise ValueError(f"{name}: need width {width}, got {t.shape[1]}")
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("sha512").fd_sha512_ram
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -49,6 +49,7 @@ def kernel_consts(device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("verify_tail").fd_verify_tail
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
