@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's strict ed25519 verify path on one GPU.
+"""Drive the PyTorch/CUDA port's two verify paths on one GPU.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from firedancer_tpu_torch/csrc, holds each one
-against its plain torch version on the card, runs the real conformance
-corpora and the serving buckets through SigVerifier.dispatch_blob, checks
-that both kernels carried that path, and times the kernels, their plain
-versions, the torch finish (_compressed_r_check) and the whole dispatch.
+Builds the CUDA kernels from firedancer_tpu_torch/csrc and holds each one
+against its plain torch version on the card.  The strict path: the real
+conformance corpora and the serving buckets through
+SigVerifier.dispatch_blob (sha512 and verify_tail kernels).  The RLC
+batch-verify path: clean buckets through SigVerifier(mode="rlc") with
+both MSM selects, a batch with one forgery through the strict descent,
+and the corpora in rlc mode (decompress, msm and sha512 kernels).  Each
+path runs with the launch counts set to 0 just before it and read just
+after.  Then it times the kernels, their plain versions, the torch
+finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is the {"kernels": [...]} record; the last line is
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
@@ -29,6 +34,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 INT32_LANES_PER_SM = 64       # Hopper: 16 INT32 lanes per SM sub-partition
 RUNS = 20
+PLAIN_RUNS = 3                # the plain versions and the torch finishes
 SHA_LANES, SHA_MAXLEN = 4096, 1232
 TAIL_LANES = 528
 # the serving buckets: (batch, msg_maxlen, ragged message lengths)
@@ -46,6 +52,17 @@ TAIL_SQR, TAIL_MUL = 257 + 1024, 18 + 72 + 1728 + 1
 # 64-bit operations of one SHA-512 block (80 rounds of 26, 64 schedule
 # steps of 13), each two 32-bit instructions on this card
 SHA_OPS_PER_BLOCK = 2 * (80 * 26 + 64 * 13)
+# One decompression (csrc/ge25519.cuh ge_frombytes, then T = x y): the
+# square-root chain's pow22523 (251 S, 11 M) and the rest of it (3 S,
+# 7 M), y^2 and d y^2 (1 S, 1 M), T (1 M).  The conditional product by
+# sqrt(-1) is not counted, so the bound is a lower bound.
+DEC_SQR, DEC_MUL = 255, 19
+# Field products of the point operations (csrc/ge25519.cuh): a unified
+# add 9 M, a Niels add 8 M, a conversion to Niels 1 M, a doubling 4 S and
+# 3 M (4 M with T).
+GE_ADD, GE_ADD_NIELS, GE_TO_NIELS = 9, 8, 1
+RLC_BUCKETS = ((4096, 128), (32768, 128))
+MSM_M = 8
 
 
 def smi(query: str) -> str:
@@ -64,8 +81,11 @@ def main() -> int:
     try:
         from firedancer_tpu_torch.kernels import build
         from firedancer_tpu_torch.models import verifier as V
+        from firedancer_tpu_torch.ops import curve25519 as cv
+        from firedancer_tpu_torch.ops import decompress as dc
         from firedancer_tpu_torch.ops import ed25519 as ed
         from firedancer_tpu_torch.ops import f25519 as fe
+        from firedancer_tpu_torch.ops import msm as ms
         from firedancer_tpu_torch.ops import sha512_kernel as sk
         from firedancer_tpu_torch.ops import verify_tail as vt
     except ImportError as exc:
@@ -86,12 +106,12 @@ def main() -> int:
     def note(msg: str):
         print(f"{msg}  [{card}]", flush=True)
 
-    def cuda_ms(fn) -> float:
-        for _ in range(3):
+    def cuda_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(RUNS):
+        for _ in range(runs):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -101,11 +121,11 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    def wall_ms(fn) -> float:
+    def wall_ms(fn, runs: int = RUNS) -> float:
         for _ in range(3):
             fn()
         times = []
-        for _ in range(RUNS):
+        for _ in range(runs):
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
@@ -233,12 +253,13 @@ def main() -> int:
           f"golden ({int(golden.sum())} accept)")
 
     # ---- phase 5: the main path, SigVerifier.dispatch_blob
-    buckets = []
+    buckets, clean = [], {}
     for batch, bml, ragged in BUCKETS:
         r = np.random.default_rng(batch + bml)
         blens = r.integers(0, bml + 1, batch) if ragged else None
         bm, bl, bs, bp = V.make_example_batch(batch, bml, True, batch + bml,
                                               sign_pool=256, lens=blens)
+        clean[(batch, bml)] = (bm, bl, bs.copy(), bp)
         bad = r.choice(batch, batch // 4, replace=False)
         bs[bad, 32 + r.integers(0, 31, len(bad))] ^= 1   # corrupt S
         expect = np.ones(batch, bool)
@@ -248,22 +269,33 @@ def main() -> int:
                              // 128).sum()), int(bl.sum())))
     verifiers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m))
                  for b, m, *_ in buckets}
-    sk.sha512_ram.launches = 0
-    vt.verify_tail.launches = 0
+    def reset_counts():
+        sk.sha512_ram.launches = vt.verify_tail.launches = 0
+        dc.decompress.launches = 0
+        for sel in ms.SELECTS:
+            ms.msm_lanes.launches[sel] = 0
+
+    def counts() -> dict:
+        return {"sha512_ram": sk.sha512_ram.launches,
+                "verify_tail": vt.verify_tail.launches,
+                "decompress": dc.decompress.launches,
+                **{f"msm_{sel}": ms.msm_lanes.launches[sel]
+                   for sel in ms.SELECTS}}
+
+    reset_counts()
     verdicts = [verifiers[(b, m)].dispatch_blob(blob_np)
                 for b, m, blob_np, *_ in buckets]
     results = [np.asarray(v) for v in verdicts]
-    launches = {"sha512_ram": sk.sha512_ram.launches,
-                "verify_tail": vt.verify_tail.launches}
+    launches = counts()
     for (batch, bml, _, expect, *_), res in zip(buckets, results):
         if res.shape != (batch,) or not np.array_equal(res, expect):
             raise AssertionError(f"dispatch_blob {batch}x{bml}: "
                                  f"{int((res != expect).sum())} bits wrong")
         print(f"dispatch_blob {batch}x{bml}: {int(res.sum())} accept, "
               f"{batch - int(res.sum())} reject, as constructed")
-    if min(launches.values()) < 1:
+    if min(launches["sha512_ram"], launches["verify_tail"]) < 1:
         raise AssertionError(f"a kernel did not carry the path: {launches}")
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the strict path: {launches}")
     # each kernel against its plain version at every shape the path gave it
     for batch, bml, blob_np, *_ in buckets:
         blob = torch.from_numpy(blob_np).to(dev)
@@ -271,6 +303,136 @@ def main() -> int:
         tail_err = max(tail_err, hold_tail(tail_args(blob, bml))[0])
         print(f"{batch}x{bml}: sha512 and verify_tail kernels == plain "
               f"(digests; ok bits, canonical X and Z)")
+
+    # ---- phase 6: decompress kernel vs plain on adversarial encodings and
+    # on the A and R columns of the RLC buckets, whole and one row short
+    # (a lane count that is not a multiple of the block size)
+    def hold_dec(b) -> int:
+        (ok_k, sm_k, p_k), (ok_p, sm_p, p_p) = (dc.decompress(b),
+                                                dc.decompress_plain(b))
+        if not (torch.equal(ok_k, ok_p) and torch.equal(sm_k, sm_p)):
+            raise AssertionError(f"decompress {len(b)} lanes: ok or small "
+                                 f"bits differ from plain")
+        err = max(int((fe.canonical(k) - fe.canonical(q)).abs().max())
+                  for k, q in zip(p_k, p_p))
+        if err:
+            raise AssertionError(f"decompress {len(b)} lanes: X/Y/Z/T differ "
+                                 f"from plain, max {err}")
+        return err
+
+    adv = torch.from_numpy(np.concatenate([pubs, sigs[:, :32]])).to(dev)
+    dec_err = hold_dec(adv[:-1])
+    rlc_dev = {}
+    for batch, bml in RLC_BUCKETS:
+        args = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in clean[(batch, bml)])
+        rlc_dev[(batch, bml)] = args
+        for b in (args[3], args[2][:, :32]):
+            dec_err = max(dec_err, hold_dec(b), hold_dec(b[:-1]))
+    print(f"decompress: kernel == plain on {len(adv) - 1} adversarial "
+          f"encodings and the A and R columns of "
+          f"{', '.join(f'{b}x{m}' for b, m in RLC_BUCKETS)} (n and n - 1 "
+          f"lanes): ok and small bits, canonical X, Y, Z, T")
+
+    # ---- phase 7: msm kernel vs plain per lane, both selects, on the
+    # RLC path's own inputs at 32768 x 128
+    def msm_inputs(args, seed):
+        """((w windows, -A, 64), (z windows, -R, 32)), the windows of c,
+        and the scalar chain's inputs, as verify_batch_rlc makes them."""
+        msgs, lens, sigs_d, pubs_d = args
+        z = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 256, (len(pubs_d), 16), np.uint8)).to(dev)
+        r_b = sigs_d[:, :32]
+        _, a_pt = ed._decompress_checked(pubs_d)
+        _, r_pt = ed._decompress_checked(r_b)
+        digest = sk.sha512_ram(msgs, r_b, pubs_d, sk.lens_to_bytes(lens))
+        _, w_win, z_win, c_win = ed._rlc_scalars(digest, sigs_d[:, 32:], z)
+        return (((w_win, cv.neg(a_pt), 64), (z_win, cv.neg(r_pt), 32)),
+                c_win, (digest, sigs_d[:, 32:], z))
+
+    def hold_msm(win, pts, nwin, select):
+        got = ms.msm_lanes(win, pts, MSM_M, nwin, select)
+        want = cv.msm_lanes(win, pts, MSM_M, nwin, select)
+        err = max(int((fe.canonical(k) - fe.canonical(q)).abs().max())
+                  for k, q in zip(got, want))
+        if err:
+            raise AssertionError(f"msm {select} nwin {nwin}: {win.shape[1]} "
+                                 f"points, lanes differ from plain, max {err}")
+        return got
+
+    msm_in, c_win, _ = msm_inputs(rlc_dev[(32768, 128)], 7)
+    folded = {sel: [cv.fold_lanes(hold_msm(*i, sel)) for i in msm_in]
+              for sel in ms.SELECTS}
+    for a, b in zip(*folded.values()):
+        same = fe.eq(fe.mul(a.X, b.Z), fe.mul(b.X, a.Z)) & fe.eq(
+            fe.mul(a.Y, b.Z), fe.mul(b.Y, a.Z))
+        if not bool(same.all()):
+            raise AssertionError("msm: the selects' folded sums differ")
+    for sel in ms.SELECTS:
+        if not bool(ed._rlc_finish(*folded[sel], c_win)):
+            raise AssertionError(f"msm {sel}: the clean batch's RLC "
+                                 f"equation does not hold")
+    msm_err = 0
+    print(f"msm: kernel == plain per lane at 32768x128 (m {MSM_M}, nwin 64 "
+          f"and 32, {32768 // MSM_M} lanes), both selects: canonical X, Y, "
+          f"Z, T; legacy and p16 fold to the same points; [c]B - sum = "
+          f"identity")
+
+    # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
+    # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512
+    rlc_runs = [(4096, 128, "legacy"), (32768, 128, "legacy"),
+                (32768, 128, "p16")]
+    rlc_vers = {(b, m, sel): V.SigVerifier(V.VerifierConfig(b, m),
+                                           mode="rlc", msm_m=MSM_M,
+                                           rlc_select=sel)
+                for b, m, sel in rlc_runs}
+    reset_counts()
+    for batch, bml, sel in rlc_runs:
+        before = counts()
+        res = np.asarray(rlc_vers[(batch, bml, sel)](*clean[(batch, bml)]))
+        delta = {k: v - before[k] for k, v in counts().items()}
+        want = {"sha512_ram": 1, "verify_tail": 0, "decompress": 2,
+                **{f"msm_{s}": 2 * (s == sel) for s in ms.SELECTS}}
+        if delta != want:
+            raise AssertionError(f"rlc {batch}x{bml} {sel}: launches "
+                                 f"{delta}, expected {want}")
+        if res.shape != (batch,) or not res.all():
+            raise AssertionError(f"rlc {batch}x{bml} {sel}: "
+                                 f"{int((~res).sum())} lanes rejected")
+        print(f"rlc {batch}x{bml} {sel}: all {batch} accept; launches "
+              f"{delta}")
+    rlc_launches = counts()
+    print(f"launches on the RLC path: {rlc_launches}")
+
+    # ---- phase 9: one forged S in 32768: the descent's bits
+    bm, bl, bs, bp = clean[(32768, 128)]
+    bs = bs.copy()
+    bs[20000, 40] ^= 1
+    expect = np.ones(32768, bool)
+    expect[20000] = False
+    t0 = time.perf_counter()
+    res = np.asarray(rlc_vers[(32768, 128, "legacy")](bm, bl, bs, bp))
+    t_descent = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(res, expect):
+        raise AssertionError(f"rlc dirty 32768: {int((res != expect).sum())} "
+                             f"bits wrong")
+    note(f"rlc dirty 32768x128 (one forged S): bits as constructed through "
+         f"the descent, {t_descent:.4f} ms")
+
+    # ---- phase 10: the corpora in rlc mode, padded to a multiple of m
+    npad = -len(vecs) % MSM_M
+    gver = V.SigVerifier(V.VerifierConfig(len(vecs) + npad, cml),
+                         mode="rlc", msm_m=MSM_M)
+
+    def padded(a):
+        return np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
+
+    gbits = np.asarray(gver(*map(padded, (cmsgs, clens, csigs, cpubs))))
+    if not (np.array_equal(gbits[:len(vecs)], golden)
+            and not gbits[len(vecs):].any()):
+        raise AssertionError("rlc corpus: bits differ from golden")
+    print(f"rlc corpus: {len(vecs)} vectors == golden, {npad} zero pads "
+          f"reject")
 
     # ---- what the profiler sees of one dispatch and of the torch finish
     from torch.profiler import ProfilerActivity, profile
@@ -292,7 +454,7 @@ def main() -> int:
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         return calls, len(kern), busy, wall
 
-    # ---- phase 6: timings (CUDA events; median of {RUNS} after warmup)
+    # ---- phase 11: timings (CUDA events; median of RUNS after warmup)
     def bound(nbytes: float, nops: float):
         """(least ms, what bounds it): bytes over HBM, ops over int32."""
         tb, to = nbytes / HBM_BYTES_PER_S, nops / int_ops_per_s
@@ -339,14 +501,106 @@ def main() -> int:
     batch, bml, blob_np = buckets[0][:3]
     blob = torch.from_numpy(blob_np).to(dev)
     m_, r_, _, a_, ln_ = cols(blob, bml)
-    plain_sha = cuda_ms(lambda: sk.sha512_ram_plain(m_, r_, a_, ln_))
+    plain_sha = cuda_ms(lambda: sk.sha512_ram_plain(m_, r_, a_, ln_),
+                        PLAIN_RUNS, 1)
     args = tail_args(blob, bml)
-    plain_tail = cuda_ms(lambda: vt.verify_tail_plain(*args))
+    plain_tail = cuda_ms(lambda: vt.verify_tail_plain(*args), PLAIN_RUNS, 1)
     note(f"{batch}x{bml}: plain sha512 {plain_sha:.4f} ms, plain "
          f"verify_tail {plain_tail:.4f} ms")
 
-    # ---- the kernels record, at the serving bucket (the first one)
+    # ---- phase 12: the RLC path's times and launches
+    def dec_bound(n):
+        # reads 32 bytes, writes ok, small and the X, Y, T int64 planes
+        return bound(n * (32 + 2 + 3 * 80),
+                     n * (DEC_SQR * SQR_OPS + DEC_MUL * MUL_OPS))
+
+    def msm_bound(n, nwin, select):
+        # reads the uint8 windows and four int64 planes per point, writes
+        # four per lane; per lane m tables (NT - 2 unified adds, NT
+        # conversions), and per window four doublings (16 S, 13 M, T on
+        # the last only) and m Niels adds
+        lanes = n // MSM_M
+        nt, nw = (16, nwin) if select == "legacy" else (9, nwin + 1)
+        muls = (MSM_M * ((nt - 2) * GE_ADD + nt * GE_TO_NIELS)
+                + nw * (13 + MSM_M * GE_ADD_NIELS))
+        return bound(n * (nwin + 4 * 80) + lanes * 4 * 80,
+                     lanes * (muls * MUL_OPS + nw * 16 * SQR_OPS))
+
+    rlc_kern = {}
+    for batch, bml in RLC_BUCKETS:
+        args = rlc_dev[(batch, bml)]
+        pubs_d = args[3]
+        t_dec = cuda_ms(lambda: dc.decompress(pubs_d))
+        db = dec_bound(batch)
+        rlc_kern[("decompress", batch)] = (t_dec, db)
+        note(f"{batch}x{bml}: decompress kernel {t_dec:.5f} ms (bound "
+             f"{db[0]:.5f} ms, {db[1]}), 2 per RLC call")
+        msm_in, c_win, scal_in = msm_inputs(args, batch)
+        for sel in ms.SELECTS:
+            for win, pts, nwin in msm_in:
+                t_m = cuda_ms(lambda: ms.msm_lanes(win, pts, MSM_M, nwin, sel))
+                mb = msm_bound(batch, nwin, sel)
+                rlc_kern[(f"msm_{sel}", batch, nwin)] = (t_m, mb)
+                note(f"{batch}x{bml}: msm {sel} kernel nwin {nwin}, "
+                     f"{batch // MSM_M} lanes: {t_m:.5f} ms (bound "
+                     f"{mb[0]:.5f} ms, {mb[1]})")
+        # the torch finish: the scalar chain, the two folds, [c]B and the
+        # identity test
+        lanes_ar = [ms.msm_lanes(win, pts, MSM_M, nwin, "legacy")
+                    for win, pts, nwin in msm_in]
+        accs = [cv.fold_lanes(p) for p in lanes_ar]
+        for what, fn in (
+                ("scalar chain", lambda: ed._rlc_scalars(*scal_in)),
+                ("lane folds", lambda: [cv.fold_lanes(p) for p in lanes_ar]),
+                ("[c]B and identity test",
+                 lambda: ed._rlc_finish(*accs, c_win))):
+            t_f = cuda_ms(fn, PLAIN_RUNS, 1)
+            calls, nk, busy, wall = profiled(fn)
+            note(f"{batch}x{bml}: torch finish, {what}: {t_f:.4f} ms; under "
+                 f"torch.profiler {calls} kernel launch calls, {nk} device "
+                 f"ops busy {busy:.4f} ms of {wall:.4f} ms wall")
+    for batch, bml, sel in rlc_runs:
+        ver, arrs = rlc_vers[(batch, bml, sel)], clean[(batch, bml)]
+        t_e2e = wall_ms(lambda: np.asarray(ver(*arrs)))
+        calls, nk, busy, wall = profiled(lambda: np.asarray(ver(*arrs)))
+        note(f"rlc {batch}x{bml} {sel}: SigVerifier call end to end "
+             f"{t_e2e:.4f} ms = {batch / t_e2e * 1e3:.1f} verifies/s; under "
+             f"torch.profiler {calls} kernel launch calls, {nk} device ops "
+             f"busy {busy:.4f} ms of {wall:.4f} ms wall (device idle "
+             f"{max(0.0, 1 - busy / wall):.4f})")
+    # plain versions at the headline bucket, A side (nwin 64)
+    pubs_d = rlc_dev[(32768, 128)][3]
+    plain_dec = cuda_ms(lambda: dc.decompress_plain(pubs_d), PLAIN_RUNS, 1)
+    msm_in, _, _ = msm_inputs(rlc_dev[(32768, 128)], 32768)
+    win, pts, nwin = msm_in[0]
+    plain_msm = {sel: cuda_ms(lambda: cv.msm_lanes(win, pts, MSM_M, nwin,
+                                                   sel), PLAIN_RUNS, 1)
+                 for sel in ms.SELECTS}
+    note(f"32768x128: plain decompress {plain_dec:.4f} ms, plain msm lanes "
+         f"nwin 64 {', '.join(f'{k} {v:.4f} ms' for k, v in plain_msm.items())}")
+
+    # ---- the kernels record: the strict kernels at the serving bucket
+    # (the first), the RLC kernels at 32768 x 128 (the A side for msm);
+    # launches from each path's run above
     t_sha, t_tail, sb, tb = timing[(batch, bml)]
+    t_dec, db = rlc_kern[("decompress", 32768)]
+    rlc_rows = [
+        {"name": "decompress", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/decompress.cu",
+         "replaces": "firedancer_tpu/ops/curve_pallas.py:649",
+         "launches": rlc_launches["decompress"], "max_abs_err": dec_err,
+         "ms": t_dec, "plain_ms": plain_dec, "bound_ms": db[0],
+         "bound_by": db[1], "library_ms": None, "shape": "32768x32"}]
+    for sel, line in (("legacy", 1255), ("p16", 1243)):
+        t_m, mb = rlc_kern[(f"msm_{sel}", 32768, 64)]
+        rlc_rows.append(
+            {"name": f"msm_{sel}", "route": "cuda",
+             "source": "firedancer_tpu_torch/csrc/msm.cu",
+             "replaces": f"firedancer_tpu/ops/curve_pallas.py:{line}",
+             "launches": rlc_launches[f"msm_{sel}"], "max_abs_err": msm_err,
+             "ms": t_m, "plain_ms": plain_msm[sel], "bound_ms": mb[0],
+             "bound_by": mb[1], "library_ms": None,
+             "shape": f"32768 points, m {MSM_M}, nwin 64"})
     kernels = [
         {"name": "sha512_ram", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/sha512.cu",
@@ -360,7 +614,7 @@ def main() -> int:
          "launches": launches["verify_tail"], "max_abs_err": tail_err,
          "ms": t_tail, "plain_ms": plain_tail, "bound_ms": tb[0],
          "bound_by": tb[1], "library_ms": None},
-    ]
+    ] + rlc_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

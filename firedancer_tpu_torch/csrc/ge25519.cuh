@@ -114,3 +114,29 @@ GE_FN void ge_add_affine_niels(ge &r, const ge &p, const fe &ym,
   fe_add(zz, p.Z, p.Z);
   ge_finish(r, a, b, c, zz, want_t);
 }
+
+// Point decompression (fd_ed25519_point_frombytes) with the small-order
+// test (fd_ed25519_affine_is_small_order), shared by the verify tail and
+// the decompress kernel.  y is the encoded y (bit 255 dropped, a value >=
+// p kept as it is); x = sqrt(u / v) for u = y^2 - 1, v = d y^2 + 1, then
+// negated when its parity differs from the sign bit.  Returns whether the
+// square root exists; x is unspecified where it does not.  small: x = 0,
+// or canonical y in {0, y8_0, y8_1} (the affine points of order <= 8).
+GE_FN bool ge_frombytes(fe &x, fe &y, bool &small, const uint8_t *b,
+                        const fe &d, const fe &sqrt_m1, const fe &y8_0,
+                        const fe &y8_1) {
+  fe yy, u, v, one, yc, zero;
+  fe_set(one, 1);
+  fe_frombytes(y, b);
+  fe_sqr(yy, y);
+  fe_sub(u, yy, one);
+  fe_mul(v, yy, d);
+  fe_add(v, v, one);
+  const bool ok = fe_sqrt_ratio(x, u, v, sqrt_m1);
+  if (fe_sgn(x) != (uint32_t)(b[31] >> 7)) fe_neg(x, x);
+  fe_canonical(yc, y);
+  fe_set(zero, 0);
+  small = fe_iszero(x) || fe_eq_canon(yc, zero) || fe_eq_canon(yc, y8_0) ||
+          fe_eq_canon(yc, y8_1);
+  return ok;
+}

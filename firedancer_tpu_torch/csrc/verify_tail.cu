@@ -40,21 +40,11 @@ struct vt_consts {
 FD_FN bool vt_lane(const vt_consts &c, const uint8_t *pub, const uint8_t *s,
                    const uint8_t *digest, const uint8_t *r, fe &qx, fe &qz) {
   // ---- A: decompress and small-order test
-  fe y, yy, u, v, x, one;
+  fe y, x, one;
+  bool small;
+  const bool ok_a =
+      ge_frombytes(x, y, small, pub, c.d, c.sqrt_m1, c.y8_0, c.y8_1);
   fe_set(one, 1);
-  fe_frombytes(y, pub);
-  fe_sqr(yy, y);
-  fe_sub(u, yy, one);
-  fe_mul(v, yy, c.d);
-  fe_add(v, v, one);
-  const bool ok_a = fe_sqrt_ratio(x, u, v, c.sqrt_m1);
-  if (fe_sgn(x) != (uint32_t)(pub[31] >> 7)) fe_neg(x, x);
-  fe yc;
-  fe_canonical(yc, y);
-  fe zero;
-  fe_set(zero, 0);
-  const bool small = fe_iszero(x) || fe_eq_canon(yc, zero) ||
-                     fe_eq_canon(yc, c.y8_0) || fe_eq_canon(yc, c.y8_1);
 
   // ---- the [0..8](-A) table in Niels form
   ge na, pt;

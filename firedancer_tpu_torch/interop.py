@@ -12,6 +12,7 @@ arrive as numpy arrays.
 import numpy as np
 import torch
 
+from .ops import curve25519 as cv
 from .ops import f25519 as fe
 
 JAX_LIMB_BITS = 12
@@ -42,6 +43,18 @@ def _jax_limbs_to_ints(planes) -> list[int]:
 def field_from_jax_limbs(planes, device="cpu") -> torch.Tensor:
     """JAX (22, batch) limb planes (any magnitudes) -> port (10, batch)."""
     return fe.from_ints(_jax_limbs_to_ints(planes), device)
+
+
+def point_from_jax(point, device="cpu") -> cv.Point:
+    """A JAX Point of (22, n) limb planes (as numpy arrays, or anything
+    with X, Y, Z, T) -> a port Point of (10, n) planes."""
+    return cv.Point(*(field_from_jax_limbs(point[i], device)
+                      for i in range(4)))
+
+
+def windows_from_jax(w, device="cpu") -> torch.Tensor:
+    """JAX (nwin, n) uint32 4-bit windows -> an int64 port tensor."""
+    return torch.from_numpy(np.asarray(w).astype(np.int64)).to(device)
 
 
 def field_to_ints(t) -> list[int]:

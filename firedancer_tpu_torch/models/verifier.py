@@ -1,12 +1,14 @@
-"""The serving verifier: fixed-bucket batched strict ed25519 verification.
+"""The serving verifier: fixed-bucket batched ed25519 verification.
 
-Counterpart of firedancer_tpu/models/verifier.py (strict, single device).
-The host pipeline fills (batch, msg_maxlen) buckets and gets pass bits
-back; here a batch goes to the card as one packed row blob (ed25519
-PACKED_EXTRA layout) and the verdict comes back as a future that meets the
-pipeline's duck protocol (firedancer_tpu/disco/pipeline.py): is_ready()
-polls a CUDA event, copy_to_host_async() starts the device-to-host copy,
-and np.asarray() waits for the bits.
+Counterpart of firedancer_tpu/models/verifier.py (single device, the
+strict and rlc modes).  The host pipeline fills (batch, msg_maxlen)
+buckets and gets pass bits back.  In strict mode a batch goes to the card
+as one packed row blob (ed25519 PACKED_EXTRA layout); in rlc mode as the
+four arrays, checked by one random-linear-combination batch equation.
+Either way the verdict comes back as a future that meets the pipeline's
+duck protocol (firedancer_tpu/disco/pipeline.py): is_ready() polls a CUDA
+event, copy_to_host_async() starts the device-to-host copy, and
+np.asarray() waits for the bits.
 """
 
 from dataclasses import dataclass
@@ -16,6 +18,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops import ed25519 as ed
+from ..ops.msm import SELECTS
 
 
 @dataclass(frozen=True)
@@ -59,15 +62,44 @@ class Verdict:
 
 
 class SigVerifier:
-    """Strict per-signature verifier on one device.  One instance per
-    (batch, msg_maxlen) bucket, as in the JAX package; a dispatch may
-    carry fewer rows than the bucket.  device=None means the GPU, and
-    raises when there is none; tests pass device="cpu", which runs the
-    kernels' plain versions."""
+    """Per-signature verifier on one device.  One instance per (batch,
+    msg_maxlen) bucket, as in the JAX package; a dispatch may carry fewer
+    rows than the bucket.  device=None means the GPU, and raises when
+    there is none; tests pass device="cpu", which runs the kernels' plain
+    versions.
 
-    def __init__(self, cfg: VerifierConfig = VerifierConfig(), device=None):
+    mode="strict" verifies each signature.  mode="rlc" first runs the
+    random-linear-combination batch check (ed.verify_batch_rlc, msm_m
+    signatures per MSM lane, rlc_select the MSM kernel's table select);
+    when it fails, a binary-split descent settles the exact strict bits
+    (_resolve).  z is drawn per call from rng, a numpy Generator seeded
+    from OS entropy unless one is given.  mode="antipa" is not ported."""
+
+    # slices this small go straight to strict bits
+    _SPLIT_LEAF = 256
+
+    def __init__(self, cfg: VerifierConfig = VerifierConfig(),
+                 mode: str = "strict", msm_m: int = 8, device=None,
+                 rng: np.random.Generator | None = None,
+                 rlc_select: str = "legacy"):
+        if mode == "antipa":
+            raise NotImplementedError(
+                "antipa mode is not ported yet (firedancer_tpu_torch)")
+        if mode not in ("strict", "rlc"):
+            raise ValueError(f"unknown verifier mode {mode!r}")
+        if mode == "rlc" and cfg.batch % msm_m:
+            raise ValueError(f"rlc mode needs batch ({cfg.batch}) divisible "
+                             f"by msm_m ({msm_m})")
+        if rlc_select not in SELECTS:
+            raise ValueError(f"unknown rlc_select {rlc_select!r}; expected "
+                             f"one of {SELECTS}")
         self.cfg = cfg
+        self.mode = mode
+        self.msm_m = msm_m
+        self.rlc_select = rlc_select
         self.device = resolve_device(device)
+        self._rng = np.random.default_rng() if rng is None else rng
+        self._fn = ed.verify_batch
 
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
@@ -75,22 +107,32 @@ class SigVerifier:
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device, non_blocking=True)
 
-    def __call__(self, msgs, msg_len, sigs, pubkeys) -> Verdict:
+    def __call__(self, msgs, msg_len, sigs, pubkeys):
         if not isinstance(msg_len, torch.Tensor):
             msg_len = np.asarray(msg_len, dtype=np.int32)
-        return Verdict(ed.verify_batch(self._to_device(msgs),
-                                       self._to_device(msg_len),
-                                       self._to_device(sigs),
-                                       self._to_device(pubkeys)))
+        args = tuple(self._to_device(x)
+                     for x in (msgs, msg_len, sigs, pubkeys))
+        if self.mode == "strict":
+            return Verdict(self._fn(*args))
+        all_ok, _ = self._rlc(args)
+        return _LazyRlcVerdict(self, args, all_ok)
 
-    def packed_dispatch(self, msgs, lens, sigs, pubs) -> Verdict:
+    def packed_dispatch(self, msgs, lens, sigs, pubs):
         """Pack the four arrays into one blob and dispatch it: one
-        host-to-device copy per batch."""
+        host-to-device copy per batch.  rlc mode takes the four arrays
+        (__call__)."""
+        if self.mode == "rlc":
+            return self(msgs, lens, sigs, pubs)
         return self.dispatch_blob(pack_blob(msgs, lens, sigs, pubs))
 
     def dispatch_blob(self, blob, maxlen: int | None = None) -> Verdict:
         """Dispatch an already packed (batch, ml + PACKED_EXTRA) blob; it
-        is read in place on the device, with no unpacking copy."""
+        is read in place on the device, with no unpacking copy.  Strict
+        mode only: running it for an rlc verifier would bypass the
+        configured mode."""
+        if self.mode == "rlc":
+            raise ValueError("dispatch_blob is strict-only (mode='rlc'); "
+                             "dispatch the four arrays instead")
         ml = blob.shape[1] - ed.PACKED_EXTRA
         if maxlen is not None and maxlen != ml:
             raise ValueError(f"blob rows hold ml={ml} message bytes, "
@@ -100,6 +142,93 @@ class SigVerifier:
                 f"blob {tuple(blob.shape)} exceeds the bucket "
                 f"({self.cfg.batch}, {self.cfg.msg_maxlen})")
         return Verdict(ed.verify_blob(self._to_device(blob)))
+
+    def _rlc(self, args):
+        """verify_batch_rlc over device arrays, with a fresh z."""
+        z = self._rng.integers(0, 256, size=(args[2].shape[0], 16),
+                               dtype=np.uint8)
+        return ed.verify_batch_rlc(*args, self._to_device(z), m=self.msm_m,
+                                   select=self.rlc_select)
+
+    def _rlc_slice(self, arrs, lo: int, hi: int) -> bool:
+        all_ok, _ = self._rlc(tuple(a[lo:hi] for a in arrs))
+        return bool(all_ok)
+
+    def _resolve(self, arrs, lo: int, hi: int, out: np.ndarray) -> None:
+        """Exact bits for rows [lo, hi) of a batch whose RLC check
+        failed: halves that pass their own RLC check are accepted
+        wholesale, the others split again, down to strict leaves.  One
+        forged signature costs two RLC checks per level and one strict
+        leaf, not a strict pass over the batch."""
+        n = hi - lo
+        if n <= max(self._SPLIT_LEAF, 2 * self.msm_m) or n % (2 * self.msm_m):
+            out[lo:hi] = self._fn(*(a[lo:hi] for a in arrs)).cpu().numpy()
+            return
+        mid = lo + n // 2
+        for a, b in ((lo, mid), (mid, hi)):
+            if self._rlc_slice(arrs, a, b):
+                out[a:b] = True
+            else:
+                self._resolve(arrs, a, b, out)
+
+
+class _LazyRlcVerdict:
+    """Per-lane bits of an rlc dispatch, resolved when they are read.
+    It meets the same duck protocol as Verdict (is_ready,
+    copy_to_host_async, np.asarray) and the array-like reads the pipeline
+    makes (len, indexing, iteration, all, any).  A batch whose check
+    passed costs one flag copied to the host; a failed batch runs the
+    verifier's descent on the arrays still on the device."""
+
+    def __init__(self, sv: SigVerifier, args, all_ok: torch.Tensor):
+        self._sv = sv
+        self._args = args
+        self._flag = Verdict(all_ok.reshape(1))
+        self._batch = args[2].shape[0]
+        self._result = None
+        self.shape = (self._batch,)
+        self.dtype = np.dtype(bool)
+
+    def is_ready(self) -> bool:
+        return self._result is not None or self._flag.is_ready()
+
+    def copy_to_host_async(self):
+        self._flag.copy_to_host_async()
+
+    def _materialize(self) -> np.ndarray:
+        if self._result is None:
+            if np.asarray(self._flag)[0]:
+                self._result = np.ones(self._batch, dtype=bool)
+            else:
+                out = np.zeros(self._batch, dtype=bool)
+                self._sv._resolve(self._args, 0, self._batch, out)
+                self._result = out
+        return self._result
+
+    def __array__(self, dtype=None, copy=None):
+        r = self._materialize()
+        return r if dtype is None else r.astype(dtype)
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __len__(self):
+        return self._batch
+
+    def __bool__(self):
+        # without this, bool() would fall back to __len__ and read True
+        # for any non-empty batch, a failed one included
+        raise ValueError("truth value of a per-lane verdict is ambiguous; "
+                         "use .all(), .any() or np.asarray(verdict)")
+
+    def all(self):
+        return self._materialize().all()
+
+    def any(self):
+        return self._materialize().any()
 
 
 def make_example_batch(batch: int, maxlen: int, valid: bool = True,

@@ -10,13 +10,20 @@ last doubling of a window computes T, and the base add that closes a
 window skips it too, since the next doubling never reads T.  The CUDA
 tail kernel (csrc/ge25519.cuh) runs the same formulas in the same order,
 so the two produce equal X and Z, not merely the same projective point.
+
+The RLC batch check adds the lane-parallel Straus MSM (msm_lanes, the
+plain version of csrc/msm.cu, which runs the same formulas in the same
+order), its tree fold over the lanes and the fixed-base comb
+scalar_mul_base, as the JAX package computes them.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from . import f25519 as fe
+from . import scalar25519 as sc
 
 P = fe.P
 D = (-121665 * pow(121666, P - 2, P)) % P
@@ -184,28 +191,143 @@ def _pick(tab, idx):
     return tab.gather(0, g)[0]
 
 
+def niels_table(p: Point, n: int) -> torch.Tensor:
+    """[0..n-1]P in Niels form as an (n, 4, 10, batch) tensor: entry 0
+    the identity, entry 1 P itself, then repeated unified adds of P (the
+    TPU kernels' table; the XLA path's scan reaches the same points
+    through other coordinates)."""
+    pts = [identity(p.X.shape[1], p.X.device), p]
+    for _ in range(n - 2):
+        pts.append(add(pts[-1], p))
+    return torch.stack([torch.stack(list(to_niels(q))) for q in pts])
+
+
+def _add_signed(acc: Point, tab, mag, sgn) -> Point:
+    """acc + (-1)^sgn [mag]P from P's Niels table: a negative digit swaps
+    Y - X with Y + X and negates 2dT."""
+    ym, yp, z, t2d = _pick(tab, mag)
+    neg = sgn == 1
+    return add_niels(acc, Niels(torch.where(neg, yp, ym),
+                                torch.where(neg, ym, yp), z,
+                                torch.where(neg, fe.neg(t2d), t2d)))
+
+
 def double_scalar_mul_base(s_mag, s_sgn, k_mag, k_sgn, a: Point) -> Point:
     """[s]B + [k]A over signed 4-bit windows (mag 0..8, sgn 0/1; each
     (64, batch)), high window first.  T of the result is stale."""
     batch, dev = a.X.shape[1], a.X.device
-    pts = [identity(batch, dev), a]
-    for _ in range(7):
-        pts.append(add(pts[-1], a))
-    tab_a = torch.stack([torch.stack(list(to_niels(p))) for p in pts])
+    tab_a = niels_table(a, 9)
     tab_b = base_table(dev)
     acc = identity(batch, dev)
     for w in range(63, -1, -1):
         for j in range(4):
             acc = double(acc, want_t=(j == 3))
-        ym, yp, z, t2d = _pick(tab_a, k_mag[w])
-        neg_k = k_sgn[w] == 1
-        acc = add_niels(acc, Niels(torch.where(neg_k, yp, ym),
-                                   torch.where(neg_k, ym, yp), z,
-                                   torch.where(neg_k, fe.neg(t2d), t2d)))
+        acc = _add_signed(acc, tab_a, k_mag[w], k_sgn[w])
         bym, byp, bt2d, bnt2d = _pick(tab_b, s_mag[w])
         neg_s = s_sgn[w] == 1
         acc = add_affine_niels(acc, torch.where(neg_s, byp, bym),
                                torch.where(neg_s, bym, byp),
                                torch.where(neg_s, bnt2d, bt2d),
                                want_t=False)
+    return acc
+
+
+# ------------------------------------------------ the RLC batch check
+
+
+def neg(p: Point) -> Point:
+    return Point(fe.neg(p.X), p.Y, p.Z, fe.neg(p.T))
+
+
+def is_identity(p: Point):
+    """Projective p == (0 : 1 : 1): X = 0 and Y = Z."""
+    return fe.is_zero(p.X) & fe.eq(p.Y, p.Z)
+
+
+def _affine_host(p):
+    x, y, z, _ = p
+    zi = pow(z, P - 2, P)
+    return (x * zi % P, y * zi % P, 1, x * zi * y * zi % P)
+
+
+@functools.lru_cache(maxsize=None)
+def base_window_tables(device) -> torch.Tensor:
+    """[i * 16^w]B for the fixed-base comb, in affine Niels form (y - x,
+    y + x, 2dxy): a (64, 16, 3, 10) limb tensor (ref curve25519.py
+    _base_window_tables)."""
+    rows = []
+    cur = (BASE_X, BASE_Y, 1, BASE_X * BASE_Y % P)
+    for _ in range(64):
+        acc, row = (0, 1, 1, 0), []
+        for i in range(16):
+            x, y, _, t = _affine_host(acc) if i else acc
+            row.append([fe.int_to_limbs(v) for v in
+                        ((y - x) % P, (y + x) % P, t * D2 % P)])
+            acc = _pt_add_host(acc, cur)
+        rows.append(row)
+        for _ in range(4):
+            cur = _pt_add_host(cur, cur)
+        cur = _affine_host(cur)
+    return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
+def scalar_mul_base(windows) -> Point:
+    """[s]B by the fixed-base comb: windows (64, batch) of unsigned 4-bit
+    digits, low first; the sum over w of [s_w * 16^w]B, one affine Niels
+    add per window and no doublings."""
+    batch, dev = windows.shape[1], windows.device
+    tabs = base_window_tables(dev)
+    acc = identity(batch, dev)
+    for w in range(64):
+        ym, yp, t2d = _pick(tabs[w], windows[w])
+        acc = add_affine_niels(acc, ym, yp, t2d)
+    return acc
+
+
+def msm_lanes(windows, points: Point, m: int, nwin: int,
+              select: str) -> Point:
+    """The per-lane half of the lane-parallel Straus MSM (the plain
+    version of csrc/msm.cu).  windows (nwin, n) unsigned 4-bit digits,
+    low first; points (10, n) planes; lanes = n / m.  Lane l accumulates
+    the points j * lanes + l (j < m) in one shared chain: per window, high
+    first, four doublings and m Niels adds.  select "legacy" picks from
+    [0..15]P tables; "p16" recodes to signed digits over nwin + 1 windows
+    and picks from [0..8]P tables.  Returns the (10, lanes) accumulators."""
+    n = windows.shape[1]
+    lanes = n // m
+    if select == "p16":
+        mags, sgns = sc.signed_windows_ext(windows)
+        ntab = 9
+    else:
+        mags, sgns, ntab = windows, None, 16
+    mags = mags.reshape(-1, m, lanes)
+    if sgns is not None:
+        sgns = sgns.reshape(-1, m, lanes)
+    tabs = [niels_table(Point(*(t.reshape(fe.NLIMB, m, lanes)[:, j]
+                                for t in points)), ntab) for j in range(m)]
+    acc = identity(lanes, windows.device)
+    for w in range(mags.shape[0] - 1, -1, -1):
+        for k in range(4):
+            acc = double(acc, want_t=(k == 3))
+        for j in range(m):
+            if sgns is None:
+                acc = add_niels(acc, Niels(*_pick(tabs[j], mags[w, j])))
+            else:
+                acc = _add_signed(acc, tabs[j], mags[w, j], sgns[w, j])
+    return acc
+
+
+def fold_lanes(acc: Point) -> Point:
+    """Tree-fold (10, lanes) points to one (10, 1) point, as the JAX
+    package folds: the low half plus the high half, an odd last lane
+    carried into the next level."""
+    while acc.X.shape[1] > 1:
+        lanes = acc.X.shape[1]
+        half = lanes // 2
+        s = add(Point(*(t[:, :half] for t in acc)),
+                Point(*(t[:, half:2 * half] for t in acc)))
+        if lanes % 2:
+            s = Point(*(torch.cat([ts, ta[:, 2 * half:]], 1)
+                        for ts, ta in zip(s, acc)))
+        acc = s
     return acc

@@ -16,6 +16,12 @@ _compressed_r_check settles the rest of R from its bytes, without
 decompressing it.  On a CUDA tensor both kernels launch; on a CPU tensor
 their plain versions run.
 
+verify_batch_rlc is the random-linear-combination batch check (one bit
+for a whole batch): the decompress kernel for A and R, the same SHA-512
+kernel, the scalar chain in torch, the msm kernel for the two
+multi-scalar sums, and a torch finish (the lane folds, the comb [c]B and
+the identity test).
+
 The host helpers at the bottom (signing, a Python-int verifier) are this
 package's own copies; it imports nothing of the JAX package.
 """
@@ -26,6 +32,9 @@ import torch
 
 from . import curve25519 as cv
 from . import f25519 as fe
+from . import scalar25519 as sc
+from .decompress import decompress
+from .msm import msm
 from .scalar25519 import L
 from .sha512_kernel import lens_to_bytes, sha512_ram
 from .verify_tail import verify_tail
@@ -92,6 +101,66 @@ def verify_blob(blob):
     return _verify_rows(blob[:, :ml], blob[:, ml + 96:ml + 100],
                         blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
                         blob[:, ml + 64:ml + 96])
+
+
+# ------------------------------------------------- RLC batch verification
+
+
+def _decompress_checked(b):
+    """(ok, point): decompress, with a small-order point rejected."""
+    ok, small, pt = decompress(b)
+    return ok & ~small, pt
+
+
+def verify_batch_rlc(msgs, msg_len, sigs, pubkeys, z_bytes, m: int = 8,
+                     select: str = "legacy"):
+    """Random-linear-combination batch check: one bit for the batch.
+
+    Checks [sum z_i s_i]B == sum [z_i]R_i + sum [z_i k_i]A_i, with z_i the
+    caller's fresh random 128-bit scalars (z_bytes uint8 (batch, 16)), by
+    two lane-parallel MSMs of m points per lane.  If every signature
+    passes the strict rules the combined equation holds; a forgery passes
+    only for a z draw in a set of about 2^-125.  Cofactorless, as the
+    strict path: a rejected batch must be settled signature by signature
+    (SigVerifier's descent) for exact bits.
+
+    The arguments are verify_batch's, plus z_bytes, m (points per MSM
+    lane; batch % m == 0) and select ("legacy" or "p16", the MSM kernel's
+    table select; the JAX package reads it from FDTPU_RLC_SELECT).
+    Returns (all_ok: bool scalar, prechecks: bool (batch,)) on the
+    device, where prechecks is S < L and both A and R decompress to points
+    not of small order."""
+    r_bytes, s_bytes = sigs[:, :32], sigs[:, 32:]
+    ok_a, a_pt = _decompress_checked(pubkeys)
+    ok_r, r_pt = _decompress_checked(r_bytes)
+    digest = sha512_ram(msgs, r_bytes, pubkeys, lens_to_bytes(msg_len))
+    ok_s, w_windows, z_windows, c_windows = _rlc_scalars(digest, s_bytes,
+                                                         z_bytes)
+    acc_a = msm(w_windows, cv.neg(a_pt), m, 64, select)
+    acc_r = msm(z_windows, cv.neg(r_pt), m, 32, select)
+    pre = ok_s & ok_a & ok_r
+    return pre.all() & _rlc_finish(acc_a, acc_r, c_windows), pre
+
+
+def _rlc_scalars(digest, s_bytes, z_bytes):
+    """The scalar chain, plain torch as in the JAX package: S < L, and
+    the windows of w = z k mod L (64, batch), of z (32, batch) and of c =
+    sum z s mod L (64, 1), for k = digest mod L."""
+    z_limbs = sc.bytes_to_limbs(z_bytes, 11)
+    w_limbs = sc.mul_mod_l(sc.reduce_512(digest), z_limbs)
+    c_limbs = sc.sum_mod_l(
+        sc.mul_mod_l(sc.bytes_to_limbs(s_bytes, 22), z_limbs), axis=0)
+    z_windows = sc.limbs_to_windows(
+        torch.cat([z_limbs, torch.zeros_like(z_limbs)]))[:32]
+    return (sc.is_canonical(s_bytes), sc.limbs_to_windows(w_limbs),
+            z_windows, sc.limbs_to_windows(c_limbs)[:, None])
+
+
+def _rlc_finish(acc_a, acc_r, c_windows):
+    """Q = [c]B - sum [w_i]A_i - sum [z_i]R_i is the identity (bool
+    scalar): acc_a and acc_r are the two MSMs over the negated points."""
+    q = cv.add(cv.add(acc_a, acc_r), cv.scalar_mul_base(c_windows))
+    return cv.is_identity(q)[0]
 
 
 # ------------------------------------------------------------- host side

@@ -5,7 +5,9 @@ Counterpart of firedancer_tpu/ops/scalar25519.py, same algorithm: radix
 (L = 2^252 + C) until the value is below 2^253, then adding 2L and
 subtracting L while it is not below L.  Limbs are int64 here, so no
 product or column sum comes near overflow.  The CUDA tail kernel
-(csrc/verify_tail.cu) transcribes the same steps.
+(csrc/verify_tail.cu) transcribes the same steps.  The RLC scalar chain
+(mul_mod_l, sum_mod_l and the extended signed recode) runs here in
+torch, as it runs in XLA in the JAX package.
 """
 
 import torch
@@ -94,6 +96,48 @@ def is_canonical(scalar_bytes):
     return borrow == 1
 
 
+def mul_mod_l(a, b):
+    """Products mod L: a (22, *batch) and b (nb <= 22, *batch) canonical
+    limbs -> canonical (22, *batch).  A 22 x nb convolution, then the
+    reduce_512 folds until 23 limbs remain."""
+    nb = b.shape[0]
+    x = torch.zeros((22 + nb,) + a.shape[1:], dtype=torch.int64,
+                    device=a.device)
+    for i in range(nb):
+        x[i:i + 22] += b[i] * a
+    x = _carry_signed(x, 3)
+    while x.shape[0] > 23:
+        x = _carry_signed(_fold_once(x), 2)
+    x = _carry_signed(_fold_once(x), 2)
+    x = torch.cat([x[:22] + _l2(x), x[22:]])
+    return _cond_sub_l(_carry_signed(x, 3), times=4)
+
+
+def sum_mod_l(limbs, axis: int):
+    """Sum canonical (22, *batch) limb vectors over batch axis `axis`
+    (counted after the limb axis), mod L.  A tree of halvings, the odd
+    element carried into the next level, with a carry pass every eight
+    levels, as the JAX package sums."""
+    ax = axis + 1
+    x = limbs
+    steps = 0
+    while x.shape[ax] > 1:
+        n = x.shape[ax]
+        half = n // 2
+        s = x.narrow(ax, 0, half) + x.narrow(ax, half, half)
+        if n % 2:
+            s = torch.cat([s, x.narrow(ax, 2 * half, 1)], ax)
+        x = s
+        steps += 1
+        if steps % 8 == 0:
+            x = _carry_signed(x, 2)
+    x = x.squeeze(ax)
+    x = _carry_signed(torch.cat([x, torch.zeros_like(x[:2])]), 3)
+    x = _carry_signed(_fold_once(x), 2)
+    x = torch.cat([x[:22] + _l2(x), x[22:]])
+    return _cond_sub_l(_carry_signed(x, 3), times=4)
+
+
 def limbs_to_windows(limbs):
     """(22, *batch) 12-bit limbs -> (64, *batch) 4-bit windows, low first."""
     j = torch.arange(64, device=limbs.device)
@@ -120,6 +164,18 @@ def signed_windows(w):
         sgns.append(over.to(w.dtype))
         carry = over.to(w.dtype)
     return torch.stack(mags), torch.stack(sgns)
+
+
+def signed_windows_ext(w):
+    """signed_windows with the carry out of the top window appended as
+    one more window: (nwin, *batch) -> (nwin + 1, *batch) each (ref
+    curve_pallas.signed_windows_ext).  Value-preserving for any scalar
+    width: the RLC z scalars fill all 32 windows of their 128 bits, so
+    their top window can carry out, which signed_windows would drop."""
+    mags, sgns = signed_windows(w)
+    # a window recoded negative is exactly one that carries out
+    return (torch.cat([mags, sgns[-1:]]),
+            torch.cat([sgns, torch.zeros_like(sgns[-1:])]))
 
 
 def to_int(limbs) -> int:

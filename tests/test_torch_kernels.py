@@ -3,7 +3,7 @@
 Marked `gpu`: each test decides inside the `cuda` fixture whether a card
 is present and skips without one (this file's tests then count no pass).
 On the card, `python3 chip_smoke.py` is the full check: the same
-comparisons at the serving shapes, the corpora and the timed main path.
+comparisons at the serving shapes, the corpora and the timed paths.
 """
 
 import hashlib
@@ -13,8 +13,11 @@ import pytest
 import torch
 
 from firedancer_tpu_torch.models import verifier as tv
+from firedancer_tpu_torch.ops import curve25519 as cv
+from firedancer_tpu_torch.ops import decompress as dc
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
+from firedancer_tpu_torch.ops import msm as ms
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
 
@@ -78,3 +81,49 @@ def test_sig_verifier_on_the_card_matches_host(cuda):
     verdict = ver.dispatch_blob(blob)
     verdict.copy_to_host_async()
     assert np.asarray(verdict).tolist() == ed.host_verify_blob(blob)
+
+
+def _canon_equal(got, want) -> bool:
+    return all(fe.to_ints(k.cpu()) == fe.to_ints(p.cpu())
+               for k, p in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 63, 1055])
+def test_decompress_kernel_matches_plain(cuda, n):
+    _, _, sigs, pubs, _ = tv.make_adversarial_batch(528, 16)
+    b = torch.from_numpy(np.concatenate([pubs, sigs[:, :32]])[:n])
+    before = dc.decompress.launches
+    ok_k, sm_k, p_k = dc.decompress(b.to(cuda))
+    assert dc.decompress.launches == before + 1
+    ok_p, sm_p, p_p = dc.decompress_plain(b)
+    assert torch.equal(ok_k.cpu(), ok_p) and torch.equal(sm_k.cpu(), sm_p)
+    assert _canon_equal(p_k, p_p)
+
+
+@pytest.mark.parametrize("select", ms.SELECTS)
+@pytest.mark.parametrize("m,nwin", [(8, 64), (4, 32)])
+def test_msm_kernel_matches_plain(cuda, select, m, nwin):
+    """Per-lane accumulators over the negated decompressed keys (valid,
+    small-order and off-curve ones) with random digits."""
+    _, _, _, pubs, _ = tv.make_adversarial_batch(264, 16)
+    _, _, pt = dc.decompress_plain(torch.from_numpy(pubs))
+    pts = cv.neg(pt)
+    wins = torch.from_numpy(np.random.default_rng(m).integers(
+        0, 16, (nwin, len(pubs))))
+    before = ms.msm_lanes.launches[select]
+    got = ms.msm_lanes(wins.to(cuda), cv.Point(*(t.to(cuda) for t in pts)),
+                       m, nwin, select)
+    assert ms.msm_lanes.launches[select] == before + 1
+    assert _canon_equal(got, cv.msm_lanes(wins, pts, m, nwin, select))
+
+
+def test_rlc_verifier_on_the_card_matches_host(cuda):
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(64, 128)
+    ver = tv.SigVerifier(tv.VerifierConfig(64, 128), mode="rlc")
+    assert ver.device.type == "cuda"
+    clean = tv.make_example_batch(64, 128, True, 3, sign_pool=64)
+    assert np.asarray(ver(*clean)).all()
+    verdict = ver(msgs, lens, sigs, pubs)
+    verdict.copy_to_host_async()
+    assert np.asarray(verdict).tolist() == ed.host_verify_blob(
+        tv.pack_blob(msgs, lens, sigs, pubs))

@@ -1,0 +1,88 @@
+"""The port's MSM (the plain version of csrc/msm.cu and its fold) against
+the JAX package's XLA cv.msm and its Pallas curve_pallas.msm in interpret
+mode, for both selects, on the same points and scalars: full 128-bit
+scalars over 32 windows, with the top nibble >= 8 so that the p16 recode
+carries out of the top window.  The selects and the two packages take
+different paths (other tables, other coordinates), so the sums are
+compared as affine points, as tests/test_curve_pallas.py compares them,
+and against the sum computed on Python ints.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from firedancer_tpu.ops import curve25519 as jcv
+from firedancer_tpu.ops import curve_pallas as jcp
+from firedancer_tpu.ops import f25519 as jfe
+from firedancer_tpu_torch import interop
+from firedancer_tpu_torch.ops import ed25519 as ed
+from firedancer_tpu_torch.ops import f25519 as fe
+from firedancer_tpu_torch.ops import msm as ms
+from firedancer_tpu_torch.ops import scalar25519 as sc
+
+P = fe.P
+M, N, NWIN = 2, 16, 32
+
+
+def _affine(xyz) -> tuple[int, int]:
+    x, y, z = xyz
+    zi = pow(z, P - 2, P)
+    return x * zi % P, y * zi % P
+
+
+def _port_affine(pt) -> tuple[int, int]:
+    return _affine([interop.field_to_ints(t)[0] for t in pt[:3]])
+
+
+def _jax_affine(pt) -> tuple[int, int]:
+    return _affine([interop.field_to_ints(np.asarray(t).reshape(-1, 1))[0]
+                    for t in pt[:3]])
+
+
+@pytest.fixture(scope="module")
+def case():
+    """N points [k_i]B (projective, from Python-int adds) as JAX limb
+    planes and through interop as port planes, their windows both ways,
+    and the expected affine sum."""
+    rng = np.random.default_rng(31)
+    ks = [int.from_bytes(rng.bytes(8), "little") for _ in range(N)]
+    pts = [ed._scalar_mul_base_host(k) for k in ks]
+    jplanes = tuple(np.stack([jfe._to_limbs_py(p[i]) for p in pts], axis=1)
+                    for i in range(4))
+    sb = np.zeros((N, 32), np.uint8)
+    sb[:, :16] = rng.integers(0, 256, (N, 16), np.uint8)
+    sb[:, 15] |= 0x80
+    jwin = np.asarray(jcv.scalar_windows(jnp.asarray(sb)))[:NWIN]
+    s_vals = [int.from_bytes(bytes(r), "little") for r in sb]
+    want = _affine(ed._scalar_mul_base_host(
+        sum(k * s for k, s in zip(ks, s_vals)) % sc.L)[:3])
+    port = (interop.windows_from_jax(jwin), interop.point_from_jax(jplanes))
+    jax_args = (jnp.asarray(jwin), jcv.Point(*map(jnp.asarray, jplanes)))
+    return port, jax_args, want
+
+
+def test_interop_carries_points_and_windows(case):
+    (win, pt), _, _ = case
+    assert win.dtype == torch.int64 and win.shape == (NWIN, N)
+    assert tuple(pt.X.shape) == (fe.NLIMB, N)
+    assert int(win.max()) >= 8 and int(win[NWIN - 1].min()) >= 8
+
+
+def test_msm_plain_matches_xla_msm(case):
+    port, jax_args, want = case
+    assert _jax_affine(jcv.msm(*jax_args, m=M, nwin=NWIN)) == want
+    for select in ms.SELECTS:
+        assert _port_affine(ms.msm_plain(*port, M, NWIN, select)) == want
+        # the wrapper takes the same plain version for CPU tensors
+        assert _port_affine(ms.msm(*port, M, NWIN, select)) == want
+
+
+@pytest.mark.parametrize("select", ms.SELECTS)
+def test_msm_plain_matches_pallas_interpret(case, select):
+    port, jax_args, want = case
+    got = jcp.msm(*jax_args, m=M, nwin=NWIN, blk=8, interpret=True,
+                  select=select)
+    assert _jax_affine(got) == _port_affine(
+        ms.msm_plain(*port, M, NWIN, select)) == want
