@@ -9,7 +9,10 @@ conformance corpora and the serving buckets through
 SigVerifier.dispatch_blob (sha512 and verify_tail kernels).  The RLC
 batch-verify path: clean buckets through SigVerifier(mode="rlc") with
 both MSM selects, a batch with one forgery through the strict descent,
-and the corpora in rlc mode (decompress, msm and sha512 kernels).  Each
+and the corpora in rlc mode: through the descent, and each vector that
+passes the prechecks alone among m - 1 valid signatures, its batch bit
+held against the exact batch equation on Python ints (decompress, msm
+and sha512 kernels).  Each
 path runs with the launch counts set to 0 just before it and read just
 after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
@@ -351,6 +354,8 @@ def main() -> int:
                 c_win, (digest, sigs_d[:, 32:], z))
 
     def hold_msm(win, pts, nwin, select):
+        """Kernel vs plain per lane: canonical X, Y, Z, T equal.  Returns
+        (max error, kernel lanes)."""
         got = ms.msm_lanes(win, pts, MSM_M, nwin, select)
         want = cv.msm_lanes(win, pts, MSM_M, nwin, select)
         err = max(int((fe.canonical(k) - fe.canonical(q)).abs().max())
@@ -358,25 +363,37 @@ def main() -> int:
         if err:
             raise AssertionError(f"msm {select} nwin {nwin}: {win.shape[1]} "
                                  f"points, lanes differ from plain, max {err}")
-        return got
+        return err, got
 
-    msm_in, c_win, _ = msm_inputs(rlc_dev[(32768, 128)], 7)
-    folded = {sel: [cv.fold_lanes(hold_msm(*i, sel)) for i in msm_in]
-              for sel in ms.SELECTS}
-    for a, b in zip(*folded.values()):
-        same = fe.eq(fe.mul(a.X, b.Z), fe.mul(b.X, a.Z)) & fe.eq(
-            fe.mul(a.Y, b.Z), fe.mul(b.Y, a.Z))
-        if not bool(same.all()):
-            raise AssertionError("msm: the selects' folded sums differ")
-    for sel in ms.SELECTS:
-        if not bool(ed._rlc_finish(*folded[sel], c_win)):
-            raise AssertionError(f"msm {sel}: the clean batch's RLC "
-                                 f"equation does not hold")
     msm_err = 0
-    print(f"msm: kernel == plain per lane at 32768x128 (m {MSM_M}, nwin 64 "
-          f"and 32, {32768 // MSM_M} lanes), both selects: canonical X, Y, "
-          f"Z, T; legacy and p16 fold to the same points; [c]B - sum = "
-          f"identity")
+    for batch, bml in RLC_BUCKETS:
+        msm_in, c_win, _ = msm_inputs(rlc_dev[(batch, bml)], 7 + batch)
+        folded = {sel: [] for sel in ms.SELECTS}
+        for sel in ms.SELECTS:
+            for win, pts, nwin in msm_in:
+                # every point, m fewer (a lane count that leaves a partial
+                # block) and one lane (the per-vector batches of phase 10)
+                for k in (batch, batch - MSM_M, MSM_M):
+                    err, got = hold_msm(win[:, :k], cv.Point(*(
+                        t[:, :k] for t in pts)), nwin, sel)
+                    msm_err = max(msm_err, err)
+                    if k == batch:
+                        folded[sel].append(cv.fold_lanes(got))
+        for a, b in zip(*folded.values()):
+            same = fe.eq(fe.mul(a.X, b.Z), fe.mul(b.X, a.Z)) & fe.eq(
+                fe.mul(a.Y, b.Z), fe.mul(b.Y, a.Z))
+            if not bool(same.all()):
+                raise AssertionError(f"msm {batch}: the selects' folded sums "
+                                     f"differ")
+        for sel in ms.SELECTS:
+            if not bool(ed._rlc_finish(*folded[sel], c_win)):
+                raise AssertionError(f"msm {sel} {batch}: the clean batch's "
+                                     f"RLC equation does not hold")
+        print(f"msm: kernel == plain per lane at {batch}x{bml} (m {MSM_M}, "
+              f"nwin 64 and 32; {batch // MSM_M}, {batch // MSM_M - 1} and 1 "
+              f"lanes), both selects: canonical X, Y, Z, T, max error "
+              f"{msm_err}; legacy and p16 fold to the same points; [c]B - "
+              f"sum = identity")
 
     # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
     # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512
@@ -419,7 +436,9 @@ def main() -> int:
     note(f"rlc dirty 32768x128 (one forged S): bits as constructed through "
          f"the descent, {t_descent:.4f} ms")
 
-    # ---- phase 10: the corpora in rlc mode, padded to a multiple of m
+    # ---- phase 10: the corpora in rlc mode.  (a) SigVerifier over the
+    # corpora padded to a multiple of m: the batch fails, and the descent's
+    # strict bits must be golden's.
     npad = -len(vecs) % MSM_M
     gver = V.SigVerifier(V.VerifierConfig(len(vecs) + npad, cml),
                          mode="rlc", msm_m=MSM_M)
@@ -427,12 +446,70 @@ def main() -> int:
     def padded(a):
         return np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
 
-    gbits = np.asarray(gver(*map(padded, (cmsgs, clens, csigs, cpubs))))
+    garrs = tuple(map(padded, (cmsgs, clens, csigs, cpubs)))
+    gbits = np.asarray(gver(*garrs))
     if not (np.array_equal(gbits[:len(vecs)], golden)
             and not gbits[len(vecs):].any()):
         raise AssertionError("rlc corpus: bits differ from golden")
-    print(f"rlc corpus: {len(vecs)} vectors == golden, {npad} zero pads "
-          f"reject")
+    print(f"rlc corpus: {len(vecs)} vectors == golden through the descent, "
+          f"{npad} zero pads reject")
+    # (b) the batch check's prechecks, lane by lane, against the host's
+    zrng = np.random.default_rng(10)
+    gz = torch.from_numpy(zrng.integers(0, 256, (len(vecs) + npad, 16),
+                                        np.uint8)).to(dev)
+    g_ok, g_pre = ed.verify_batch_rlc(
+        *(torch.from_numpy(a).to(dev) for a in garrs), gz, m=MSM_M)
+    rows = [(bytes(csigs[i]), bytes(cmsgs[i, :clens[i]]), bytes(cpubs[i]))
+            for i in range(len(vecs))]
+    decoded = [ed.prechecks_host(sg, pb) for sg, _, pb in rows]
+    want_pre = [d is not None for d in decoded] + [False] * npad
+    if bool(g_ok) or g_pre.cpu().tolist() != want_pre:
+        raise AssertionError("rlc corpus: prechecks differ from the host's")
+    # (c) each vector that passes them alone among m - 1 valid signatures:
+    # the batch bit against the exact batch equation on Python ints, for
+    # one draw of z, and where A or R has a part of small order (which
+    # the cofactorless equation does not see for 1 in ord draws) a second
+    # draw with z = 0 mod 8
+    pm, pl, ps, pp = V.make_example_batch(MSM_M - 1, cml, True, 11)
+    pads = [(bytes(s_), bytes(m_[:n_]), bytes(p_))
+            for m_, n_, s_, p_ in zip(pm, pl, ps, pp)]
+    pads_d = [torch.from_numpy(a).to(dev) for a in (pm, pl, ps, pp)]
+    alone = {"calls": 0, "vectors": 0, "torsion": 0,
+             "accept_strict_rejects": 0, "reject_strict_accepts": 0}
+    t0 = time.perf_counter()
+    for i, dec in enumerate(decoded):
+        if dec is None:
+            continue
+        _, a_pt, r_pt = dec
+        torsion = ed.has_torsion_host(a_pt) or ed.has_torsion_host(r_pt)
+        alone["vectors"] += 1
+        alone["torsion"] += torsion
+        row_d = [torch.from_numpy(a[i:i + 1]).to(dev)
+                 for a in (cmsgs, clens, csigs, cpubs)]
+        args = tuple(torch.cat([r, q]) for r, q in zip(row_d, pads_d))
+        zs = [int.from_bytes(zrng.bytes(16), "little") for _ in range(MSM_M)]
+        for zv in ([zs[0], zs[0] & ~7] if torsion else [zs[0]]):
+            zs[0] = zv
+            zb = torch.from_numpy(np.array(
+                [list(v.to_bytes(16, "little")) for v in zs], np.uint8))
+            bit = bool(ed.verify_batch_rlc(*args, zb.to(dev), m=MSM_M)[0])
+            host = ed.rlc_batch_host(*zip(*([rows[i]] + pads)), zs)
+            alone["calls"] += 1
+            if bit != host or (not torsion and bit != golden[i]):
+                raise AssertionError(
+                    f"rlc vector {i} alone, z mod 8 = {zv % 8}: bit {bit}, "
+                    f"exact equation {host}, golden {golden[i]}")
+            alone["accept_strict_rejects"] += bit and not golden[i]
+            alone["reject_strict_accepts"] += golden[i] and not bit
+    print(f"rlc corpus: prechecks == host on {len(want_pre)} lanes; each of "
+          f"the {alone['vectors']} vectors that pass them alone among "
+          f"{MSM_M - 1} valid signatures: batch bit == the exact equation "
+          f"on Python ints in {alone['calls']} calls "
+          f"({time.perf_counter() - t0:.1f} s), == golden where A and R have "
+          f"no small-order part; where one has ({alone['torsion']} "
+          f"vectors), the batch bit accepted a vector strict rejects "
+          f"{alone['accept_strict_rejects']} times and rejected one strict "
+          f"accepts {alone['reject_strict_accepts']} times")
 
     # ---- what the profiler sees of one dispatch and of the torch finish
     from torch.profiler import ProfilerActivity, profile
@@ -580,9 +657,10 @@ def main() -> int:
          f"nwin 64 {', '.join(f'{k} {v:.4f} ms' for k, v in plain_msm.items())}")
 
     # ---- the kernels record: the strict kernels at the serving bucket
-    # (the first), the RLC kernels at 32768 x 128 (the A side for msm);
-    # launches from each path's run above
-    t_sha, t_tail, sb, tb = timing[(batch, bml)]
+    # (the first, where their plain versions were timed), the RLC kernels
+    # at 32768 x 128 (the A side for msm); launches from each path's run
+    # above
+    t_sha, t_tail, sb, tb = timing[BUCKETS[0][:2]]
     t_dec, db = rlc_kern[("decompress", 32768)]
     rlc_rows = [
         {"name": "decompress", "route": "cuda",

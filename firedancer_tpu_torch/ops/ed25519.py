@@ -118,11 +118,17 @@ def verify_batch_rlc(msgs, msg_len, sigs, pubkeys, z_bytes, m: int = 8,
 
     Checks [sum z_i s_i]B == sum [z_i]R_i + sum [z_i k_i]A_i, with z_i the
     caller's fresh random 128-bit scalars (z_bytes uint8 (batch, 16)), by
-    two lane-parallel MSMs of m points per lane.  If every signature
-    passes the strict rules the combined equation holds; a forgery passes
-    only for a z draw in a set of about 2^-125.  Cofactorless, as the
-    strict path: a rejected batch must be settled signature by signature
-    (SigVerifier's descent) for exact bits.
+    two lane-parallel MSMs of m points per lane.  Each signature adds the
+    term [z s mod L]B - [z k mod L]A - [z]R (rlc_term_host).  A forgery
+    whose residual [S]B - R - [k]A has a part in the prime-order subgroup
+    passes only with probability about 2^-125 over z.  A residual of
+    small order does not: A and R of mixed order (a small-order part on
+    a prime-order point) pass the small-order precheck, and [z]T is the
+    identity for 1 in ord(T) draws, up to 1/2.  So this check can accept
+    a signature the strict rules reject, and can reject a strictly valid
+    one whose A is of mixed order.  The JAX package's check is the same
+    (ROADMAP section 3).  A rejected batch is settled signature by
+    signature (SigVerifier's descent) for exact bits.
 
     The arguments are verify_batch's, plus z_bytes, m (points per MSM
     lane; batch % m == 0) and select ("legacy" or "p16", the MSM kernel's
@@ -241,25 +247,77 @@ def _compress_host(p) -> bytes:
     return (y | ((x & 1) << 255)).to_bytes(32, "little")
 
 
+def prechecks_host(sig: bytes, pub: bytes):
+    """Rules 1-3 on Python ints, the prechecks of both paths: (S, A, R)
+    decoded, or None where S >= L or A or R does not decode or is of
+    small order."""
+    s = int.from_bytes(sig[32:], "little")
+    a, r = _decompress_host(pub), _decompress_host(sig[:32])
+    if (s >= L or a is None or r is None or _is_small_order_host(a)
+            or _is_small_order_host(r)):
+        return None
+    return s, a, r
+
+
+def _k_host(sig: bytes, msg: bytes, pub: bytes) -> int:
+    return int.from_bytes(hashlib.sha512(sig[:32] + pub + msg).digest(),
+                          "little") % L
+
+
+def _neg_host(p):
+    return (-p[0] % P, p[1], p[2], -p[3] % P)
+
+
+def _is_identity_host(p) -> bool:
+    return p[0] % P == 0 and (p[1] - p[2]) % P == 0
+
+
 def verify_one_host(sig: bytes, msg: bytes, pub: bytes) -> bool:
     """Single-item verify on Python ints, the same acceptance rules."""
     if len(sig) != 64 or len(pub) != 32:
         return False
-    s = int.from_bytes(sig[32:], "little")
-    if s >= L:
+    dec = prechecks_host(sig, pub)
+    if dec is None:
         return False
-    a = _decompress_host(pub)
-    r = _decompress_host(sig[:32])
-    if a is None or r is None:
-        return False
-    if _is_small_order_host(a) or _is_small_order_host(r):
-        return False
-    k = int.from_bytes(hashlib.sha512(sig[:32] + pub + msg).digest(),
-                       "little") % L
-    neg_a = (P - a[0], a[1], a[2], P - a[3])
-    xq, yq, zq, _ = _pt_add_host(_scalar_mul_base_host(s),
-                                 _scalar_mul_host(k, neg_a))
+    s, a, r = dec
+    xq, yq, zq, _ = _pt_add_host(
+        _scalar_mul_base_host(s),
+        _scalar_mul_host(_k_host(sig, msg, pub), _neg_host(a)))
     return (xq - r[0] * zq) % P == 0 and (yq - r[1] * zq) % P == 0
+
+
+def has_torsion_host(p) -> bool:
+    """Whether a point has a part of small order: [L]p is not the
+    identity (the curve's group is Z/8 x Z/L)."""
+    return not _is_identity_host(_scalar_mul_host(L, p))
+
+
+def rlc_term_host(sig: bytes, msg: bytes, pub: bytes, z: int):
+    """One signature's term of verify_batch_rlc's equation on Python ints,
+    [z s mod L]B - [z k mod L]A - [z]R in extended coordinates, or None
+    where the signature fails the prechecks."""
+    dec = prechecks_host(sig, pub)
+    if dec is None:
+        return None
+    s, a, r = dec
+    t = _pt_add_host(
+        _scalar_mul_base_host(z * s % L),
+        _neg_host(_scalar_mul_host(z * _k_host(sig, msg, pub) % L, a)))
+    return _pt_add_host(t, _neg_host(_scalar_mul_host(z, r)))
+
+
+def rlc_batch_host(sigs, msgs, pubs, zs) -> bool:
+    """verify_batch_rlc's bit on Python ints (bytes per signature, z as
+    ints): every signature passes its prechecks and the terms sum to the
+    identity.  Exact, so it shares the batch equation's blind spot for
+    parts of small order."""
+    acc = (0, 1, 1, 0)
+    for sig, msg, pub, z in zip(sigs, msgs, pubs, zs):
+        t = rlc_term_host(sig, msg, pub, z)
+        if t is None:
+            return False
+        acc = _pt_add_host(acc, t)
+    return _is_identity_host(acc)
 
 
 def host_verify_blob(blob) -> "list[bool]":

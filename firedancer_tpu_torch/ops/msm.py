@@ -14,7 +14,9 @@ the same group element, in other coordinates.
 
 On a CUDA tensor msm_lanes launches the kernel or raises; on a CPU
 tensor it runs the plain version, curve25519.msm_lanes.  The kernel
-takes m <= 8 and nwin <= 64.
+takes m <= 8 and nwin <= 64 (csrc/msm.cu MSM_MAX_M, MSM_MAX_NWIN) and
+returns cudaErrorInvalidValue for more, which msm_lanes raises as
+ValueError.
 """
 
 import ctypes
@@ -27,7 +29,7 @@ from . import curve25519 as cv
 from . import f25519 as fe
 
 SELECTS = ("legacy", "p16")
-MAX_M, MAX_NWIN = 8, 64     # csrc/msm.cu MSM_MAX_M, MSM_MAX_NWIN
+_INVALID_VALUE = 1          # cudaErrorInvalidValue
 
 
 def _check(windows, points: cv.Point, m: int, nwin: int, select: str):
@@ -68,9 +70,6 @@ def msm_lanes(windows, points: cv.Point, m: int, nwin: int,
     _check(windows, points, m, nwin, select)
     if windows.device.type == "cpu":
         return cv.msm_lanes(windows, points, m, nwin, select)
-    if m > MAX_M or nwin > MAX_NWIN:
-        raise ValueError(f"the msm kernel takes m <= {MAX_M} and nwin <= "
-                         f"{MAX_NWIN}, got m={m}, nwin={nwin}")
     n, dev = windows.shape[1], windows.device
     lanes = n // m
     wins = windows.to(torch.uint8).contiguous()
@@ -83,6 +82,9 @@ def msm_lanes(windows, points: cv.Point, m: int, nwin: int,
                        _d2(dev).data_ptr(), n, m, nwin, SELECTS.index(select),
                        *(t.data_ptr() for t in out),
                        torch.cuda.current_stream().cuda_stream)
+        if rc == _INVALID_VALUE:
+            raise ValueError(f"the msm kernel takes m <= 8 and nwin <= 64 "
+                             f"(csrc/msm.cu), got m={m}, nwin={nwin}")
         if rc:
             raise RuntimeError(f"msm kernel launch failed: CUDA error {rc}")
         msm_lanes.launches[select] += 1

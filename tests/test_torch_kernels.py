@@ -117,6 +117,16 @@ def test_msm_kernel_matches_plain(cuda, select, m, nwin):
     assert _canon_equal(got, cv.msm_lanes(wins, pts, m, nwin, select))
 
 
+@pytest.mark.parametrize("m,nwin", [(9, 32), (2, 65)])
+def test_msm_kernel_refuses_past_its_limits(cuda, m, nwin):
+    before = ms.msm_lanes.launches["legacy"]
+    with pytest.raises(ValueError, match="m <= 8 and nwin <= 64"):
+        ms.msm_lanes(torch.zeros((nwin, 18), dtype=torch.uint8,
+                                 device=cuda), cv.identity(18, cuda), m,
+                     nwin, "legacy")
+    assert ms.msm_lanes.launches["legacy"] == before
+
+
 def test_rlc_verifier_on_the_card_matches_host(cuda):
     msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(64, 128)
     ver = tv.SigVerifier(tv.VerifierConfig(64, 128), mode="rlc")
