@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two verify paths on one GPU.
+"""Drive the PyTorch/CUDA port's verify paths on one GPU.
 
     python3 chip_smoke.py
 
 Builds the CUDA kernels from firedancer_tpu_torch/csrc and holds each one
-against its plain torch version on the card.  The strict path: the real
-conformance corpora and the serving buckets through
-SigVerifier.dispatch_blob (sha512 and verify_tail kernels).  The RLC
+against its plain torch version on the card.  The strict path, in its
+three layouts: the real conformance corpora and the serving buckets
+through SigVerifier.dispatch_blob, fused (sha512 and verify_tail
+kernels), split (sha512, decompress, reduce_recode and dsm_tail_q) and
+unfused (sha512, decompress and double_scalar_mul_base).  The RLC
 batch-verify path: clean buckets through SigVerifier(mode="rlc") with
 both MSM selects, a batch with one forgery through the strict descent,
 and the corpora in rlc mode: through the descent, and each vector that
 passes the prechecks alone among m - 1 valid signatures, its batch bit
-held against the exact batch equation on Python ints (decompress, msm
-and sha512 kernels).  Each
+held against the exact batch equation on Python ints (decompress,
+sha512, rlc_recode and msm kernels).  Each
 path runs with the launch counts set to 0 just before it and read just
 after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
@@ -25,6 +27,8 @@ non-zero where there is no CUDA device or no port package beside it.
 
 import hashlib
 import json
+import multiprocessing as mp
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +50,19 @@ BUCKETS = ((4096, 128, False), (32768, 128, False), (4096, 1232, True))
 # 32x32->64 multiply-adds of one field product and one squaring
 # (csrc/fe25519.cuh: 10 x 10 and 55 column terms)
 MUL_OPS, SQR_OPS = 100, 55
+# Field products of one lane of the split and unfused layouts' chain
+# (csrc/dsm_chain.cuh): the [0..8]A table 72 M and the 64 windows 1024 S
+# + 1728 M, as in the fused tail; then dsm_tail_q's y-compare (1 M) or
+# double_scalar_mul_base's identity add (a Niels add, 8 M).
+DSM_SQR, DSM_MUL = 1024, 72 + 1728
+# 32-bit operations of the scalar lanes (csrc/sc25519.cuh), counted from
+# the code with each int64 step (multiply-adds included) taken as two:
+# reduce_512 495 multiply-adds of the fold ladder and 1,582 carry, fold
+# and conditional-subtract steps; S < L about 200; one mul_mod_l 440
+# multiply-adds and 1,603 steps; a 64-window signed recode 512 32-bit
+# operations, a window's extraction 3.
+RR_OPS = 2 * (495 + 1582 + 200) + 2 * 512
+RLC_OPS = 2 * (495 + 1582 + 200 + 2 * (440 + 1603)) + 3 * (64 + 32)
 # Field products of one verify-tail lane (csrc/verify_tail.cu), counted
 # from the code: decompression with its square-root chain (pow22523: 251
 # squarings, 11 products) 257 S + 18 M; the [0..8](-A) table 72 M; the
@@ -86,9 +103,13 @@ def main() -> int:
         from firedancer_tpu_torch.models import verifier as V
         from firedancer_tpu_torch.ops import curve25519 as cv
         from firedancer_tpu_torch.ops import decompress as dc
+        from firedancer_tpu_torch.ops import dsm
         from firedancer_tpu_torch.ops import ed25519 as ed
         from firedancer_tpu_torch.ops import f25519 as fe
         from firedancer_tpu_torch.ops import msm as ms
+        from firedancer_tpu_torch.ops import reduce_recode as rr
+        from firedancer_tpu_torch.ops import rlc_recode as rl
+        from firedancer_tpu_torch.ops import scalar25519 as sc
         from firedancer_tpu_torch.ops import sha512_kernel as sk
         from firedancer_tpu_torch.ops import verify_tail as vt
     except ImportError as exc:
@@ -96,6 +117,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -174,15 +196,38 @@ def main() -> int:
                                  f"differ from plain, max {err}")
         return err, got, want
 
+    def hold(name: str, got, want) -> int:
+        """A kernel's outputs against its plain version's, output by
+        output: field planes ((10, n) int64) as canonical limbs, all else
+        (bits, windows, scalar limbs) as they are.  Returns the max
+        error, which must be 0."""
+        err = 0
+        for i, (k, q) in enumerate(zip(got, want)):
+            if k.shape != q.shape:
+                raise AssertionError(f"{name}: output {i} shape "
+                                     f"{tuple(k.shape)} != {tuple(q.shape)}")
+            if k.dtype == torch.int64 and k.shape[0] == fe.NLIMB:
+                k, q = fe.canonical(k), fe.canonical(q)
+            if k.numel():
+                err = max(err, int((k.long() - q.long()).abs().max()))
+        if err:
+            raise AssertionError(f"{name} {got[0].shape[-1]} lanes: differs "
+                                 f"from plain, max {err}")
+        return err
+
     # ---- phase 1: build every kernel from the checkout's sources
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{', '.join(sorted(logs))}")
     for name, log in sorted(logs.items()):
+        entry = "?"
         for line in log.splitlines():
-            if "Used" in line:
-                print(f"  {name}.cu ptxas: {line.split(':', 1)[1].strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line:
+                print(f"  {name}.cu {entry} ptxas: "
+                      f"{line.split(':', 1)[1].strip()}")
 
     # ---- phase 2: SHA-512 kernel vs plain vs hashlib, ragged 0..1232
     rng = np.random.default_rng(2024)
@@ -219,15 +264,17 @@ def main() -> int:
             % fe.P) for x, z, u, w in zip(xs_k, zs_k, xs_p, zs_p) if z]
     if any(a != b for a, b in aff):
         raise AssertionError("verify_tail: affine x differs from plain")
-    bits = ed.verify_blob(ablob).cpu().tolist()
     host = ed.host_verify_blob(V.pack_blob(msgs, lens, sigs, pubs))
-    if bits != host or [k for k, b in zip(kinds, bits) if b] != [
-            "valid"] * kinds.count("valid"):
-        raise AssertionError("verify_blob disagrees with the host verifier "
-                             "on the adversarial lanes")
+    for tail in ed.TAILS:
+        bits = ed.verify_blob(ablob, tail=tail).cpu().tolist()
+        if bits != host or [k for k, b in zip(kinds, bits) if b] != [
+                "valid"] * kinds.count("valid"):
+            raise AssertionError(f"verify_blob tail={tail} disagrees with "
+                                 f"the host verifier on the adversarial lanes")
     print(f"verify_tail: kernel == plain on {len(kinds)} lanes "
           f"({', '.join(V.ADVERSARIAL_KINDS)}): ok bits, canonical X and Z, "
-          f"affine x; verify_blob == host verifier")
+          f"affine x; verify_blob == host verifier in the "
+          f"{', '.join(ed.TAILS)} layouts")
 
     # ---- phase 4: the real conformance corpora through dispatch_blob
     vecs = []
@@ -245,15 +292,19 @@ def main() -> int:
         clens[i] = len(m)
         csigs[i] = np.frombuffer(bytes.fromhex(v["sig"]), np.uint8)
         cpubs[i] = np.frombuffer(bytes.fromhex(v["pub"]), np.uint8)
-    cver = V.SigVerifier(V.VerifierConfig(len(vecs), cml))
-    cbits = np.asarray(cver.dispatch_blob(
-        V.pack_blob(cmsgs, clens, csigs, cpubs)))
     golden = np.array([v["ok"] for v in vecs])
-    if not np.array_equal(cbits, golden):
-        raise AssertionError(f"corpus: {int((cbits != golden).sum())} of "
-                             f"{len(vecs)} vectors differ from golden")
+    for tail in ed.TAILS:
+        cver = V.SigVerifier(V.VerifierConfig(len(vecs), cml),
+                             strict_tail=tail)
+        cbits = np.asarray(cver.dispatch_blob(
+            V.pack_blob(cmsgs, clens, csigs, cpubs)))
+        if not np.array_equal(cbits, golden):
+            raise AssertionError(f"corpus, tail={tail}: "
+                                 f"{int((cbits != golden).sum())} of "
+                                 f"{len(vecs)} vectors differ from golden")
     print(f"corpus: {len(vecs)} wycheproof/cctv/malleability vectors == "
-          f"golden ({int(golden.sum())} accept)")
+          f"golden ({int(golden.sum())} accept) in the "
+          f"{', '.join(ed.TAILS)} layouts")
 
     # ---- phase 5: the main path, SigVerifier.dispatch_blob
     buckets, clean = [], {}
@@ -272,16 +323,21 @@ def main() -> int:
                              // 128).sum()), int(bl.sum())))
     verifiers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m))
                  for b, m, *_ in buckets}
+    counted = {"sha512_ram": sk.sha512_ram, "verify_tail": vt.verify_tail,
+               "decompress": dc.decompress,
+               "reduce_recode": rr.reduce_recode,
+               "dsm_tail_q": dsm.dsm_tail_q,
+               "double_scalar_mul_base": dsm.double_scalar_mul_base,
+               "rlc_recode": rl.rlc_recode}
+
     def reset_counts():
-        sk.sha512_ram.launches = vt.verify_tail.launches = 0
-        dc.decompress.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         for sel in ms.SELECTS:
             ms.msm_lanes.launches[sel] = 0
 
     def counts() -> dict:
-        return {"sha512_ram": sk.sha512_ram.launches,
-                "verify_tail": vt.verify_tail.launches,
-                "decompress": dc.decompress.launches,
+        return {**{k: fn.launches for k, fn in counted.items()},
                 **{f"msm_{sel}": ms.msm_lanes.launches[sel]
                    for sel in ms.SELECTS}}
 
@@ -306,6 +362,114 @@ def main() -> int:
         tail_err = max(tail_err, hold_tail(tail_args(blob, bml))[0])
         print(f"{batch}x{bml}: sha512 and verify_tail kernels == plain "
               f"(digests; ok bits, canonical X and Z)")
+
+    # ---- phase 5b: the main path in the split and unfused layouts,
+    # SigVerifier(strict_tail=...).dispatch_blob at every bucket: bits
+    # equal the fused layout's, as constructed, and the host verifier's
+    # on every row (each distinct row verified once, over the host's
+    # cores)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        host_bits = []
+        for _, _, blob_np, *_ in buckets:
+            uniq, inv = np.unique(blob_np, axis=0, return_inverse=True)
+            parts = pool.map(ed.host_verify_blob, np.array_split(uniq, 64))
+            host_bits.append(np.concatenate(
+                [np.asarray(b, bool) for b in parts])[inv.reshape(-1)])
+    for (batch, bml, _, expect, *_), host, fused in zip(buckets, host_bits,
+                                                         results):
+        if not (np.array_equal(host, expect) and np.array_equal(host, fused)):
+            raise AssertionError(f"{batch}x{bml}: the host verifier's bits "
+                                 f"differ from the fused layout's")
+    print(f"host verifier: every row of the buckets == fused == as "
+          f"constructed ({time.perf_counter() - t0:.1f} s)")
+    layout_launches, layout_vers = {}, {}
+    want_kernels = {"split": ("sha512_ram", "decompress", "reduce_recode",
+                              "dsm_tail_q"),
+                    "unfused": ("sha512_ram", "decompress",
+                                "double_scalar_mul_base")}
+    for tail, kerns in want_kernels.items():
+        vers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m),
+                                      strict_tail=tail)
+                for b, m, *_ in buckets}
+        layout_vers[tail] = vers
+        reset_counts()
+        res_t = [np.asarray(vers[(b, m)].dispatch_blob(blob_np))
+                 for b, m, blob_np, *_ in buckets]
+        got = counts()
+        layout_launches[tail] = got
+        want = {k: len(buckets) if k in kerns else 0 for k in got}
+        if got != want:
+            raise AssertionError(f"tail={tail}: launches {got}, expected "
+                                 f"{want}")
+        for (batch, bml, *_), res, fused in zip(buckets, res_t, results):
+            if not np.array_equal(res, fused):
+                raise AssertionError(f"tail={tail} {batch}x{bml}: "
+                                     f"{int((res != fused).sum())} bits "
+                                     f"differ from the fused layout and the "
+                                     f"host verifier")
+        print(f"dispatch_blob tail={tail}: bits == fused == host verifier "
+              f"at {', '.join(f'{b}x{m}' for b, m, *_ in buckets)}; "
+              f"launches {got}")
+
+    # each new kernel against its plain version at 4096 and 32768 lanes
+    # and at one lane: the buckets' rows with the adversarial lanes of
+    # phase 3 written over the first 528, S = L - 1, L and 2^256 - 1 in the
+    # next three, z = 0 and 2^128 - 1 in the first two; A decompressed
+    # from the keys and scaled by a random lambda (Z != 1)
+    L = sc.L
+    adv_np = V.pack_blob(msgs, lens, sigs, pubs)
+
+    def hold_inputs(blob_np, ml, n, seed):
+        rows = blob_np[:n].copy()
+        k = min(n, len(adv_np))
+        rows[:k] = adv_np[:k]
+        for i, v in enumerate((L - 1, L, 2**256 - 1)):
+            if k + i < n:
+                rows[k + i, ml + 32:ml + 64] = np.frombuffer(
+                    v.to_bytes(32, "little"), np.uint8)
+        blob = torch.from_numpy(rows).to(dev)
+        m_, r_, s_, a_, ln_ = cols(blob, ml)
+        rng = np.random.default_rng(seed)
+        z = rng.integers(0, 256, (n, 16), np.uint8)
+        z[0] = 0
+        z[1:2] = 0xFF
+        z_d = torch.from_numpy(z).to(dev)
+        _, a_pt = ed._decompress_checked(a_)
+        lam = fe.from_ints([int.from_bytes(rng.bytes(32), "little") % fe.P
+                            for _ in range(n)], dev)
+        a_pt = cv.Point(*(fe.mul(c, lam) for c in a_pt))
+        digest = sk.sha512_ram(m_, r_, a_, ln_)
+        y_r = ed._parse_r_bytes(r_)[0]
+        return s_, digest, z_d, a_pt, y_r
+
+    new_err = dict.fromkeys(("reduce_recode", "dsm_tail_q",
+                             "double_scalar_mul_base", "rlc_recode"), 0)
+    hold_shapes = [(4096, 128, 4096), (32768, 128, 32768), (4096, 128, 1)]
+    for batch, bml, n in hold_shapes:
+        blob_np = next(b[2] for b in buckets if b[:2] == (batch, bml))
+        s_, digest, z_d, a_pt, y_r = hold_inputs(blob_np, bml, n, n)
+        ok_s, wins = rr.reduce_recode(s_, digest)
+        new_err["reduce_recode"] = max(new_err["reduce_recode"], hold(
+            "reduce_recode", (ok_s, *wins),
+            (lambda o: (o[0], *o[1]))(rr.reduce_recode_plain(s_, digest))))
+        new_err["dsm_tail_q"] = max(new_err["dsm_tail_q"], hold(
+            "dsm_tail_q", dsm.dsm_tail_q(wins, a_pt, y_r),
+            dsm.dsm_tail_q_plain(wins, a_pt, y_r)))
+        s_win = sc.scalar_windows(s_)
+        k_win = sc.limbs_to_windows(sc.reduce_512(digest))
+        new_err["double_scalar_mul_base"] = max(
+            new_err["double_scalar_mul_base"], hold(
+                "double_scalar_mul_base",
+                dsm.double_scalar_mul_base(s_win, k_win, a_pt),
+                dsm.double_scalar_mul_base_plain(s_win, k_win, a_pt)))
+        new_err["rlc_recode"] = max(new_err["rlc_recode"], hold(
+            "rlc_recode", rl.rlc_recode(s_, digest, z_d),
+            rl.rlc_recode_plain(s_, digest, z_d)))
+        print(f"{n} lanes of {batch}x{bml}: reduce_recode, dsm_tail_q, "
+              f"double_scalar_mul_base and rlc_recode kernels == plain "
+              f"(bits, windows, canonical X, Y, Z, T, z s limbs), max "
+              f"error {max(new_err.values())}")
 
     # ---- phase 6: decompress kernel vs plain on adversarial encodings and
     # on the A and R columns of the RLC buckets, whole and one row short
@@ -396,7 +560,8 @@ def main() -> int:
               f"sum = identity")
 
     # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
-    # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512
+    # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512,
+    # 1 rlc_recode
     rlc_runs = [(4096, 128, "legacy"), (32768, 128, "legacy"),
                 (32768, 128, "p16")]
     rlc_vers = {(b, m, sel): V.SigVerifier(V.VerifierConfig(b, m),
@@ -408,7 +573,8 @@ def main() -> int:
         before = counts()
         res = np.asarray(rlc_vers[(batch, bml, sel)](*clean[(batch, bml)]))
         delta = {k: v - before[k] for k, v in counts().items()}
-        want = {"sha512_ram": 1, "verify_tail": 0, "decompress": 2,
+        want = {**dict.fromkeys(counted, 0), "sha512_ram": 1,
+                "decompress": 2, "rlc_recode": 1,
                 **{f"msm_{s}": 2 * (s == sel) for s in ms.SELECTS}}
         if delta != want:
             raise AssertionError(f"rlc {batch}x{bml} {sel}: launches "
@@ -585,6 +751,73 @@ def main() -> int:
     note(f"{batch}x{bml}: plain sha512 {plain_sha:.4f} ms, plain "
          f"verify_tail {plain_tail:.4f} ms")
 
+    # ---- phase 11b: the split and unfused layouts' kernels at the two
+    # 128-byte buckets on the path's own inputs (plain versions at 4096
+    # only), and their dispatches at 4096 x 128
+    def field_bound(n, sqr, mul, nbytes, extra_ops=0):
+        return bound(n * nbytes, n * (sqr * SQR_OPS + mul * MUL_OPS
+                                      + extra_ops))
+
+    new_bounds = {
+        # reads s and the digest, writes ok_s and four uint8 window planes
+        "reduce_recode": lambda n: bound(n * (96 + 1 + 4 * 64), n * RR_OPS),
+        # reads four window planes, A's four int64 planes and y_R, writes
+        # ok_y, X and Z
+        "dsm_tail_q": lambda n: field_bound(n, DSM_SQR, DSM_MUL + 1,
+                                            4 * 64 + 5 * 80 + 1 + 160),
+        # reads two window planes and A, writes X, Y, Z and T
+        "double_scalar_mul_base": lambda n: field_bound(
+            n, DSM_SQR, DSM_MUL + GE_ADD_NIELS, 2 * 64 + 4 * 80 + 4 * 80),
+        # reads s, the digest and z, writes ok_s, the w and z windows and
+        # the z s limbs
+        "rlc_recode": lambda n: bound(n * (112 + 1 + 64 + 32 + 22 * 8),
+                                      n * RLC_OPS)}
+    new_ms, new_plain = {}, {}
+    for batch, bml, blob_np, *_ in buckets[:2]:
+        blob = torch.from_numpy(blob_np).to(dev)
+        m_, r_, s_, a_, ln_ = cols(blob, bml)
+        digest = sk.sha512_ram(m_, r_, a_, ln_)
+        z_d = torch.from_numpy(np.random.default_rng(batch).integers(
+            0, 256, (batch, 16), np.uint8)).to(dev)
+        _, a_pt = ed._decompress_checked(a_)
+        y_r = ed._parse_r_bytes(r_)[0]
+        _, wins = rr.reduce_recode(s_, digest)
+        neg_a = cv.neg(a_pt)
+        s_win = sc.scalar_windows(s_)
+        k_win = sc.limbs_to_windows(sc.reduce_512(digest))
+        calls = {
+            "reduce_recode": (lambda: rr.reduce_recode(s_, digest),
+                              lambda: rr.reduce_recode_plain(s_, digest)),
+            "dsm_tail_q": (lambda: dsm.dsm_tail_q(wins, a_pt, y_r),
+                           lambda: dsm.dsm_tail_q_plain(wins, a_pt, y_r)),
+            "double_scalar_mul_base": (
+                lambda: dsm.double_scalar_mul_base(s_win, k_win, neg_a),
+                lambda: dsm.double_scalar_mul_base_plain(s_win, k_win,
+                                                         neg_a)),
+            "rlc_recode": (lambda: rl.rlc_recode(s_, digest, z_d),
+                           lambda: rl.rlc_recode_plain(s_, digest, z_d))}
+        for name, (kern, plain) in calls.items():
+            t_k = cuda_ms(kern)
+            b_ = new_bounds[name](batch)
+            new_ms[(name, batch)] = (t_k, b_)
+            line = (f"{batch}x{bml}: {name} kernel {t_k:.5f} ms (bound "
+                    f"{b_[0]:.5f} ms, {b_[1]})")
+            if batch == buckets[0][0]:
+                new_plain[name] = cuda_ms(plain, PLAIN_RUNS, 1)
+                line += f", plain {new_plain[name]:.4f} ms"
+            note(line)
+    batch, bml, blob_np = buckets[0][:3]
+    for tail in ("fused", "split", "unfused"):
+        ver = (verifiers if tail == "fused" else layout_vers[tail])[
+            (batch, bml)]
+        t_e2e = wall_ms(lambda: np.asarray(ver.dispatch_blob(blob_np)))
+        calls, nk, busy, wall = profiled(
+            lambda: np.asarray(ver.dispatch_blob(blob_np)))
+        note(f"{batch}x{bml}: dispatch_blob tail={tail} end to end "
+             f"{t_e2e:.4f} ms = {batch / t_e2e * 1e3:.1f} verifies/s; under "
+             f"torch.profiler {calls} kernel launch calls, {nk} device ops "
+             f"busy {busy:.4f} ms of {wall:.4f} ms wall")
+
     # ---- phase 12: the RLC path's times and launches
     def dec_bound(n):
         # reads 32 bytes, writes ok, small and the X, Y, T int64 planes
@@ -602,6 +835,14 @@ def main() -> int:
                 + nw * (13 + MSM_M * GE_ADD_NIELS))
         return bound(n * (nwin + 4 * 80) + lanes * 4 * 80,
                      lanes * (muls * MUL_OPS + nw * 16 * SQR_OPS))
+
+    def torch_chain(digest, s_bytes, z_bytes):
+        """_rlc_scalars with rlc_recode's plain version in the kernel's
+        place: the chain as it ran before the kernel."""
+        ok_s, w_win, z_win, zs = rl.rlc_recode_plain(s_bytes, digest,
+                                                     z_bytes)
+        return (ok_s, w_win, z_win,
+                sc.limbs_to_windows(sc.sum_mod_l(zs, axis=0))[:, None])
 
     rlc_kern = {}
     for batch, bml in RLC_BUCKETS:
@@ -627,7 +868,10 @@ def main() -> int:
                     for win, pts, nwin in msm_in]
         accs = [cv.fold_lanes(p) for p in lanes_ar]
         for what, fn in (
-                ("scalar chain", lambda: ed._rlc_scalars(*scal_in)),
+                ("scalar chain (rlc_recode kernel, sum in torch)",
+                 lambda: ed._rlc_scalars(*scal_in)),
+                ("scalar chain, all torch (before the kernel)",
+                 lambda: torch_chain(*scal_in)),
                 ("lane folds", lambda: [cv.fold_lanes(p) for p in lanes_ar]),
                 ("[c]B and identity test",
                  lambda: ed._rlc_finish(*accs, c_win))):
@@ -645,6 +889,21 @@ def main() -> int:
              f"torch.profiler {calls} kernel launch calls, {nk} device ops "
              f"busy {busy:.4f} ms of {wall:.4f} ms wall (device idle "
              f"{max(0.0, 1 - busy / wall):.4f})")
+        if sel != "legacy":
+            continue
+        # the same call with the scalar chain all in torch, as it ran
+        # before the rlc_recode kernel (its plain version in its place)
+        ed.rlc_recode = rl.rlc_recode_plain
+        try:
+            t_b = wall_ms(lambda: np.asarray(ver(*arrs)))
+            calls, nk, busy, wall = profiled(lambda: np.asarray(ver(*arrs)))
+        finally:
+            ed.rlc_recode = rl.rlc_recode
+        note(f"rlc {batch}x{bml} {sel}, scalar chain all in torch (before "
+             f"the kernel): SigVerifier call end to end {t_b:.4f} ms = "
+             f"{batch / t_b * 1e3:.1f} verifies/s; under torch.profiler "
+             f"{calls} kernel launch calls, {nk} device ops busy "
+             f"{busy:.4f} ms of {wall:.4f} ms wall")
     # plain versions at the headline bucket, A side (nwin 64)
     pubs_d = rlc_dev[(32768, 128)][3]
     plain_dec = cuda_ms(lambda: dc.decompress_plain(pubs_d), PLAIN_RUNS, 1)
@@ -693,6 +952,25 @@ def main() -> int:
          "ms": t_tail, "plain_ms": plain_tail, "bound_ms": tb[0],
          "bound_by": tb[1], "library_ms": None},
     ] + rlc_rows
+    # the kernels of the split and unfused layouts and of the RLC scalar
+    # chain, at 4096 x 128 (where their plain versions were timed);
+    # launches from the split, unfused and RLC runs above
+    for name, line, launched in (
+            ("reduce_recode", 810, layout_launches["split"]),
+            ("dsm_tail_q", 472, layout_launches["split"]),
+            ("double_scalar_mul_base", 499, layout_launches["unfused"]),
+            ("rlc_recode", 921, rlc_launches)):
+        t_k, b_ = new_ms[(name, buckets[0][0])]
+        src = "dsm" if name.startswith("d") else name
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"firedancer_tpu_torch/csrc/{src}.cu",
+             "replaces": f"firedancer_tpu/ops/curve_pallas.py:{line}",
+             "launches": launched[name], "max_abs_err": new_err[name],
+             "ms": t_k, "plain_ms": new_plain[name], "bound_ms": b_[0],
+             "bound_by": b_[1], "library_ms": None,
+             "shape": f"{buckets[0][0]}x{buckets[0][1]}"})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

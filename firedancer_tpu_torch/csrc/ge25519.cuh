@@ -115,6 +115,45 @@ GE_FN void ge_add_affine_niels(ge &r, const ge &p, const fe &ym,
   ge_finish(r, a, b, c, zz, want_t);
 }
 
+// [0..n-1]P in Niels form: entry 0 the identity, entry 1 P itself, then
+// repeated unified adds of P (the TPU kernels' tables, and
+// curve25519.niels_table).  P may have any Z; its T must be valid.
+GE_FN void ge_niels_table(ge_niels *tab, const ge &p, int n, const fe &d2) {
+  ge cur;
+  ge_identity(cur);
+  ge_to_niels(tab[0], cur, d2);
+  ge_to_niels(tab[1], p, d2);
+  cur = p;
+  for (int i = 2; i < n; i++) {
+    ge nxt;
+    ge_add(nxt, cur, p, d2);
+    ge_to_niels(tab[i], nxt, d2);
+    cur = nxt;
+  }
+}
+
+// Field elements in the torch layout: (10, n) int64 limb planes, limb i
+// of element j at plane[i * n + j].  The planes hold tight limbs, as
+// every ops/f25519 function returns them.
+FD_FN void fe_load(fe &r, const int64_t *plane, long long n, long long j) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = (uint32_t)plane[i * n + j];
+}
+
+FD_FN void fe_store(int64_t *plane, long long n, long long j, const fe &a) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) plane[i * n + j] = a.v[i];
+}
+
+FD_FN void ge_load(ge &p, const int64_t *x, const int64_t *y,
+                   const int64_t *z, const int64_t *t, long long n,
+                   long long j) {
+  fe_load(p.X, x, n, j);
+  fe_load(p.Y, y, n, j);
+  fe_load(p.Z, z, n, j);
+  fe_load(p.T, t, n, j);
+}
+
 // Point decompression (fd_ed25519_point_frombytes) with the small-order
 // test (fd_ed25519_affine_is_small_order), shared by the verify tail and
 // the decompress kernel.  y is the encoded y (bit 255 dropped, a value >=

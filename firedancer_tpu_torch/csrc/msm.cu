@@ -42,22 +42,6 @@
 #define MSM_MAX_M 8
 #define MSM_MAX_NWIN 64
 
-// [0..n-1]P in Niels form: entry 0 the identity, entry 1 P itself, then
-// repeated unified adds of P (curve_pallas._msm_kernel's table).
-GE_FN void msm_table(ge_niels *tab, const ge &p, int n, const fe &d2) {
-  ge cur;
-  ge_identity(cur);
-  ge_to_niels(tab[0], cur, d2);
-  ge_to_niels(tab[1], p, d2);
-  cur = p;
-  for (int i = 2; i < n; i++) {
-    ge nxt;
-    ge_add(nxt, cur, p, d2);
-    ge_to_niels(tab[i], nxt, d2);
-    cur = nxt;
-  }
-}
-
 // Unsigned 4-bit digits (low first) -> signed digits in [-8, 8], nwin + 1
 // of them: a carry ripples low to high and the carry out of the top
 // window becomes the extra window (curve_pallas.signed_windows_ext).
@@ -81,7 +65,7 @@ FD_FN void msm_lane(ge &acc, const ge *pts, const uint8_t *wins,
   ge_niels tab[MSM_MAX_M][NT];
   int8_t dig[MSM_MAX_M][MSM_MAX_NWIN + 1];
   for (int j = 0; j < m; j++) {
-    msm_table(tab[j], pts[j], NT, d2);
+    ge_niels_table(tab[j], pts[j], NT, d2);
     uint8_t nib[MSM_MAX_NWIN];
     for (int w = 0; w < nwin; w++) nib[w] = wins[w * w_stride + j * j_stride];
     if (SEL == MSM_LEGACY) {
@@ -127,23 +111,13 @@ __global__ void __launch_bounds__(MSM_THREADS)
   fe d2;
   for (int i = 0; i < 10; i++) d2.v[i] = (uint32_t)d2_limbs[i];
   ge pts[MSM_MAX_M];
-  for (int j = 0; j < m; j++) {
-    const long long p = j * lanes + l;
-    for (int i = 0; i < 10; i++) {
-      pts[j].X.v[i] = (uint32_t)x[i * (long long)n + p];
-      pts[j].Y.v[i] = (uint32_t)y[i * (long long)n + p];
-      pts[j].Z.v[i] = (uint32_t)z[i * (long long)n + p];
-      pts[j].T.v[i] = (uint32_t)t[i * (long long)n + p];
-    }
-  }
+  for (int j = 0; j < m; j++) ge_load(pts[j], x, y, z, t, n, j * lanes + l);
   ge acc;
   msm_lane<SEL>(acc, pts, wins + l, n, lanes, m, nwin, d2);
-  for (int i = 0; i < 10; i++) {
-    xo[i * lanes + l] = acc.X.v[i];
-    yo[i * lanes + l] = acc.Y.v[i];
-    zo[i * lanes + l] = acc.Z.v[i];
-    to[i * lanes + l] = acc.T.v[i];
-  }
+  fe_store(xo, lanes, l, acc.X);
+  fe_store(yo, lanes, l, acc.Y);
+  fe_store(zo, lanes, l, acc.Z);
+  fe_store(to, lanes, l, acc.T);
 }
 
 extern "C" int fd_msm(const uint8_t *wins, const int64_t *x, const int64_t *y,

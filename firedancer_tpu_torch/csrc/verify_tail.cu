@@ -3,10 +3,13 @@
 // Replaces firedancer_tpu/ops/curve_pallas.py::verify_tail_fused
 // (_fused_tail_kernel).  Per lane: decompress A and test it for small
 // order, test S < L, reduce the SHA-512 digest k mod L, recode S and k to
-// signed 4-bit digits, run the shared chain Q = [S]B + [k](-A) over 64
-// windows, and compare Q.Y with y_R * Q.Z.  Writes the folded ok bit and
-// Q's X and Z as (10, n) int64 limb planes (ops/f25519.py layout); the
-// x-parity half of the R check runs in torch (ed25519._compressed_r_check).
+// signed 4-bit digits (sc_reduce_recode in sc25519.cuh), run the shared
+// chain Q = [S]B + [k](-A) over 64 windows (ge_dsm_chain in
+// dsm_chain.cuh), and compare Q.Y with y_R * Q.Z.  The split layout runs
+// the same helpers as separate kernels (reduce_recode.cu, dsm.cu).
+// Writes the folded ok bit and Q's X and Z as (10, n) int64 limb planes
+// (ops/f25519.py layout); the x-parity half of the R check runs in torch
+// (ed25519._compressed_r_check).
 //
 // Field arithmetic: 10 x 25.5-bit uint32 limbs with uint64 products
 // (fe25519.cuh).
@@ -22,89 +25,31 @@
 // never reads it, as the TPU kernel does.  Small blocks (VT_THREADS) keep
 // a batch of a few thousand lanes spread over all SMs.
 
+#include "dsm_chain.cuh"
 #include "fe25519.cuh"
 #include "ge25519.cuh"
 #include "sc25519.cuh"
 
-// Constants table, int32 (VT_NCONST, 10) limb rows:
-//   rows 4i .. 4i+3: [i]B as (y - x, y + x, 2dxy, -2dxy), i = 0..8
-//   rows 36..40:     d, 2d, sqrt(-1), and the two order-8 y values
-#define VT_NCONST 41
-
-struct vt_consts {
-  fe base[9][4];
-  fe d, d2, sqrt_m1, y8_0, y8_1;
-};
-
 // The whole tail for one lane.  Returns the ok bit; writes Q's X and Z.
 FD_FN bool vt_lane(const vt_consts &c, const uint8_t *pub, const uint8_t *s,
                    const uint8_t *digest, const uint8_t *r, fe &qx, fe &qz) {
-  // ---- A: decompress and small-order test
-  fe y, x, one;
+  // ---- A: decompress and small-order test; -A = (-x, y, 1, -x y)
+  ge na;
   bool small;
   const bool ok_a =
-      ge_frombytes(x, y, small, pub, c.d, c.sqrt_m1, c.y8_0, c.y8_1);
-  fe_set(one, 1);
+      ge_frombytes(na.X, na.Y, small, pub, c.d, c.sqrt_m1, c.y8_0, c.y8_1);
+  fe_neg(na.X, na.X);
+  fe_set(na.Z, 1);
+  fe_mul(na.T, na.X, na.Y);
 
-  // ---- the [0..8](-A) table in Niels form
-  ge na, pt;
-  fe_neg(na.X, x);
-  na.Y = y;
-  na.Z = one;
-  fe_mul(na.T, na.X, y);
-  ge_niels tab[9];
-  ge_identity(pt);
-  ge_to_niels(tab[0], pt, c.d2);
-  ge_to_niels(tab[1], na, c.d2);
-  pt = na;
-  for (int i = 2; i < 9; i++) {
-    ge nxt;
-    ge_add(nxt, pt, na, c.d2);
-    ge_to_niels(tab[i], nxt, c.d2);
-    pt = nxt;
-  }
+  // ---- scalars: S < L, k = digest mod L, signed windows of both
+  uint8_t smag[64], ssgn[64], kmag[64], ksgn[64];
+  const bool ok_s = sc_reduce_recode(s, digest, smag, ssgn, kmag, ksgn);
 
-  // ---- scalars: S < L, k = digest mod L, signed digits of both
-  const bool ok_s = sc_is_canonical(s);
-  int64_t kl[22];
-  sc_reduce512(kl, digest);
-  uint8_t nib[64];
-  int8_t kd[64], sd[64];
-  for (int w = 0; w < 64; w++)
-    nib[w] = (uint8_t)((kl[w / 3] >> (4 * (w % 3))) & 0xf);
-  sc_signed_digits(kd, nib);
-  for (int i = 0; i < 32; i++) {
-    nib[2 * i] = s[i] & 0xf;
-    nib[2 * i + 1] = s[i] >> 4;
-  }
-  sc_signed_digits(sd, nib);
-
-  // ---- shared chain, high window first
+  // ---- Q = [S]B + [k](-A), then the projective y-compare against R's
+  // encoded y (mod p)
   ge acc;
-  ge_identity(acc);
-  for (int w = 63; w >= 0; w--) {
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, true);
-    const int kdw = kd[w], km = kdw < 0 ? -kdw : kdw;
-    const ge_niels &e = tab[km];
-    if (kdw < 0) {
-      fe nt;
-      fe_neg(nt, e.T2d);
-      ge_add_niels(acc, acc, e.Yp, e.Ym, e.Z, nt);
-    } else {
-      ge_add_niels(acc, acc, e.Ym, e.Yp, e.Z, e.T2d);
-    }
-    const int sdw = sd[w], sm = sdw < 0 ? -sdw : sdw;
-    const fe *b = c.base[sm];
-    if (sdw < 0)
-      ge_add_affine_niels(acc, acc, b[1], b[0], b[3], false);
-    else
-      ge_add_affine_niels(acc, acc, b[0], b[1], b[2], false);
-  }
-
-  // ---- projective y-compare against R's encoded y (mod p)
+  ge_dsm_chain(acc, na, smag, ssgn, kmag, ksgn, c);
   fe yr, t;
   fe_frombytes(yr, r);
   fe_mul(t, yr, acc.Z);
@@ -137,10 +82,8 @@ __global__ void __launch_bounds__(VT_THREADS)
   ok[lane] = vt_lane(c, pub + lane * pub_stride, s + lane * s_stride,
                      digest + lane * digest_stride, r + lane * r_stride, qx,
                      qz);
-  for (int i = 0; i < 10; i++) {
-    x_out[i * (long long)n + lane] = qx.v[i];
-    z_out[i * (long long)n + lane] = qz.v[i];
-  }
+  fe_store(x_out, n, lane, qx);
+  fe_store(z_out, n, lane, qz);
 }
 
 extern "C" int fd_verify_tail(const uint8_t *pub, long long pub_stride,

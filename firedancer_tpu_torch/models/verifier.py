@@ -11,6 +11,7 @@ event, copy_to_host_async() starts the device-to-host copy, and
 np.asarray() waits for the bits.
 """
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,12 +69,15 @@ class SigVerifier:
     there is none; tests pass device="cpu", which runs the kernels' plain
     versions.
 
-    mode="strict" verifies each signature.  mode="rlc" first runs the
-    random-linear-combination batch check (ed.verify_batch_rlc, msm_m
-    signatures per MSM lane, rlc_select the MSM kernel's table select);
-    when it fails, a binary-split descent settles the exact strict bits
-    (_resolve).  z is drawn per call from rng, a numpy Generator seeded
-    from OS entropy unless one is given.  mode="antipa" is not ported."""
+    mode="strict" verifies each signature, in the layout strict_tail
+    ("fused", "split" or "unfused": ed.verify_batch's tail=, which the
+    JAX package picks by FDTPU_NO_FUSED; all give the same bits).
+    mode="rlc" first runs the random-linear-combination batch check
+    (ed.verify_batch_rlc, msm_m signatures per MSM lane, rlc_select the
+    MSM kernel's table select); when it fails, a binary-split descent
+    settles the exact strict bits (_resolve), its leaves in strict_tail's
+    layout.  z is drawn per call from rng, a numpy Generator seeded from
+    OS entropy unless one is given.  mode="antipa" is not ported."""
 
     # slices this small go straight to strict bits
     _SPLIT_LEAF = 256
@@ -81,7 +85,7 @@ class SigVerifier:
     def __init__(self, cfg: VerifierConfig = VerifierConfig(),
                  mode: str = "strict", msm_m: int = 8, device=None,
                  rng: np.random.Generator | None = None,
-                 rlc_select: str = "legacy"):
+                 rlc_select: str = "legacy", strict_tail: str = "fused"):
         if mode == "antipa":
             raise NotImplementedError(
                 "antipa mode is not ported yet (firedancer_tpu_torch)")
@@ -93,13 +97,17 @@ class SigVerifier:
         if rlc_select not in SELECTS:
             raise ValueError(f"unknown rlc_select {rlc_select!r}; expected "
                              f"one of {SELECTS}")
+        if strict_tail not in ed.TAILS:
+            raise ValueError(f"unknown strict_tail {strict_tail!r}; expected "
+                             f"one of {ed.TAILS}")
         self.cfg = cfg
         self.mode = mode
         self.msm_m = msm_m
         self.rlc_select = rlc_select
+        self.strict_tail = strict_tail
         self.device = resolve_device(device)
         self._rng = np.random.default_rng() if rng is None else rng
-        self._fn = ed.verify_batch
+        self._fn = functools.partial(ed.verify_batch, tail=strict_tail)
 
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
@@ -141,7 +149,8 @@ class SigVerifier:
             raise ValueError(
                 f"blob {tuple(blob.shape)} exceeds the bucket "
                 f"({self.cfg.batch}, {self.cfg.msg_maxlen})")
-        return Verdict(ed.verify_blob(self._to_device(blob)))
+        return Verdict(ed.verify_blob(self._to_device(blob),
+                                      tail=self.strict_tail))
 
     def _rlc(self, args):
         """verify_batch_rlc over device arrays, with a fresh z."""

@@ -287,14 +287,15 @@ def scalar_mul_base(windows) -> Point:
 def msm_lanes(windows, points: Point, m: int, nwin: int,
               select: str) -> Point:
     """The per-lane half of the lane-parallel Straus MSM (the plain
-    version of csrc/msm.cu).  windows (nwin, n) unsigned 4-bit digits,
-    low first; points (10, n) planes; lanes = n / m.  Lane l accumulates
-    the points j * lanes + l (j < m) in one shared chain: per window, high
-    first, four doublings and m Niels adds.  select "legacy" picks from
+    version of csrc/msm.cu).  windows (nwin, n) unsigned 4-bit digits of
+    any integer dtype, low first; points (10, n) planes; lanes = n / m.
+    Lane l accumulates the points j * lanes + l (j < m) in one shared
+    chain: per window, high first, four doublings and m Niels adds.  select "legacy" picks from
     [0..15]P tables; "p16" recodes to signed digits over nwin + 1 windows
     and picks from [0..8]P tables.  Returns the (10, lanes) accumulators."""
     n = windows.shape[1]
     lanes = n // m
+    windows = windows.long()
     if select == "p16":
         mags, sgns = sc.signed_windows_ext(windows)
         ntab = 9

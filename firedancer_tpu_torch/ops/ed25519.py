@@ -9,18 +9,31 @@ Counterpart of firedancer_tpu/ops/ed25519.py: the same acceptance rules
   4. k = SHA-512(R || A || M) mod L
   5. accept iff [S]B + [k](-A) == R (projective, no cofactor)
 
-The path is two kernels and a torch finish: sha512_kernel.sha512_ram
-computes k's digest straight from the rows, verify_tail.verify_tail does
-everything about A, S and k and the y half of the R comparison, and
-_compressed_r_check settles the rest of R from its bytes, without
-decompressing it.  On a CUDA tensor both kernels launch; on a CPU tensor
-their plain versions run.
+verify_batch and verify_blob take tail=, one of three layouts of the
+same steps, as in the JAX package (which picks between them by
+FDTPU_NO_FUSED and whether its Pallas kernels run); all give the same
+bits.  Each starts with sha512_kernel.sha512_ram, k's digest straight from
+the rows, and ends with _compressed_r_check, which settles R from its
+bytes without decompressing it.  Between them:
+
+  "fused" (the default)  verify_tail.verify_tail: everything about A, S
+                         and k and the y half of the R comparison, one
+                         kernel;
+  "split"                the decompress kernel for A, reduce_recode (S < L,
+                         k mod L, the signed windows) and dsm_tail_q (the
+                         chain and the y-compare): three kernels;
+  "unfused"              the decompress kernel, S < L, k mod L and the
+                         windows in torch, then the double_scalar_mul_base
+                         kernel; the y-compare runs in the finish.
+
+On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
+run.
 
 verify_batch_rlc is the random-linear-combination batch check (one bit
 for a whole batch): the decompress kernel for A and R, the same SHA-512
-kernel, the scalar chain in torch, the msm kernel for the two
-multi-scalar sums, and a torch finish (the lane folds, the comb [c]B and
-the identity test).
+kernel, the rlc_recode kernel for the per-signature scalars, the msm
+kernel for the two multi-scalar sums, and a torch finish (the sum of the
+z s products, the lane folds, the comb [c]B and the identity test).
 
 The host helpers at the bottom (signing, a Python-int verifier) are this
 package's own copies; it imports nothing of the JAX package.
@@ -34,7 +47,10 @@ from . import curve25519 as cv
 from . import f25519 as fe
 from . import scalar25519 as sc
 from .decompress import decompress
+from .dsm import double_scalar_mul_base, dsm_tail_q
 from .msm import msm
+from .reduce_recode import reduce_recode
+from .rlc_recode import rlc_recode
 from .scalar25519 import L
 from .sha512_kernel import lens_to_bytes, sha512_ram
 from .verify_tail import verify_tail
@@ -48,6 +64,9 @@ BASE_X, BASE_Y = cv.BASE_X, cv.BASE_Y
 # ml + PACKED_EXTRA.
 PACKED_EXTRA = 100
 
+# The strict layouts (verify_batch's tail=), the first the default.
+TAILS = ("fused", "split", "unfused")
+
 
 def _parse_r_bytes(r_bytes):
     """R's encoded y (canonical limbs, mod p), its sign bit, and whether
@@ -60,56 +79,82 @@ def _parse_r_bytes(r_bytes):
     return yc, sign_r, small
 
 
-def _compressed_r_check(qx, qz, r_bytes, ok_y):
-    """Accept iff Q equals the point R's bytes encode, given ok_y (the
-    projective y-compare the tail kernel ran), without decompressing R.
-    Case by case, as in the JAX package: a non-canonical y compares mod p;
-    an R off the curve has no point with its y, so the y-compare already
-    failed; x = 0 with the sign bit set fails the parity test; a
+def _compressed_r_check(qx, qz, r_bytes, ok_y=None, *, qy=None,
+                        parsed_r=None):
+    """Accept iff Q equals the point R's bytes encode, without
+    decompressing R.  The projective y-compare comes either as ok_y (a
+    kernel ran it) or from Q's Y, compared here in affine form (qy).
+    parsed_r reuses a caller's _parse_r_bytes(r_bytes), so R is parsed
+    once.  Case by case, as in the JAX package: a non-canonical y compares
+    mod p; an R off the curve has no point with its y, so the y-compare
+    already failed; x = 0 with the sign bit set fails the parity test; a
     small-order R is recognised by its y; otherwise equal y and equal x
     parity make equal points.  The affine x comes from one batch
     inversion."""
-    _, sign_r, small = _parse_r_bytes(r_bytes)
+    if (ok_y is None) == (qy is None):
+        raise ValueError("give exactly one of ok_y and qy")
+    y_r, sign_r, small = (parsed_r if parsed_r is not None
+                          else _parse_r_bytes(r_bytes))
     z_ok = ~fe.is_zero(qz)
     one = fe.ones(qz.shape[1], qz.device)
     zi = fe.batch_inv(torch.where(z_ok, qz, one))
     x_aff = fe.mul(qx, zi)
+    if ok_y is None:
+        ok_y = fe.eq(fe.mul(qy, zi), y_r)
     return z_ok & ~small & ok_y & (fe.sgn(x_aff) == sign_r)
-
-
-def _verify_rows(msgs, len4, r, s, pub):
-    digest = sha512_ram(msgs, r, pub, len4)
-    ok_t, qx, qz = verify_tail(pub, s, digest, r)
-    return _compressed_r_check(qx, qz, r, ok_t)
-
-
-def verify_batch(msgs, msg_len, sigs, pubkeys):
-    """Verify a batch of detached signatures.
-
-    msgs uint8 (batch, maxlen) zero-padded, msg_len int (batch,), sigs
-    uint8 (batch, 64) = R || S, pubkeys uint8 (batch, 32); all on one
-    device.  A length outside [0, maxlen] is clamped, as the host verifier
-    clamps it.  Returns bool (batch,)."""
-    return _verify_rows(msgs, lens_to_bytes(msg_len), sigs[:, :32],
-                        sigs[:, 32:], pubkeys)
-
-
-def verify_blob(blob):
-    """verify_batch over a packed blob (batch, ml + PACKED_EXTRA), read in
-    place; the kernels read each row to its own length."""
-    ml = blob.shape[1] - PACKED_EXTRA
-    return _verify_rows(blob[:, :ml], blob[:, ml + 96:ml + 100],
-                        blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
-                        blob[:, ml + 64:ml + 96])
-
-
-# ------------------------------------------------- RLC batch verification
 
 
 def _decompress_checked(b):
     """(ok, point): decompress, with a small-order point rejected."""
     ok, small, pt = decompress(b)
     return ok & ~small, pt
+
+
+def _verify_rows(msgs, len4, r, s, pub, tail: str):
+    if tail not in TAILS:
+        raise ValueError(f"unknown strict tail {tail!r}; expected one of "
+                         f"{TAILS}")
+    digest = sha512_ram(msgs, r, pub, len4)
+    if tail == "fused":
+        ok_t, qx, qz = verify_tail(pub, s, digest, r)
+        return _compressed_r_check(qx, qz, r, ok_t)
+    ok_a, a_pt = _decompress_checked(pub)
+    if tail == "split":
+        ok_s, wins = reduce_recode(s, digest)
+        parsed_r = _parse_r_bytes(r)
+        ok_y, qx, qz = dsm_tail_q(wins, a_pt, parsed_r[0])
+        ok_eq = _compressed_r_check(qx, qz, r, ok_y, parsed_r=parsed_r)
+    else:
+        ok_s = sc.is_canonical(s)
+        q = double_scalar_mul_base(
+            sc.scalar_windows(s), sc.limbs_to_windows(sc.reduce_512(digest)),
+            cv.neg(a_pt))
+        ok_eq = _compressed_r_check(q.X, q.Z, r, qy=q.Y)
+    return ok_s & ok_a & ok_eq
+
+
+def verify_batch(msgs, msg_len, sigs, pubkeys, tail: str = "fused"):
+    """Verify a batch of detached signatures.
+
+    msgs uint8 (batch, maxlen) zero-padded, msg_len int (batch,), sigs
+    uint8 (batch, 64) = R || S, pubkeys uint8 (batch, 32); all on one
+    device.  A length outside [0, maxlen] is clamped, as the host verifier
+    clamps it.  tail is the layout, one of TAILS (the module docstring).
+    Returns bool (batch,)."""
+    return _verify_rows(msgs, lens_to_bytes(msg_len), sigs[:, :32],
+                        sigs[:, 32:], pubkeys, tail)
+
+
+def verify_blob(blob, tail: str = "fused"):
+    """verify_batch over a packed blob (batch, ml + PACKED_EXTRA), read in
+    place; the kernels read each row to its own length."""
+    ml = blob.shape[1] - PACKED_EXTRA
+    return _verify_rows(blob[:, :ml], blob[:, ml + 96:ml + 100],
+                        blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
+                        blob[:, ml + 64:ml + 96], tail)
+
+
+# ------------------------------------------------- RLC batch verification
 
 
 def verify_batch_rlc(msgs, msg_len, sigs, pubkeys, z_bytes, m: int = 8,
@@ -149,17 +194,14 @@ def verify_batch_rlc(msgs, msg_len, sigs, pubkeys, z_bytes, m: int = 8,
 
 
 def _rlc_scalars(digest, s_bytes, z_bytes):
-    """The scalar chain, plain torch as in the JAX package: S < L, and
-    the windows of w = z k mod L (64, batch), of z (32, batch) and of c =
-    sum z s mod L (64, 1), for k = digest mod L."""
-    z_limbs = sc.bytes_to_limbs(z_bytes, 11)
-    w_limbs = sc.mul_mod_l(sc.reduce_512(digest), z_limbs)
-    c_limbs = sc.sum_mod_l(
-        sc.mul_mod_l(sc.bytes_to_limbs(s_bytes, 22), z_limbs), axis=0)
-    z_windows = sc.limbs_to_windows(
-        torch.cat([z_limbs, torch.zeros_like(z_limbs)]))[:32]
-    return (sc.is_canonical(s_bytes), sc.limbs_to_windows(w_limbs),
-            z_windows, sc.limbs_to_windows(c_limbs)[:, None])
+    """The scalar chain: the rlc_recode kernel per signature (S < L, the
+    windows of w = z k mod L (64, batch) and of z (32, batch), and z s mod
+    L), then the sum of the z s in torch, c = sum z s mod L, and its
+    windows (64, 1)."""
+    ok_s, w_windows, z_windows, zs = rlc_recode(s_bytes, digest, z_bytes)
+    c_limbs = sc.sum_mod_l(zs, axis=0)
+    return (ok_s, w_windows, z_windows,
+            sc.limbs_to_windows(c_limbs)[:, None])
 
 
 def _rlc_finish(acc_a, acc_r, c_windows):

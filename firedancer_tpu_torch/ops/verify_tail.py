@@ -1,6 +1,6 @@
-"""The fused strict-verify tail: kernel 2 of the verify path
-(csrc/verify_tail.cu, replacing
-firedancer_tpu/ops/curve_pallas.py::verify_tail_fused).
+"""The fused strict-verify tail: kernel 2 of the verify path in its
+default layout, ed25519.verify_batch(tail="fused") (csrc/verify_tail.cu,
+replacing firedancer_tpu/ops/curve_pallas.py::verify_tail_fused).
 
 verify_tail(pub, s, digest, r) -> (ok, X, Z).  ok folds: A decompresses,
 A is not of small order, S < L, and the projective y-compare Q.Y == y_R *
@@ -10,6 +10,11 @@ that ed25519._compressed_r_check finishes with.  Inputs are uint8 row
 views of any row stride: pub, s and r (n, 32), digest (n, 64).  On a CUDA
 tensor the wrapper launches the kernel or raises; on a CPU tensor it runs
 the plain version, built from ops/f25519, scalar25519 and curve25519.
+
+The other two layouts run the same steps as separate calls: "split" the
+decompress, reduce_recode and dsm_tail_q kernels, "unfused" the
+decompress kernel, the scalar steps in torch and the
+double_scalar_mul_base kernel.
 """
 
 import ctypes
@@ -20,7 +25,8 @@ import torch
 from ..kernels import build
 from . import curve25519 as cv
 from . import f25519 as fe
-from . import scalar25519 as sc
+from .dsm import dsm_tail_q_plain, kernel_consts
+from .reduce_recode import reduce_recode_plain
 from .sha512_kernel import _rows
 
 
@@ -28,25 +34,9 @@ def verify_tail_plain(pub, s, digest, r):
     """The plain torch version, the same steps in the same order."""
     ok_a, a = cv.decompress(pub)
     small = cv.is_small_order_affine(a)
-    neg_x = fe.neg(a.X)
-    neg_a = cv.Point(neg_x, a.Y, a.Z, fe.mul(neg_x, a.Y))
-    ok_s = sc.is_canonical(s)
-    k_mag, k_sgn = sc.signed_windows(
-        sc.limbs_to_windows(sc.reduce_512(digest)))
-    s_mag, s_sgn = sc.signed_windows(sc.scalar_windows(s))
-    q = cv.double_scalar_mul_base(s_mag, s_sgn, k_mag, k_sgn, neg_a)
-    ok_y = fe.eq(q.Y, fe.mul(fe.from_bytes(r), q.Z))
-    return ok_a & ~small & ok_s & ok_y, q.X, q.Z
-
-
-@functools.lru_cache(maxsize=None)
-def kernel_consts(device) -> torch.Tensor:
-    """The kernel's int32 (41, 10) constants: [0..8]B rows, then d, 2d,
-    sqrt(-1) and the two order-8 y values (csrc/verify_tail.cu)."""
-    rows = [v for row in cv.base_table_ints() for v in row]
-    rows += [cv.D, cv.D2, cv.SQRT_M1, cv.ORDER8_Y0, cv.ORDER8_Y1]
-    return torch.tensor([fe.int_to_limbs(v) for v in rows],
-                        dtype=torch.int32, device=device)
+    ok_s, wins = reduce_recode_plain(s, digest)
+    ok_y, qx, qz = dsm_tail_q_plain(wins, a, fe.from_bytes(r))
+    return ok_a & ~small & ok_s & ok_y, qx, qz
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,8 @@
 plain torch versions.
 
 Each kernel in csrc/ keeps its per-lane body (sha512_lane, vt_lane,
-dc_lane, msm_lane) in functions that also compile as plain C++ outside
+dc_lane, msm_lane, sc_reduce_recode, dsm_tail_q_lane, dsm_base_lane,
+rlc_lane, and sc_mul_mod_l under the last) in functions that also compile as plain C++ outside
 nvcc.  This test builds them with the host C++ compiler into
 a small harness and runs the same lanes through them and through the plain
 torch versions, so the kernels' arithmetic is checked on a machine with no
@@ -32,7 +33,10 @@ CSRC = Path(__file__).resolve().parent.parent / "firedancer_tpu_torch" / "csrc"
 
 HARNESS = r"""
 #include "decompress.cu"
+#include "dsm.cu"
 #include "msm.cu"
+#include "reduce_recode.cu"
+#include "rlc_recode.cu"
 #include "sha512.cu"
 #include "verify_tail.cu"
 #include <cstdio>
@@ -85,6 +89,54 @@ int main() {
       else
         msm_lane<MSM_P16>(acc, pts, wins, m, 1, m, nwin, d2);
       fwrite(&acc, sizeof acc, 1, stdout);
+    }
+  } else if (mode == 'q') {     // (a 22, b 11) int64 limbs -> a b mod L
+    for (int i = 0; i < n; i++) {
+      int64_t a[22], b[11], out[22];
+      rd(a, sizeof a);
+      rd(b, sizeof b);
+      sc_mul_mod_l(out, a, b);
+      fwrite(out, sizeof out, 1, stdout);
+    }
+  } else if (mode == 'r') {     // (s, digest) -> ok_s, smag ssgn kmag ksgn
+    for (int i = 0; i < n; i++) {
+      uint8_t in[96], w[4][64];
+      rd(in, sizeof in);
+      const uint8_t ok = sc_reduce_recode(in, in + 32, w[0], w[1], w[2], w[3]);
+      fwrite(&ok, 1, 1, stdout);
+      fwrite(w, sizeof w, 1, stdout);
+    }
+  } else if (mode == 'l') {     // (s, digest, z) -> ok_s, w, z windows, zs
+    for (int i = 0; i < n; i++) {
+      uint8_t in[112], ww[64], zw[32];
+      int64_t zs[22];
+      rd(in, sizeof in);
+      const uint8_t ok = rlc_lane(in, in + 32, in + 96, ww, zw, zs);
+      fwrite(&ok, 1, 1, stdout);
+      fwrite(ww, 1, 64, stdout);
+      fwrite(zw, 1, 32, stdout);
+      fwrite(zs, sizeof zs, 1, stdout);
+    }
+  } else if (mode == 't' || mode == 'b') {
+    vt_consts c;                // consts, then per lane its windows (4 x 64
+    rd(&c, sizeof c);           // signed for t, 2 x 64 unsigned for b), A
+    for (int i = 0; i < n; i++) {   // and for t y_R
+      uint8_t w[4][64];
+      ge a, q;
+      rd(w, (mode == 't' ? 4 : 2) * 64);
+      rd(&a, sizeof a);
+      if (mode == 't') {
+        fe y_r, qx, qz;
+        rd(&y_r, sizeof y_r);
+        const uint8_t ok =
+            dsm_tail_q_lane(c, w[0], w[1], w[2], w[3], a, y_r, qx, qz);
+        fwrite(&ok, 1, 1, stdout);
+        fwrite(qx.v, 4, 10, stdout);
+        fwrite(qz.v, 4, 10, stdout);
+      } else {
+        dsm_base_lane(c, w[0], w[1], a, q);
+        fwrite(&q, sizeof q, 1, stdout);
+      }
     }
   } else {                      // consts, then (pub, s, digest, r) lanes
     vt_consts c;
@@ -227,3 +279,153 @@ def test_msm_lane_matches_plain(harness, select):
                         np.uint32).reshape(lanes, 40)
     for got, plane in zip(_planes(rec, 4), want):
         assert fe.to_ints(got) == fe.to_ints(plane)
+
+
+_L = 2**252 + 27742317777372353535851937790883648493
+
+
+def _int_limbs(v: int, n: int) -> list[int]:
+    return [(v >> (12 * i)) & 0xFFF for i in range(n)]
+
+
+def test_mul_mod_l_lane_matches_ints_and_plain(harness):
+    """sc_mul_mod_l, the 22 x 11-limb product mod L of rlc_recode, on
+    the edges (a = 0, 1, L - 1, L, 2^256 - 1 and the 22-limb maximum
+    2^264 - 1; z = 0, 1, 2^127 and 2^128 - 1) and random values: equal to
+    Python ints and to scalar25519.mul_mod_l."""
+    from firedancer_tpu_torch.ops import scalar25519 as sc
+    rng = np.random.default_rng(24)
+    a_vals = [0, 1, _L - 1, _L, 2**256 - 1, 2**264 - 1]
+    z_vals = [0, 1, 2**127, 2**128 - 1]
+    pairs = [(a, z) for a in a_vals for z in z_vals] + [
+        (int.from_bytes(rng.bytes(32), "little"),
+         int.from_bytes(rng.bytes(16), "little")) for _ in range(16)]
+    a_l = np.array([_int_limbs(a, 22) for a, _ in pairs], np.int64)
+    z_l = np.array([_int_limbs(z, 11) for _, z in pairs], np.int64)
+    payload = b"".join(a_l[i].tobytes() + z_l[i].tobytes()
+                       for i in range(len(pairs)))
+    got = np.frombuffer(harness(b"q", len(pairs), 0, payload),
+                        np.int64).reshape(len(pairs), 22)
+    plain = sc.mul_mod_l(torch.from_numpy(a_l.T.copy()),
+                         torch.from_numpy(z_l.T.copy()))
+    assert got.T.tolist() == plain.tolist()
+    assert [sum(int(v) << (12 * i) for i, v in enumerate(row))
+            for row in got] == [a * z % _L for a, z in pairs]
+
+
+def _scalar_lanes(n: int, seed: int):
+    """s (n, 32), digest (n, 64), z (n, 16): the edges first (S = L - 1,
+    L and 2^256 - 1; a digest of all 0xff; z = 0, 1 and 2^128 - 1), then
+    random bytes, S non-canonical in half the random lanes."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, 256, (n, 32), np.uint8)
+    s[::2, 31] &= 0x0F
+    d = rng.integers(0, 256, (n, 64), np.uint8)
+    z = rng.integers(0, 256, (n, 16), np.uint8)
+    for i, v in enumerate((_L - 1, _L, 2**256 - 1)):
+        s[i] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    d[:2] = 0xFF
+    z[0], z[1], z[2] = 0, 0, 0xFF
+    z[1, 0] = 1
+    return s, d, z
+
+
+def test_reduce_recode_lane_matches_plain(harness):
+    from firedancer_tpu_torch.ops import reduce_recode as rr
+    s, d, _ = _scalar_lanes(24, 25)
+    n = len(s)
+    rec = np.frombuffer(harness(b"r", n, 0, np.concatenate(
+        [s, d], axis=1).tobytes()), np.uint8).reshape(n, 257)
+    ok_p, wins_p = rr.reduce_recode_plain(torch.from_numpy(s),
+                                          torch.from_numpy(d))
+    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
+    assert ok_p.any() and not ok_p.all()
+    got = rec[:, 1:].reshape(n, 4, 64).transpose(1, 2, 0)
+    for g, w in zip(got, wins_p):
+        assert g.tolist() == w.tolist()
+
+
+def test_rlc_lane_matches_plain(harness):
+    from firedancer_tpu_torch.ops import rlc_recode as rl
+    s, d, z = _scalar_lanes(24, 26)
+    n = len(s)
+    rec = np.frombuffer(harness(b"l", n, 0, np.concatenate(
+        [s, d, z], axis=1).tobytes()), np.uint8).reshape(n, 273)
+    ok_p, ww_p, zw_p, zs_p = rl.rlc_recode_plain(
+        *(torch.from_numpy(a) for a in (s, d, z)))
+    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
+    assert rec[:, 1:65].T.tolist() == ww_p.tolist()
+    assert rec[:, 65:97].T.tolist() == zw_p.tolist()
+    zs = rec[:, 97:].copy().view(np.int64)
+    assert zs.T.tolist() == zs_p.tolist()
+
+
+def _scaled_points(seed: int):
+    """The decompressed encodings (points off the curve and of small
+    order included) in extended coordinates scaled by a random lambda,
+    (lX, lY, lZ, lT): Z != 1, so a table built as if Z were 1 fails."""
+    b = _encodings()
+    _, _, pt = dc.decompress_plain(torch.from_numpy(b))
+    rng = np.random.default_rng(seed)
+    lam = fe.from_ints([int.from_bytes(rng.bytes(32), "little") % fe.P
+                        for _ in range(len(b))], "cpu")
+    return cv.Point(*(fe.mul(t, lam) for t in pt))
+
+
+def _ge_payload(pts: cv.Point) -> np.ndarray:
+    """(n, 160) bytes: each lane's X, Y, Z, T as uint32 limbs."""
+    limbs = torch.stack(list(pts)).numpy().astype(np.uint32)  # (4, 10, n)
+    return np.ascontiguousarray(limbs.transpose(2, 0, 1)).view(
+        np.uint8).reshape(limbs.shape[2], 160)
+
+
+def test_dsm_tail_q_lane_matches_plain(harness):
+    """The chain of the split layout from an A with Z != 1, signed windows
+    of random S (non-canonical ones included) and k, and y_R of random
+    bytes: ok_y and canonical X, Z equal the plain version's."""
+    from firedancer_tpu_torch.ops import dsm
+    from firedancer_tpu_torch.ops import reduce_recode as rr
+    a = _scaled_points(27)
+    n = a.X.shape[1]
+    s, d, _ = _scalar_lanes(n, 28)
+    _, wins = rr.reduce_recode_plain(torch.from_numpy(s), torch.from_numpy(d))
+    r = np.random.default_rng(29).integers(0, 256, (n, 32), np.uint8)
+    y_r = fe.from_bytes(torch.from_numpy(r))
+    ok_p, x_p, z_p = dsm.dsm_tail_q_plain(wins, a, y_r)
+    consts = dsm.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    w = torch.stack(wins).numpy().transpose(2, 0, 1).reshape(n, 256)
+    yr = y_r.numpy().astype(np.uint32).T.copy().view(np.uint8)
+    payload = np.concatenate([w, _ge_payload(a), yr], axis=1)
+    rec = np.frombuffer(harness(b"t", n, 0, consts.tobytes()
+                                + payload.tobytes()),
+                        np.uint8).reshape(n, 81)
+    x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
+    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
+    assert fe.to_ints(x) == fe.to_ints(x_p)
+    assert fe.to_ints(z) == fe.to_ints(z_p)
+
+
+def test_dsm_base_lane_matches_plain(harness):
+    """double_scalar_mul_base's lane from an A with Z != 1 and unsigned
+    windows whose recode carries out of the top window: canonical X, Y,
+    Z, T equal the plain version's, and T Z = X Y."""
+    from firedancer_tpu_torch.ops import dsm
+    a = _scaled_points(30)
+    n = a.X.shape[1]
+    rng = np.random.default_rng(31)
+    wins = rng.integers(0, 16, (2, 64, n)).astype(np.uint8)
+    wins[:, 63, :8] = 15
+    want = dsm.double_scalar_mul_base_plain(
+        *(torch.from_numpy(w) for w in wins), a)
+    consts = dsm.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    payload = np.concatenate(
+        [wins.transpose(2, 0, 1).reshape(n, 128), _ge_payload(a)], axis=1)
+    rec = np.frombuffer(harness(b"b", n, 0, consts.tobytes()
+                                + payload.tobytes()),
+                        np.uint32).reshape(n, 40)
+    got = _planes(rec, 4)
+    for g, plane in zip(got, want):
+        assert fe.to_ints(g) == fe.to_ints(plane)
+    x, y, z, t = (fe.to_ints(g) for g in got)
+    assert all(ti * zi % fe.P == xi * yi % fe.P
+               for xi, yi, zi, ti in zip(x, y, z, t))

@@ -15,9 +15,12 @@ import torch
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import curve25519 as cv
 from firedancer_tpu_torch.ops import decompress as dc
+from firedancer_tpu_torch.ops import dsm
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import msm as ms
+from firedancer_tpu_torch.ops import reduce_recode as rr
+from firedancer_tpu_torch.ops import rlc_recode as rl
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
 
@@ -137,3 +140,99 @@ def test_rlc_verifier_on_the_card_matches_host(cuda):
     verdict.copy_to_host_async()
     assert np.asarray(verdict).tolist() == ed.host_verify_blob(
         tv.pack_blob(msgs, lens, sigs, pubs))
+
+
+_L = 2**252 + 27742317777372353535851937790883648493
+
+
+def _scalar_rows(n: int, seed: int, dev):
+    """s (n, 32), digest (n, 64) and z (n, 16) as row views of one
+    (n, 120) buffer on the device (row stride 120), edges first: S = L -
+    1, L and 2^256 - 1, a digest of all 0xff, z = 0 and 2^128 - 1; S
+    non-canonical in half the other lanes."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, (n, 120), np.uint8)
+    buf[::2, 31] &= 0x0F
+    for i, v in enumerate((_L - 1, _L, 2**256 - 1)[:n]):
+        buf[i, :32] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    buf[:2, 32:96] = 0xFF
+    buf[0, 96:112] = 0
+    buf[1:2, 96:112] = 0xFF
+    t = torch.from_numpy(buf).to(dev)
+    return t[:, :32], t[:, 32:96], t[:, 96:112]
+
+
+def _scaled_points(n: int, dev) -> cv.Point:
+    """Decompressed keys and R values of adversarial lanes (off-curve and
+    small-order ones included), scaled by a random lambda: Z != 1."""
+    _, _, sigs, pubs, _ = tv.make_adversarial_batch((n + 1) // 2 + 1, 16)
+    b = torch.from_numpy(np.concatenate([pubs, sigs[:, :32]])[:n]).to(dev)
+    _, _, pt = dc.decompress_plain(b)
+    rng = np.random.default_rng(n)
+    lam = fe.from_ints([int.from_bytes(rng.bytes(32), "little") % fe.P
+                        for _ in range(n)], dev)
+    return cv.Point(*(fe.mul(c, lam) for c in pt))
+
+
+_SHAPES = [1, 31, 4096, 4097]
+
+
+@pytest.mark.parametrize("n", _SHAPES)
+def test_reduce_recode_kernel_matches_plain(cuda, n):
+    s, digest, _ = _scalar_rows(n, n, cuda)
+    assert s.stride(0) == 120
+    before = rr.reduce_recode.launches
+    ok_k, wins_k = rr.reduce_recode(s, digest)
+    assert rr.reduce_recode.launches == before + 1
+    ok_p, wins_p = rr.reduce_recode_plain(s, digest)
+    assert torch.equal(ok_k, ok_p)
+    assert all(torch.equal(k, p) for k, p in zip(wins_k, wins_p))
+
+
+@pytest.mark.parametrize("n", _SHAPES)
+def test_rlc_recode_kernel_matches_plain(cuda, n):
+    s, digest, z = _scalar_rows(n, n + 1, cuda)
+    before = rl.rlc_recode.launches
+    got = rl.rlc_recode(s, digest, z)
+    assert rl.rlc_recode.launches == before + 1
+    want = rl.rlc_recode_plain(s, digest, z)
+    assert all(torch.equal(k, p) for k, p in zip(got, want))
+
+
+@pytest.mark.parametrize("n", _SHAPES)
+def test_dsm_tail_q_kernel_matches_plain(cuda, n):
+    """The split layout's chain from reduce_recode's windows (the block
+    taken in place) and from windows in separate int64 tensors (copied),
+    A with Z != 1, y_R of random bytes."""
+    s, digest, z = _scalar_rows(n, n + 2, cuda)
+    _, wins = rr.reduce_recode(s, digest)
+    a = _scaled_points(n, cuda)
+    y_r = fe.from_bytes(torch.cat([z, z], 1))
+    want = dsm.dsm_tail_q_plain(wins, a, y_r)
+    for w in (wins, tuple(x.long() for x in wins)):
+        before = dsm.dsm_tail_q.launches
+        got = dsm.dsm_tail_q(w, a, y_r)
+        assert dsm.dsm_tail_q.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert _canon_equal(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("n", _SHAPES)
+def test_double_scalar_mul_base_kernel_matches_plain(cuda, n):
+    a = _scaled_points(n, cuda)
+    w = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 16, (2, 64, n))).to(cuda)
+    w[:, 63, :8] = 15                   # recodes that carry out of the top
+    before = dsm.double_scalar_mul_base.launches
+    got = dsm.double_scalar_mul_base(w[0], w[1], a)
+    assert dsm.double_scalar_mul_base.launches == before + 1
+    assert _canon_equal(got, dsm.double_scalar_mul_base_plain(w[0], w[1], a))
+
+
+@pytest.mark.parametrize("tail", ed.TAILS)
+def test_strict_layouts_on_the_card_match_host(cuda, tail):
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(44, 128)
+    blob = tv.pack_blob(msgs, lens, sigs, pubs)
+    ver = tv.SigVerifier(tv.VerifierConfig(64, 128), strict_tail=tail)
+    assert np.asarray(ver.dispatch_blob(blob)).tolist() == \
+        ed.host_verify_blob(blob)
