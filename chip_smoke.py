@@ -517,16 +517,17 @@ def main() -> int:
         return (((w_win, cv.neg(a_pt), 64), (z_win, cv.neg(r_pt), 32)),
                 c_win, (digest, sigs_d[:, 32:], z))
 
-    def hold_msm(win, pts, nwin, select):
+    def hold_msm(win, pts, nwin, select, m=MSM_M):
         """Kernel vs plain per lane: canonical X, Y, Z, T equal.  Returns
         (max error, kernel lanes)."""
-        got = ms.msm_lanes(win, pts, MSM_M, nwin, select)
-        want = cv.msm_lanes(win, pts, MSM_M, nwin, select)
+        got = ms.msm_lanes(win, pts, m, nwin, select)
+        want = cv.msm_lanes(win, pts, m, nwin, select)
         err = max(int((fe.canonical(k) - fe.canonical(q)).abs().max())
                   for k, q in zip(got, want))
         if err:
-            raise AssertionError(f"msm {select} nwin {nwin}: {win.shape[1]} "
-                                 f"points, lanes differ from plain, max {err}")
+            raise AssertionError(f"msm {select} m {m} nwin {nwin}: "
+                                 f"{win.shape[1]} points, lanes differ from "
+                                 f"plain, max {err}")
         return err, got
 
     msm_err = 0
@@ -558,6 +559,15 @@ def main() -> int:
               f"lanes), both selects: canonical X, Y, Z, T, max error "
               f"{msm_err}; legacy and p16 fold to the same points; [c]B - "
               f"sum = identity")
+    # a lane tree with an odd partial, and a partial last block: m 3 on
+    # the first 4,095 points of the 32768 bucket (1,365 lanes)
+    win, pts, nwin = msm_in[0]
+    for sel in ms.SELECTS:
+        msm_err = max(msm_err, hold_msm(win[:, :4095], cv.Point(*(
+            t[:, :4095] for t in pts)), nwin, sel, m=3)[0])
+    print(f"msm: kernel == plain per lane at m 3 on 4095 points (1365 "
+          f"lanes, nwin {nwin}), both selects: canonical X, Y, Z, T, max "
+          f"error {msm_err}")
 
     # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
     # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512,
@@ -836,6 +846,17 @@ def main() -> int:
         return bound(n * (nwin + 4 * 80) + lanes * 4 * 80,
                      lanes * (muls * MUL_OPS + nw * 16 * SQR_OPS))
 
+    def msm_design_ops(n, nwin, select):
+        """32-bit operations of the kernel's own design (csrc/msm.cu), in
+        place of the shared chain that msm_bound counts: per point its
+        table and its own chain (four doublings and one Niels add per
+        window), per lane m - 1 unified adds of the tree."""
+        nt, nw = (16, nwin) if select == "legacy" else (9, nwin + 1)
+        muls = (n * ((nt - 2) * GE_ADD + nt * GE_TO_NIELS
+                     + nw * (13 + GE_ADD_NIELS))
+                + n // MSM_M * (MSM_M - 1) * GE_ADD)
+        return muls * MUL_OPS + n * nw * 16 * SQR_OPS
+
     def torch_chain(digest, s_bytes, z_bytes):
         """_rlc_scalars with rlc_recode's plain version in the kernel's
         place: the chain as it ran before the kernel."""
@@ -859,9 +880,14 @@ def main() -> int:
                 t_m = cuda_ms(lambda: ms.msm_lanes(win, pts, MSM_M, nwin, sel))
                 mb = msm_bound(batch, nwin, sel)
                 rlc_kern[(f"msm_{sel}", batch, nwin)] = (t_m, mb)
+                own = msm_design_ops(batch, nwin, sel)
                 note(f"{batch}x{bml}: msm {sel} kernel nwin {nwin}, "
                      f"{batch // MSM_M} lanes: {t_m:.5f} ms (bound "
-                     f"{mb[0]:.5f} ms, {mb[1]})")
+                     f"{mb[0]:.5f} ms, {mb[1]}); the kernel's own design "
+                     f"does {own} 32-bit operations, "
+                     f"{own / (mb[0] * 1e-3 * int_ops_per_s):.4f}x the "
+                     f"bound's, {own / (t_m * 1e-3 * int_ops_per_s):.4f} of "
+                     f"the card's int32 rate")
         # the torch finish: the scalar chain, the two folds, [c]B and the
         # identity test
         lanes_ar = [ms.msm_lanes(win, pts, MSM_M, nwin, "legacy")

@@ -11,10 +11,11 @@ window skips it too, since the next doubling never reads T.  The CUDA
 tail kernel (csrc/ge25519.cuh) runs the same formulas in the same order,
 so the two produce equal X and Z, not merely the same projective point.
 
-The RLC batch check adds the lane-parallel Straus MSM (msm_lanes, the
-plain version of csrc/msm.cu, which runs the same formulas in the same
-order), its tree fold over the lanes and the fixed-base comb
-scalar_mul_base, as the JAX package computes them.
+The RLC batch check adds the lane-parallel MSM (msm_lanes, the plain
+version of csrc/msm.cu, which runs the same formulas in the same order:
+each point's own chain, then a tree per lane), the tree fold over the
+lanes as the JAX package folds them, and the fixed-base comb
+scalar_mul_base.
 """
 
 import functools
@@ -286,48 +287,45 @@ def scalar_mul_base(windows) -> Point:
 
 def msm_lanes(windows, points: Point, m: int, nwin: int,
               select: str) -> Point:
-    """The per-lane half of the lane-parallel Straus MSM (the plain
-    version of csrc/msm.cu).  windows (nwin, n) unsigned 4-bit digits of
-    any integer dtype, low first; points (10, n) planes; lanes = n / m.
-    Lane l accumulates the points j * lanes + l (j < m) in one shared
-    chain: per window, high first, four doublings and m Niels adds.  select "legacy" picks from
+    """The per-lane half of the lane-parallel MSM (the plain version of
+    csrc/msm.cu, in its order).  windows (nwin, n) unsigned 4-bit digits
+    of any integer dtype, low first; points (10, n) planes; lanes = n / m.
+    Every point's own chain [s_i]P_i, all n at once: per window, high
+    first, four doublings and one Niels add.  select "legacy" picks from
     [0..15]P tables; "p16" recodes to signed digits over nwin + 1 windows
-    and picks from [0..8]P tables.  Returns the (10, lanes) accumulators."""
+    and picks from [0..8]P tables.  Then lane l sums its points j * lanes
+    + l (j < m) by fold_lanes' tree over j.  Returns the (10, lanes)
+    accumulators."""
     n = windows.shape[1]
-    lanes = n // m
     windows = windows.long()
     if select == "p16":
         mags, sgns = sc.signed_windows_ext(windows)
         ntab = 9
     else:
         mags, sgns, ntab = windows, None, 16
-    mags = mags.reshape(-1, m, lanes)
-    if sgns is not None:
-        sgns = sgns.reshape(-1, m, lanes)
-    tabs = [niels_table(Point(*(t.reshape(fe.NLIMB, m, lanes)[:, j]
-                                for t in points)), ntab) for j in range(m)]
-    acc = identity(lanes, windows.device)
+    tab = niels_table(points, ntab)
+    acc = identity(n, windows.device)
     for w in range(mags.shape[0] - 1, -1, -1):
         for k in range(4):
             acc = double(acc, want_t=(k == 3))
-        for j in range(m):
-            if sgns is None:
-                acc = add_niels(acc, Niels(*_pick(tabs[j], mags[w, j])))
-            else:
-                acc = _add_signed(acc, tabs[j], mags[w, j], sgns[w, j])
-    return acc
+        if sgns is None:
+            acc = add_niels(acc, Niels(*_pick(tab, mags[w])))
+        else:
+            acc = _add_signed(acc, tab, mags[w], sgns[w])
+    return fold_lanes(acc, n // m)
 
 
-def fold_lanes(acc: Point) -> Point:
-    """Tree-fold (10, lanes) points to one (10, 1) point, as the JAX
-    package folds: the low half plus the high half, an odd last lane
-    carried into the next level."""
-    while acc.X.shape[1] > 1:
-        lanes = acc.X.shape[1]
-        half = lanes // 2
+def fold_lanes(acc: Point, width: int = 1) -> Point:
+    """Tree-fold (10, k * width) points, as k blocks of width columns, to
+    one block, (10, width), as the JAX package folds its lanes: the low
+    half of the blocks plus the high half, an odd last block carried into
+    the next level.  width 1 folds every lane to one (10, 1) point."""
+    while acc.X.shape[1] > width:
+        k = acc.X.shape[1] // width
+        half = k // 2 * width
         s = add(Point(*(t[:, :half] for t in acc)),
                 Point(*(t[:, half:2 * half] for t in acc)))
-        if lanes % 2:
+        if k % 2:
             s = Point(*(torch.cat([ts, ta[:, 2 * half:]], 1)
                         for ts, ta in zip(s, acc)))
         acc = s

@@ -1,4 +1,4 @@
-"""Lane-parallel Straus multi-scalar multiply, sum_i [s_i]P_i (csrc/msm.cu,
+"""Lane-parallel multi-scalar multiply, sum_i [s_i]P_i (csrc/msm.cu,
 replacing firedancer_tpu/ops/curve_pallas.py::msm, both selects).
 
 msm(windows, points, m, nwin, select) -> one Point as (10, 1) planes.
@@ -6,11 +6,12 @@ windows: (nwin, n) unsigned 4-bit digits of the scalars, low window
 first (any integer dtype); points: a Point of (10, n) int64 planes with
 tight limbs (as every ops/f25519 function returns them); n % m == 0.  The
 n points go to n / m lanes as in the JAX package (lane l takes the flat
-points j * lanes + l); each lane runs one shared chain (msm_lanes, the
-kernel), then torch tree-folds the lanes to one point (curve25519
-.fold_lanes).  select is "legacy" (unsigned digits, [0..15]P tables) or
-"p16" (signed digits over nwin + 1 windows, [0..8]P tables); both give
-the same group element, in other coordinates.
+points j * lanes + l); the kernel (msm_lanes) runs each point's own
+chain on a thread of its own and sums each lane's m points by a tree,
+then torch tree-folds the lanes to one point (curve25519.fold_lanes).
+select is "legacy" (unsigned digits, [0..15]P tables) or "p16" (signed
+digits over nwin + 1 windows, [0..8]P tables); both give the same group
+element, in other coordinates.
 
 On a CUDA tensor msm_lanes launches the kernel or raises; on a CPU
 tensor it runs the plain version, curve25519.msm_lanes.  The kernel

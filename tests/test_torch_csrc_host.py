@@ -2,9 +2,9 @@
 plain torch versions.
 
 Each kernel in csrc/ keeps its per-lane body (sha512_lane, vt_lane,
-dc_lane, msm_lane, sc_reduce_recode, dsm_tail_q_lane, dsm_base_lane,
-rlc_lane, and sc_mul_mod_l under the last) in functions that also compile as plain C++ outside
-nvcc.  This test builds them with the host C++ compiler into
+dc_lane, msm_point and msm_tree_step, sc_reduce_recode,
+dsm_tail_q_lane, dsm_base_lane, rlc_lane, and sc_mul_mod_l under the
+last) in functions that also compile as plain C++ outside nvcc.  This test builds them with the host C++ compiler into
 a small harness and runs the same lanes through them and through the plain
 torch versions, so the kernels' arithmetic is checked on a machine with no
 GPU.  The launch, the grid and the memory layout are not: chip_smoke.py
@@ -83,12 +83,21 @@ int main() {
       uint8_t wins[MSM_MAX_M * MSM_MAX_NWIN];
       rd(pts, m * sizeof(ge));
       rd(wins, m * nwin);
-      ge acc;
-      if (sel == MSM_LEGACY)
-        msm_lane<MSM_LEGACY>(acc, pts, wins, m, 1, m, nwin, d2);
-      else
-        msm_lane<MSM_P16>(acc, pts, wins, m, 1, m, nwin, d2);
-      fwrite(&acc, sizeof acc, 1, stdout);
+      ge part[MSM_MAX_M], prev[MSM_MAX_M];
+      for (int j = 0; j < m; j++) {   // thread j of the lane: its point
+        if (sel == MSM_LEGACY)
+          msm_point<MSM_LEGACY>(part[j], pts[j], wins + j, m, nwin, d2);
+        else
+          msm_point<MSM_P16>(part[j], pts[j], wins + j, m, nwin, d2);
+      }
+      // the tree: at each level every thread reads the partials as the
+      // level found them, as the warp's shuffles do
+      for (int c = m; c > 1; c = c / 2 + c % 2) {
+        for (int j = 0; j < m; j++) prev[j] = part[j];
+        for (int j = 0; j < m; j++)
+          msm_tree_step(part[j], prev[msm_tree_src(j, c)], j, c, d2);
+      }
+      fwrite(&part[0], sizeof(ge), 1, stdout);
     }
   } else if (mode == 'q') {     // (a 22, b 11) int64 limbs -> a b mod L
     for (int i = 0; i < n; i++) {
@@ -250,13 +259,18 @@ def test_decompress_lane_matches_plain(harness):
         assert fe.to_ints(got) == fe.to_ints(want)
 
 
-@pytest.mark.parametrize("select", ms.SELECTS)
-def test_msm_lane_matches_plain(harness, select):
-    """The lane body over the negated decompressed encodings (points off
-    the curve and of small order included) with random digits, full
-    128-bit windows among them: per-lane X, Y, Z, T equal the plain
-    chain's, canonically."""
-    m, nwin = 4, 32
+@pytest.mark.parametrize("select,m", [
+    *((sel, 4) for sel in ms.SELECTS),
+    *((sel, m) for m in (1, 3, 8) for sel in ms.SELECTS)],
+    ids=[*ms.SELECTS, *(f"{sel}-m{m}" for m in (1, 3, 8)
+                        for sel in ms.SELECTS)])
+def test_msm_lane_matches_plain(harness, select, m):
+    """A lane of the kernel, each of its m threads' chains and then the
+    tree, over the negated decompressed encodings (points off the curve
+    and of small order included) with random digits, full 128-bit windows
+    among them and top windows that carry out: per-lane X, Y, Z, T equal
+    the plain version's, canonically."""
+    nwin = 32
     b = _encodings()[:48]
     n, lanes = len(b), len(b) // m
     _, _, pt = dc.decompress_plain(torch.from_numpy(b))

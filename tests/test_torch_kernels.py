@@ -104,10 +104,12 @@ def test_decompress_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.parametrize("select", ms.SELECTS)
-@pytest.mark.parametrize("m,nwin", [(8, 64), (4, 32)])
+@pytest.mark.parametrize("m,nwin", [(8, 64), (4, 32), (3, 16), (1, 64)])
 def test_msm_kernel_matches_plain(cuda, select, m, nwin):
     """Per-lane accumulators over the negated decompressed keys (valid,
-    small-order and off-curve ones) with random digits."""
+    small-order and off-curve ones) with random digits: m 3 gives a lane
+    tree with an odd partial and blocks of 10 lanes, the last one
+    partial; m 1 no tree."""
     _, _, _, pubs, _ = tv.make_adversarial_batch(264, 16)
     _, _, pt = dc.decompress_plain(torch.from_numpy(pubs))
     pts = cv.neg(pt)
