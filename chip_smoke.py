@@ -81,6 +81,16 @@ DEC_SQR, DEC_MUL = 255, 19
 # add 9 M, a Niels add 8 M, a conversion to Niels 1 M, a doubling 4 S and
 # 3 M (4 M with T).
 GE_ADD, GE_ADD_NIELS, GE_TO_NIELS = 9, 8, 1
+# The four-rank chain of verify_tail and dsm_tail_q (csrc/dsm_chain.cuh
+# ge_dsm_chain4), per rank of a lane, counted from the code: the table
+# 30 M (nine conversions to Niels form, seven unified adds of three
+# rounds) and 560 shuffles; a window 4 S + 8 M (twelve rounds of one
+# product) and 430 shuffles (a doubling's two gathers 40 + 30, with T 40
+# + 40; the Niels add 40 + 40; the affine add 30 + 30); the y-compare
+# 1 M.  Each of verify_tail's ranks also decompresses A (DEC_SQR,
+# DEC_MUL).  A shuffle counts as one 32-bit operation.
+G4_TAB_MUL, G4_TAB_SHFL = 30, 560
+G4_WIN_SQR, G4_WIN_MUL, G4_WIN_SHFL = 4, 8, 430
 RLC_BUCKETS = ((4096, 128), (32768, 128))
 MSM_M = 8
 
@@ -420,7 +430,7 @@ def main() -> int:
     L = sc.L
     adv_np = V.pack_blob(msgs, lens, sigs, pubs)
 
-    def hold_inputs(blob_np, ml, n, seed):
+    def hold_rows(blob_np, ml, n):
         rows = blob_np[:n].copy()
         k = min(n, len(adv_np))
         rows[:k] = adv_np[:k]
@@ -428,7 +438,10 @@ def main() -> int:
             if k + i < n:
                 rows[k + i, ml + 32:ml + 64] = np.frombuffer(
                     v.to_bytes(32, "little"), np.uint8)
-        blob = torch.from_numpy(rows).to(dev)
+        return torch.from_numpy(rows).to(dev)
+
+    def hold_inputs(blob_np, ml, n, seed):
+        blob = hold_rows(blob_np, ml, n)
         m_, r_, s_, a_, ln_ = cols(blob, ml)
         rng = np.random.default_rng(seed)
         z = rng.integers(0, 256, (n, 16), np.uint8)
@@ -470,6 +483,23 @@ def main() -> int:
               f"double_scalar_mul_base and rlc_recode kernels == plain "
               f"(bits, windows, canonical X, Y, Z, T, z s limbs), max "
               f"error {max(new_err.values())}")
+
+    # the two four-rank chain kernels (blocks of 8 lanes) at lane counts
+    # that leave a partial block alone (1, 7), a whole one (8) and a
+    # partial last block (4095, 4097), on the rows above
+    blob_np = next(b[2] for b in buckets if b[:2] == (32768, 128))
+    chain_counts = (1, 7, 8, 4095, 4097)
+    for n in chain_counts:
+        tail_err = max(tail_err, hold_tail(tail_args(
+            hold_rows(blob_np, 128, n), 128))[0])
+        s_, digest, _, a_pt, y_r = hold_inputs(blob_np, 128, n, n)
+        _, wins = rr.reduce_recode(s_, digest)
+        new_err["dsm_tail_q"] = max(new_err["dsm_tail_q"], hold(
+            "dsm_tail_q", dsm.dsm_tail_q(wins, a_pt, y_r),
+            dsm.dsm_tail_q_plain(wins, a_pt, y_r)))
+    print(f"verify_tail and dsm_tail_q kernels == plain at "
+          f"{', '.join(map(str, chain_counts))} lanes (ok bits, canonical X "
+          f"and Z), max error {max(tail_err, new_err['dsm_tail_q'])}")
 
     # ---- phase 6: decompress kernel vs plain on adversarial encodings and
     # on the A and R columns of the RLC buckets, whole and one row short
@@ -567,6 +597,16 @@ def main() -> int:
             t[:, :4095] for t in pts)), nwin, sel, m=3)[0])
     print(f"msm: kernel == plain per lane at m 3 on 4095 points (1365 "
           f"lanes, nwin {nwin}), both selects: canonical X, Y, Z, T, max "
+          f"error {msm_err}")
+    # m 2, 5, 6 and 7 (0, 2, 2 and 4 threads of a warp without a point):
+    # 1001 lanes leave a partial last block at each
+    for m in (2, 5, 6, 7):
+        k = 1001 * m
+        for sel in ms.SELECTS:
+            msm_err = max(msm_err, hold_msm(win[:, :k], cv.Point(*(
+                t[:, :k] for t in pts)), nwin, sel, m=m)[0])
+    print(f"msm: kernel == plain per lane at m 2, 5, 6 and 7 on 1001 lanes "
+          f"each (nwin {nwin}), both selects: canonical X, Y, Z, T, max "
           f"error {msm_err}")
 
     # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
@@ -723,6 +763,21 @@ def main() -> int:
         return bound(batch * (32 + 32 + 64 + 32 + 1 + 160),
                      batch * (TAIL_MUL * MUL_OPS + TAIL_SQR * SQR_OPS))
 
+    def chain4_ops(n, decompress: bool):
+        """32-bit operations of the four-rank chain's own design for n
+        lanes (its products and shuffles; the bound counts the one-thread
+        chain's products)."""
+        sqr = 64 * G4_WIN_SQR + DEC_SQR * decompress
+        mul = G4_TAB_MUL + 64 * G4_WIN_MUL + 1 + DEC_MUL * decompress
+        return 4 * n * (sqr * SQR_OPS + mul * MUL_OPS + G4_TAB_SHFL
+                        + 64 * G4_WIN_SHFL)
+
+    def design_note(own, t_k, b_):
+        return (f"the kernel's own design does {own} 32-bit operations, "
+                f"{own / (b_[0] * 1e-3 * int_ops_per_s):.4f}x the bound's, "
+                f"{own / (t_k * 1e-3 * int_ops_per_s):.4f} of the card's "
+                f"int32 rate")
+
     timing = {}
     for batch, bml, blob_np, _, nblocks, msg_bytes in buckets:
         blob = torch.from_numpy(blob_np).to(dev)
@@ -740,7 +795,8 @@ def main() -> int:
              f"{sb[0]:.5f} ms, {sb[1]}), verify_tail kernel {t_tail:.5f} ms "
              f"(bound {tb[0]:.5f} ms, {tb[1]}), _compressed_r_check "
              f"{t_r:.5f} ms, dispatch_blob end to end {t_e2e:.4f} ms = "
-             f"{batch / t_e2e * 1e3:.1f} verifies/s")
+             f"{batch / t_e2e * 1e3:.1f} verifies/s; verify_tail: "
+             f"{design_note(chain4_ops(batch, True), t_tail, tb)}")
         for what, fn in (
                 ("_compressed_r_check",
                  lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t)),
@@ -812,6 +868,8 @@ def main() -> int:
             new_ms[(name, batch)] = (t_k, b_)
             line = (f"{batch}x{bml}: {name} kernel {t_k:.5f} ms (bound "
                     f"{b_[0]:.5f} ms, {b_[1]})")
+            if name == "dsm_tail_q":
+                line += "; " + design_note(chain4_ops(batch, False), t_k, b_)
             if batch == buckets[0][0]:
                 new_plain[name] = cuda_ms(plain, PLAIN_RUNS, 1)
                 line += f", plain {new_plain[name]:.4f} ms"
@@ -883,11 +941,8 @@ def main() -> int:
                 own = msm_design_ops(batch, nwin, sel)
                 note(f"{batch}x{bml}: msm {sel} kernel nwin {nwin}, "
                      f"{batch // MSM_M} lanes: {t_m:.5f} ms (bound "
-                     f"{mb[0]:.5f} ms, {mb[1]}); the kernel's own design "
-                     f"does {own} 32-bit operations, "
-                     f"{own / (mb[0] * 1e-3 * int_ops_per_s):.4f}x the "
-                     f"bound's, {own / (t_m * 1e-3 * int_ops_per_s):.4f} of "
-                     f"the card's int32 rate")
+                     f"{mb[0]:.5f} ms, {mb[1]}); "
+                     f"{design_note(own, t_m, mb)}")
         # the torch finish: the scalar chain, the two folds, [c]B and the
         # identity test
         lanes_ar = [ms.msm_lanes(win, pts, MSM_M, nwin, "legacy")

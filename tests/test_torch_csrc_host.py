@@ -1,14 +1,19 @@
 """The CUDA kernels' per-lane code, compiled as host C++, against the
 plain torch versions.
 
-Each kernel in csrc/ keeps its per-lane body (sha512_lane, vt_lane,
+Each kernel in csrc/ keeps its per-lane body (sha512_lane, vt_lane4,
 dc_lane, msm_point and msm_tree_step, sc_reduce_recode,
-dsm_tail_q_lane, dsm_base_lane, rlc_lane, and sc_mul_mod_l under the
-last) in functions that also compile as plain C++ outside nvcc.  This test builds them with the host C++ compiler into
-a small harness and runs the same lanes through them and through the plain
-torch versions, so the kernels' arithmetic is checked on a machine with no
-GPU.  The launch, the grid and the memory layout are not: chip_smoke.py
-checks those on the card.
+dsm_tail_q_lane4, dsm_base_lane, rlc_lane, and sc_mul_mod_l under the
+last) in functions that also compile as plain C++ outside nvcc.  This
+test builds them with the host C++ compiler into a small harness and runs
+the same lanes through them and through the plain torch versions, so the
+kernels' arithmetic is checked on a machine with no GPU.  Where a kernel
+runs a lane on several threads (msm's points, the four ranks of the
+chain in vt_lane4 and dsm_tail_q_lane4), the harness runs those threads
+in lockstep and passes what the warp's shuffles would through arrays;
+the one-thread vt_lane and dsm_tail_q_lane are held beside them.  The
+launch, the grid and the memory layout are not checked here:
+chip_smoke.py checks those on the card.
 """
 
 import hashlib
@@ -126,19 +131,23 @@ int main() {
       fwrite(zw, 1, 32, stdout);
       fwrite(zs, sizeof zs, 1, stdout);
     }
-  } else if (mode == 't' || mode == 'b') {
+  } else if (mode == 't' || mode == 'T' || mode == 'b') {
     vt_consts c;                // consts, then per lane its windows (4 x 64
-    rd(&c, sizeof c);           // signed for t, 2 x 64 unsigned for b), A
-    for (int i = 0; i < n; i++) {   // and for t y_R
-      uint8_t w[4][64];
+    rd(&c, sizeof c);           // signed for t and T, 2 x 64 unsigned for
+    for (int i = 0; i < n; i++) {   // b), A and for t and T y_R; T runs
+      uint8_t w[4][64];             // the four ranks of a lane
       ge a, q;
-      rd(w, (mode == 't' ? 4 : 2) * 64);
+      rd(w, (mode == 'b' ? 2 : 4) * 64);
       rd(&a, sizeof a);
-      if (mode == 't') {
+      if (mode != 'b') {
         fe y_r, qx, qz;
+        uint32_t tab[G4_TAB_WORDS * 4];
         rd(&y_r, sizeof y_r);
         const uint8_t ok =
-            dsm_tail_q_lane(c, w[0], w[1], w[2], w[3], a, y_r, qx, qz);
+            mode == 't'
+                ? dsm_tail_q_lane(c, w[0], w[1], w[2], w[3], a, y_r, qx, qz)
+                : dsm_tail_q_lane4<4>(c, w[0], w[1], w[2], w[3], a, y_r,
+                                      qx, qz, tab, 0);
         fwrite(&ok, 1, 1, stdout);
         fwrite(qx.v, 4, 10, stdout);
         fwrite(qz.v, 4, 10, stdout);
@@ -147,15 +156,19 @@ int main() {
         fwrite(&q, sizeof q, 1, stdout);
       }
     }
-  } else {                      // consts, then (pub, s, digest, r) lanes
-    vt_consts c;
+  } else {                      // consts, then (pub, s, digest, r) lanes;
+    vt_consts c;                // V runs the four ranks of a lane
     rd(&c, sizeof c);
     std::vector<uint8_t> in(n * 160);
     rd(in.data(), in.size());
     for (int i = 0; i < n; i++) {
       const uint8_t *p = &in[i * 160];
       fe qx, qz;
-      const uint8_t ok = vt_lane(c, p, p + 32, p + 64, p + 128, qx, qz);
+      uint32_t tab[G4_TAB_WORDS * 4];
+      const uint8_t ok =
+          mode == 'V'
+              ? vt_lane4<4>(c, p, p + 32, p + 64, p + 128, qx, qz, tab, 0)
+              : vt_lane(c, p, p + 32, p + 64, p + 128, qx, qz);
       fwrite(&ok, 1, 1, stdout);
       fwrite(qx.v, 4, 10, stdout);
       fwrite(qz.v, 4, 10, stdout);
@@ -208,7 +221,12 @@ def test_sha512_lane_matches_plain_and_hashlib(harness):
             bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :k])).digest()
 
 
-def test_verify_tail_lane_matches_plain(harness):
+@pytest.mark.parametrize("mode", [b"v", b"V"], ids=["one_thread",
+                                                    "four_ranks"])
+def test_verify_tail_lane_matches_plain(harness, mode):
+    """The tail's lane on one thread (v) and on the four ranks of a group,
+    run in lockstep (V): ok bits and canonical X, Z equal the plain
+    version's, and the four ranks' equal the one thread's."""
     msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
     bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
     r, s, a = bt[:, 64:96], bt[:, 96:128], bt[:, 128:160]
@@ -218,13 +236,19 @@ def test_verify_tail_lane_matches_plain(harness):
     lanes = np.concatenate([pubs, sigs[:, 32:], digest.numpy(), sigs[:, :32]],
                            axis=1)
     n = len(lanes)
-    rec = np.frombuffer(harness(b"v", n, 0, consts.tobytes() + lanes.tobytes()),
-                        np.uint8).reshape(n, 81)
-    limbs = rec[:, 1:].copy().view(np.uint32).astype(np.int64)
-    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
-    assert fe.to_ints(torch.from_numpy(limbs[:, :10].T)) == fe.to_ints(x_p)
-    assert fe.to_ints(torch.from_numpy(limbs[:, 10:].T)) == fe.to_ints(z_p)
+
+    def run(m):
+        rec = np.frombuffer(harness(m, n, 0, consts.tobytes()
+                                    + lanes.tobytes()), np.uint8).reshape(n, 81)
+        x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
+        return (rec[:, 0].astype(bool).tolist(), fe.to_ints(x),
+                fe.to_ints(z))
+
+    got = run(mode)
+    assert got == (ok_p.tolist(), fe.to_ints(x_p), fe.to_ints(z_p))
     assert ok_p.any() and not ok_p.all()
+    if mode == b"V":
+        assert got == run(b"v")
 
 
 def _planes(raw: np.ndarray, k: int) -> list[torch.Tensor]:
@@ -393,10 +417,14 @@ def _ge_payload(pts: cv.Point) -> np.ndarray:
         np.uint8).reshape(limbs.shape[2], 160)
 
 
-def test_dsm_tail_q_lane_matches_plain(harness):
-    """The chain of the split layout from an A with Z != 1, signed windows
+@pytest.mark.parametrize("mode", [b"t", b"T"], ids=["one_thread",
+                                                    "four_ranks"])
+def test_dsm_tail_q_lane_matches_plain(harness, mode):
+    """The chain of the split layout, on one thread (t) and on the four
+    ranks of a group in lockstep (T), from an A with Z != 1, signed windows
     of random S (non-canonical ones included) and k, and y_R of random
-    bytes: ok_y and canonical X, Z equal the plain version's."""
+    bytes: ok_y and canonical X, Z equal the plain version's, and the four
+    ranks' equal the one thread's."""
     from firedancer_tpu_torch.ops import dsm
     from firedancer_tpu_torch.ops import reduce_recode as rr
     a = _scaled_points(27)
@@ -409,14 +437,19 @@ def test_dsm_tail_q_lane_matches_plain(harness):
     consts = dsm.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
     w = torch.stack(wins).numpy().transpose(2, 0, 1).reshape(n, 256)
     yr = y_r.numpy().astype(np.uint32).T.copy().view(np.uint8)
-    payload = np.concatenate([w, _ge_payload(a), yr], axis=1)
-    rec = np.frombuffer(harness(b"t", n, 0, consts.tobytes()
-                                + payload.tobytes()),
-                        np.uint8).reshape(n, 81)
-    x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
-    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
-    assert fe.to_ints(x) == fe.to_ints(x_p)
-    assert fe.to_ints(z) == fe.to_ints(z_p)
+    payload = consts.tobytes() + np.concatenate(
+        [w, _ge_payload(a), yr], axis=1).tobytes()
+
+    def run(m):
+        rec = np.frombuffer(harness(m, n, 0, payload), np.uint8).reshape(n, 81)
+        x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
+        return (rec[:, 0].astype(bool).tolist(), fe.to_ints(x),
+                fe.to_ints(z))
+
+    got = run(mode)
+    assert got == (ok_p.tolist(), fe.to_ints(x_p), fe.to_ints(z_p))
+    if mode == b"T":
+        assert got == run(b"t")
 
 
 def test_dsm_base_lane_matches_plain(harness):

@@ -59,8 +59,15 @@ def test_sha512_kernel_matches_plain_and_hashlib(cuda, n, ml):
             bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :k])).digest()
 
 
-def test_verify_tail_kernel_matches_plain(cuda):
-    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(66, 64)
+# lane counts of the four-rank chain kernels (verify_tail, dsm_tail_q):
+# blocks of 8 lanes, so 1 and 7 give a partial block alone, 4095 and 4097
+# a partial last block
+_CHAIN_SHAPES = [1, 7, 8, 66, 4095, 4097]
+
+
+@pytest.mark.parametrize("n", _CHAIN_SHAPES)
+def test_verify_tail_kernel_matches_plain(cuda, n):
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(n, 64)
     blob = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
 
     def run(b):
@@ -104,13 +111,17 @@ def test_decompress_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.parametrize("select", ms.SELECTS)
-@pytest.mark.parametrize("m,nwin", [(8, 64), (4, 32), (3, 16), (1, 64)])
+@pytest.mark.parametrize("m,nwin", [(8, 64), (4, 32), (3, 16), (1, 64),
+                                    (2, 32), (5, 16), (6, 64), (7, 32)])
 def test_msm_kernel_matches_plain(cuda, select, m, nwin):
     """Per-lane accumulators over the negated decompressed keys (valid,
-    small-order and off-curve ones) with random digits: m 3 gives a lane
-    tree with an odd partial and blocks of 10 lanes, the last one
-    partial; m 1 no tree."""
+    small-order and off-curve ones) with random digits, on the largest
+    multiple of m of 264 points: m 3 gives a lane tree with an odd
+    partial and blocks of 10 lanes, the last one partial; m 1 no tree;
+    m 2, 5, 6 and 7 leave 0, 2, 2 and 4 threads of a warp without a point,
+    and a partial last block."""
     _, _, _, pubs, _ = tv.make_adversarial_batch(264, 16)
+    pubs = pubs[:len(pubs) - len(pubs) % m]
     _, _, pt = dc.decompress_plain(torch.from_numpy(pubs))
     pts = cv.neg(pt)
     wins = torch.from_numpy(np.random.default_rng(m).integers(
@@ -201,7 +212,7 @@ def test_rlc_recode_kernel_matches_plain(cuda, n):
     assert all(torch.equal(k, p) for k, p in zip(got, want))
 
 
-@pytest.mark.parametrize("n", _SHAPES)
+@pytest.mark.parametrize("n", sorted({*_SHAPES, *_CHAIN_SHAPES}))
 def test_dsm_tail_q_kernel_matches_plain(cuda, n):
     """The split layout's chain from reduce_recode's windows (the block
     taken in place) and from windows in separate int64 tensors (copied),

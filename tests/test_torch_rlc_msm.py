@@ -3,7 +3,8 @@ the JAX package's XLA cv.msm, for both selects, on the same points and
 scalars: at m = 2 with full 128-bit scalars over 32 windows, and against
 the Pallas curve_pallas.msm in interpret mode too; at m = 3 and 8 (a lane
 tree with an odd partial, and one of three full levels) with 32-bit
-scalars over 8 windows.  The top nibble is >= 8, so that the p16 recode
+scalars over 8 windows, and against interpret-mode curve_pallas.msm in
+slow-marked tests.  The top nibble is >= 8, so that the p16 recode
 carries out of the top window.  The selects and the two packages take
 different paths (other tables, other coordinates, another order of
 adds), so the sums are compared as affine points, as
@@ -118,4 +119,19 @@ def test_msm_lane_tree_matches_xla_msm(select, m):
     n, nwin, seed = SMALL[m]
     port, _, want = _case(n, nwin, seed)
     assert _xla_affine(m) == _port_affine(
+        ms.msm_plain(*port, m, nwin, select)) == want
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("select,m", [(sel, m) for m in SMALL
+                                      for sel in ms.SELECTS])
+def test_msm_lane_tree_matches_pallas_interpret(select, m):
+    """The lane tree at m = 3 and 8 against the Pallas curve_pallas.msm in
+    interpret mode, all lanes in one block.  Slow: on a CPU host interpret
+    mode takes about 150 s a select at m = 3 and over 7 min at m = 8."""
+    n, nwin, seed = SMALL[m]
+    port, jax_args, want = _case(n, nwin, seed)
+    got = jcp.msm(*jax_args, m=m, nwin=nwin, blk=n // m, interpret=True,
+                  select=select)
+    assert _jax_affine(got) == _port_affine(
         ms.msm_plain(*port, m, nwin, select)) == want
