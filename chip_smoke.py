@@ -422,18 +422,19 @@ def main() -> int:
               f"at {', '.join(f'{b}x{m}' for b, m, *_ in buckets)}; "
               f"launches {got}")
 
-    # each new kernel against its plain version at 4096 and 32768 lanes
-    # and at one lane: the buckets' rows with the adversarial lanes of
+    # each new kernel against its plain version at every bucket and at
+    # one lane: the buckets' rows with the adversarial lanes of
     # phase 3 written over the first 528, S = L - 1, L and 2^256 - 1 in the
     # next three, z = 0 and 2^128 - 1 in the first two; A decompressed
     # from the keys and scaled by a random lambda (Z != 1)
     L = sc.L
-    adv_np = V.pack_blob(msgs, lens, sigs, pubs)
+    adv_np = {ml: V.pack_blob(np.pad(msgs, ((0, 0), (0, ml - 128))), lens,
+                              sigs, pubs) for ml in {b[1] for b in buckets}}
 
     def hold_rows(blob_np, ml, n):
         rows = blob_np[:n].copy()
-        k = min(n, len(adv_np))
-        rows[:k] = adv_np[:k]
+        k = min(n, len(adv_np[ml]))
+        rows[:k] = adv_np[ml][:k]
         for i, v in enumerate((L - 1, L, 2**256 - 1)):
             if k + i < n:
                 rows[k + i, ml + 32:ml + 64] = np.frombuffer(
@@ -458,7 +459,8 @@ def main() -> int:
 
     new_err = dict.fromkeys(("reduce_recode", "dsm_tail_q",
                              "double_scalar_mul_base", "rlc_recode"), 0)
-    hold_shapes = [(4096, 128, 4096), (32768, 128, 32768), (4096, 128, 1)]
+    hold_shapes = [(4096, 128, 4096), (32768, 128, 32768), (4096, 1232, 4096),
+                   (4096, 128, 1)]
     for batch, bml, n in hold_shapes:
         blob_np = next(b[2] for b in buckets if b[:2] == (batch, bml))
         s_, digest, z_d, a_pt, y_r = hold_inputs(blob_np, bml, n, n)

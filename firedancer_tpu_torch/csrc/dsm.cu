@@ -25,10 +25,11 @@
 // add and an affine add) against 656 bytes read (dsm_tail_q).  What the
 // design does about it: fd_dsm_tail_q runs the fused tail's design
 // (verify_tail.cu): a lane is a group of four threads that makes each
-// round of the formulas' four products side by side, every rank loads
-// the lane's windows and A itself, rank 0 writes ok_y and X and rank 1
-// Z, each rank's column of the [0..8](-A) table lies in shared memory,
-// and blocks are one warp of 8 lanes.  fd_dsm_base keeps one thread per
+// round of the formulas' four products side by side, shorter in latency
+// and larger in work than one thread per lane; every rank loads the
+// lane's windows and A itself, rank 0 writes ok_y and X and rank 1 Z,
+// each rank's column of the [0..8](-A) table lies in shared memory, and
+// blocks are one warp of 8 lanes.  fd_dsm_base keeps one thread per
 // lane: its accumulator in registers, its table in local memory (1.4
 // KB).  Both stage [0..8]B and the constants into shared memory once per
 // block.
@@ -50,10 +51,8 @@ FD_FN bool dsm_tail_q_lane(const vt_consts &c, const uint8_t *smag,
   return dsm_y_compare(q, y_r, qx, qz);
 }
 
-// dsm_tail_q for ranks r0 .. r0 + NR - 1 of the lane (on the host: NR =
-// 4, all of them); tab as ge_dsm_chain4 takes it.  Every rank returns
-// the same.
-template <int NR>
+// dsm_tail_q for rank r0 of the lane (on the host: all four ranks, r0 =
+// 0); tab as ge_dsm_chain4 takes it.  Every rank returns the same.
 FD_FN bool dsm_tail_q_lane4(const vt_consts &c, const uint8_t *smag,
                             const uint8_t *ssgn, const uint8_t *kmag,
                             const uint8_t *ksgn, const ge &a, const fe &y_r,
@@ -61,7 +60,7 @@ FD_FN bool dsm_tail_q_lane4(const vt_consts &c, const uint8_t *smag,
   ge na = a, q;
   fe_neg(na.X, a.X);
   fe_neg(na.T, a.T);
-  ge_dsm_chain4<NR>(q, na, smag, ssgn, kmag, ksgn, c, tab, r0);
+  ge_dsm_chain4(q, na, smag, ssgn, kmag, ksgn, c, tab, r0);
   return dsm_y_compare(q, y_r, qx, qz);
 }
 
@@ -83,8 +82,9 @@ FD_FN void dsm_base_lane(const vt_consts &c, const uint8_t *s_win,
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-#define DSM_THREADS 32            // a block is one warp
-static_assert(DSM_THREADS == G4_COLSTEP, "tab is [entry][limb][col][thread]");
+#define DSM_THREADS 32                // one warp
+#define DSM_LANES4 (DSM_THREADS / 4)  // fd_dsm_tail_q: 8 lanes of 4 ranks
+static_assert(DSM_THREADS == G4_TAB_STRIDE, "tab is [entry][limb][thread]");
 
 __device__ void dsm_stage_consts(vt_consts &c, const int32_t *consts) {
   uint32_t *cw = &c.base[0][0].v[0];
@@ -99,36 +99,33 @@ __device__ void dsm_load_wins(uint8_t *out, const uint8_t *wins, int p,
   for (int w = 0; w < 64; w++) out[w] = wins[((long long)p * 64 + w) * n + j];
 }
 
-// W threads a lane (4 or 2), 32 / W lanes a block; a partial last block
-// runs its spare groups on the last lane and drops their results.
-template <int W>
+// Four threads a lane, 8 lanes a block; a partial last block runs its
+// spare groups on the last lane and drops their results.
 __global__ void __launch_bounds__(DSM_THREADS)
     dsm_tail_q_kernel(const uint8_t *wins, const int64_t *ax,
                       const int64_t *ay, const int64_t *az,
                       const int64_t *at, const int64_t *yr,
                       const int32_t *consts, int n, uint8_t *ok,
                       int64_t *x_out, int64_t *z_out) {
-  constexpr int NR = 4 / W;
   __shared__ vt_consts c;
-  __shared__ uint32_t tab[G4_TAB_WORDS * DSM_THREADS * NR];
+  __shared__ uint32_t tab[G4_TAB_WORDS * DSM_THREADS];
   dsm_stage_consts(c, consts);
-  const long long g =
-      (long long)blockIdx.x * (DSM_THREADS / W) + threadIdx.x / W;
+  const long long g = (long long)blockIdx.x * DSM_LANES4 + threadIdx.x / 4;
   const long long lane = g < n ? g : n - 1;
-  const int t = threadIdx.x % W;
+  const int rank = threadIdx.x & 3;
   uint8_t w[4][64];
   for (int p = 0; p < 4; p++) dsm_load_wins(w[p], wins, p, n, lane);
   ge a;
   ge_load(a, ax, ay, az, at, n, lane);
   fe y_r, qx, qz;
   fe_load(y_r, yr, n, lane);
-  const bool ok_l = dsm_tail_q_lane4<NR>(c, w[0], w[1], w[2], w[3], a, y_r,
-                                         qx, qz, tab + threadIdx.x, t * NR);
+  const bool ok_l = dsm_tail_q_lane4(c, w[0], w[1], w[2], w[3], a, y_r, qx,
+                                     qz, tab + threadIdx.x, rank);
   if (g >= n) return;
-  if (t == 0) {
+  if (rank == 0) {
     ok[lane] = ok_l;
     fe_store(x_out, n, lane, qx);
-  } else if (t == 1) {
+  } else if (rank == 1) {
     fe_store(z_out, n, lane, qz);
   }
 }
@@ -153,29 +150,16 @@ __global__ void __launch_bounds__(DSM_THREADS)
   fe_store(t_out, n, lane, q.T);
 }
 
-template <int W>
-static int dsm_tail_q_launch(const uint8_t *wins, const int64_t *ax,
-                             const int64_t *ay, const int64_t *az,
-                             const int64_t *at, const int64_t *yr,
-                             const int32_t *consts, int n, uint8_t *ok,
-                             int64_t *x_out, int64_t *z_out,
-                             cudaStream_t stream) {
-  const int lanes = DSM_THREADS / W;
-  dsm_tail_q_kernel<W><<<(n + lanes - 1) / lanes, DSM_THREADS, 0, stream>>>(
-      wins, ax, ay, az, at, yr, consts, n, ok, x_out, z_out);
-  return (int)cudaGetLastError();
-}
-
 // wins: uint8 (4, 64, n) = smag, ssgn, kmag, ksgn.
 extern "C" int fd_dsm_tail_q(const uint8_t *wins, const int64_t *ax,
                              const int64_t *ay, const int64_t *az,
                              const int64_t *at, const int64_t *yr,
                              const int32_t *consts, int n, uint8_t *ok,
                              int64_t *x_out, int64_t *z_out, void *stream) {
-  return (n <= G4_W4_MAX_LANES ? dsm_tail_q_launch<4>
-                               : dsm_tail_q_launch<2>)(
-      wins, ax, ay, az, at, yr, consts, n, ok, x_out, z_out,
-      (cudaStream_t)stream);
+  const int blocks = (n + DSM_LANES4 - 1) / DSM_LANES4;
+  dsm_tail_q_kernel<<<blocks, DSM_THREADS, 0, (cudaStream_t)stream>>>(
+      wins, ax, ay, az, at, yr, consts, n, ok, x_out, z_out);
+  return (int)cudaGetLastError();
 }
 
 // wins: uint8 (2, 64, n) = s windows, k windows (unsigned 4-bit).

@@ -67,7 +67,7 @@ FD_FN bool dsm_y_compare(const ge &q, const fe &y_r, fe &qx, fe &qz) {
   return fe_eq(q.Y, t);
 }
 
-// ---- The chain on a group of threads per lane ----
+// ---- The chain on four threads per lane ----
 //
 // The point formulas run as rounds of up to four independent field
 // products (the parallel layout of the Hisil-Wong-Carter-Dawson
@@ -83,38 +83,34 @@ FD_FN bool dsm_y_compare(const ge &q, const fe &y_r, fe &qx, fe &qz) {
 //                    idles); then the finish without T
 //   unified add      3 rounds: a, b, T T', Z Z'; c = (T T') 2d on every
 //                    rank; then the finish
-// A thread runs NR adjacent ranks r0 .. r0 + NR - 1 of its lane:
-//   NR = 1   four threads a lane, rank r0 = threadIdx.x & 3; the gather
-//            is 10 shuffles of width 4 per product;
-//   NR = 2   two threads a lane, each making two products a round; the
-//            gather swaps the pair's products (10 shuffles per product
-//            swapped) and picks;
-//   NR = 4   one call runs a lane's four ranks in lockstep: the host's
-//            form (tests, where there are no warps), the gather an array.
+// On the device a lane is a group of four adjacent threads, rank r0 =
+// threadIdx.x & 3, and the gather is 10 shuffles of width 4 per product.
+// On the host (tests, where there are no warps) one call runs a lane's
+// four ranks in lockstep, r0 = 0: each round makes the four ranks'
+// products one after another, and the gather is an array.
 // Operands are picked by rank with selects, never by branches, so the
-// threads of a warp run one instruction stream.
+// threads of a warp run one instruction stream.  These functions are
+// inlined (FD_FN), unlike ge25519.cuh's out-of-line point functions:
+// the accumulator then stays in registers, and cicc compiles them.
 //
 // P's table [0..8]P in Niels form: in round 1 of a Niels add rank q only
 // ever reads column q of an entry (Y - X, Y + X, 2dT, Z), since the
 // digit's sign swaps the roles of ranks 0 and 1 instead of their columns.
-// So each rank keeps its own column, 9 entries x 10 limbs: column i of
-// the thread (rank r0 + i) at tab + i * G4_COLSTEP, limb l of entry e at
-// word (e * 10 + l) * G4_COLSTEP * NR of it.  On the device tab is
-// shared memory laid out [entry][limb][column][thread] (G4_COLSTEP: the
-// threads of a block), so a lane's data-dependent pick of an entry is
-// free of bank conflicts.
+// So each rank keeps its own column, 9 entries x 10 limbs: limb l of
+// entry e of rank r0 + i's column at tab[i + (e * 10 + l) *
+// G4_TAB_STRIDE].  On the device tab is shared memory laid out
+// [entry][limb][thread], so a lane's data-dependent pick of an entry is
+// free of bank conflicts; on the host it holds the four columns.
 #if defined(__CUDACC__)
-#define G4_COLSTEP 32       // a block is one warp
+#define G4_RANKS 1          // ranks a call runs: the thread's own
+#define G4_TAB_STRIDE 32    // a block is one warp
 #else
-#define G4_COLSTEP 1
+#define G4_RANKS 4
+#define G4_TAB_STRIDE 4
 #endif
 #define G4_TAB_WORDS (9 * 10)   // one rank's column of P's table
-// The kernels run a lane on four threads up to this many lanes, on two
-// above it.
-#define G4_W4_MAX_LANES 8192
 
-// out = the q-th of a0..a3, picked by q's bits (with selects; a bit the
-// compiler knows costs none).
+// out = the q-th of a0..a3, by selects on q's bits.
 FD_FN void g4_sel(fe &out, int q, const fe &a0, const fe &a1, const fe &a2,
                   const fe &a3) {
   const bool b0 = q & 1, b1 = q & 2;
@@ -130,165 +126,150 @@ FD_FN void g4_pick(fe &out, bool c, const fe &a, const fe &b) {
 }
 
 // The gather of a round: all[j] = rank j's product for j < K, where
-// mine[i] is the product of the thread's rank r0 + i.
-template <int NR, int K>
-FD_FN void g4_gather(fe *all, const fe *mine, int r0) {
+// mine[i] is the product of rank r0 + i.
+template <int K>
+FD_FN void g4_gather(fe *all, const fe *mine) {
 #if defined(__CUDACC__)
-  if constexpr (NR == 1) {
 #pragma unroll
-    for (int j = 0; j < K; j++)
+  for (int j = 0; j < K; j++)
 #pragma unroll
-      for (int l = 0; l < 10; l++)
-        all[j].v[l] = __shfl_sync(0xffffffffu, mine[0].v[l], j, 4);
-  } else {
-    static_assert(NR == 2, "a lane is four or two threads");
-#pragma unroll
-    for (int i = 0; i < 2; i++) {
-      fe other;
-#pragma unroll
-      for (int l = 0; l < 10; l++)
-        other.v[l] = __shfl_xor_sync(0xffffffffu, mine[i].v[l], 1);
-#pragma unroll
-      for (int j = i; j < K; j += 2)
-        g4_pick(all[j], (j >> 1) == (r0 >> 1), mine[i], other);
-    }
-  }
+    for (int l = 0; l < 10; l++)
+      all[j].v[l] = __shfl_sync(0xffffffffu, mine[0].v[l], j, 4);
 #else
-  static_assert(NR == 4, "the host runs a lane's four ranks");
   for (int j = 0; j < K; j++) all[j] = mine[j];
 #endif
 }
 
 // One round: rank q makes fe_mul(f_q, g_q); all[j] gets rank j's, j < K.
-template <int NR, int K>
+template <int K>
 FD_FN void g4_mul(fe *all, int r0, const fe &f0, const fe &g0,
                   const fe &f1, const fe &g1, const fe &f2, const fe &g2,
                   const fe &f3, const fe &g3) {
-  fe mine[NR];
+  fe mine[G4_RANKS];
 #pragma unroll
-  for (int i = 0; i < NR; i++) {
+  for (int i = 0; i < G4_RANKS; i++) {
     fe f, g;
     g4_sel(f, r0 + i, f0, f1, f2, f3);
     g4_sel(g, r0 + i, g0, g1, g2, g3);
     fe_mul(mine[i], f, g);
   }
-  g4_gather<NR, K>(all, mine, r0);
+  g4_gather<K>(all, mine);
 }
 
-// ge_finish: E = B - A, F = D - C, G = D + C, H = B + A; rank q makes the
-// q-th of (EF, GH, FG, EH).  K = 3 leaves p.T as it was.
-template <int NR, int K>
-FD_FN void g4_finish(ge &p, int r0, const fe &a, const fe &b, const fe &c,
-                     const fe &d) {
-  fe e, f, g, h, all[4];
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  g4_mul<NR, K>(all, r0, e, f, g, h, f, g, e, h);
+// The round that makes a point: p's X, Y, Z and T are ranks 0..3's
+// products f_q g_q.  K = 3 leaves p.T as it was.
+template <int K>
+FD_FN void g4_point(ge &p, int r0, const fe &f0, const fe &g0, const fe &f1,
+                    const fe &g1, const fe &f2, const fe &g2, const fe &f3,
+                    const fe &g3) {
+  fe all[4];
+  g4_mul<K>(all, r0, f0, g0, f1, g1, f2, g2, f3, g3);
   p.X = all[0];
   p.Y = all[1];
   p.Z = all[2];
   if (K == 4) p.T = all[3];
 }
 
+// ge_finish: E = B - A, F = D - C, G = D + C, H = B + A; then (EF, GH,
+// FG, EH).
+template <int K>
+FD_FN void g4_finish(ge &p, int r0, const fe &a, const fe &b, const fe &c,
+                     const fe &d) {
+  fe e, f, g, h;
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  g4_point<K>(p, r0, e, f, g, h, f, g, e, h);
+}
+
 // ge_double in place.
-template <int NR, bool WANT_T>
+template <bool WANT_T>
 FD_FN void g4_double(ge &p, int r0) {
-  fe xpy, all[4], sq[NR];
+  fe xpy, all[4], sq[G4_RANKS];
   fe_add(xpy, p.X, p.Y);
 #pragma unroll
-  for (int i = 0; i < NR; i++) {
+  for (int i = 0; i < G4_RANKS; i++) {
     fe f;
     g4_sel(f, r0 + i, p.X, p.Y, p.Z, xpy);
     fe_sqr(sq[i], f);
   }
-  g4_gather<NR, 4>(all, sq, r0);    // X^2, Y^2, Z^2, (X + Y)^2
+  g4_gather<4>(all, sq);    // X^2, Y^2, Z^2, (X + Y)^2
   fe zz2, yp, ym, ec, tc;
   fe_add(zz2, all[2], all[2]);
   fe_add(yp, all[1], all[0]);
   fe_sub(ym, all[1], all[0]);
   fe_sub(ec, all[3], yp);
   fe_sub(tc, zz2, ym);
-  g4_mul<NR, WANT_T ? 4 : 3>(all, r0, ec, tc, yp, ym, ym, tc, ec, yp);
-  p.X = all[0];
-  p.Y = all[1];
-  p.Z = all[2];
-  if (WANT_T) p.T = all[3];
+  g4_point<WANT_T ? 4 : 3>(p, r0, ec, tc, yp, ym, ym, tc, ec, yp);
 }
 
-// Entry e of the column at col (limb stride G4_COLSTEP * NR).
-template <int NR>
+// Entry e of the column at col.
 FD_FN void g4_load(fe &out, const uint32_t *col, int e) {
 #pragma unroll
-  for (int l = 0; l < 10; l++)
-    out.v[l] = col[(e * 10 + l) * G4_COLSTEP * NR];
+  for (int l = 0; l < 10; l++) out.v[l] = col[(e * 10 + l) * G4_TAB_STRIDE];
 }
 
 // ge_add_niels in place, with entry e of P's table, negated for neg:
 // the one-thread chain passes (Yp, Ym, -2dT) then, where rank q here
 // keeps column q and ranks 0 and 1 swap their left operands instead, so
 // that rank 0 makes b and rank 1 makes a.
-template <int NR>
 FD_FN void g4_add_niels(ge &p, int r0, const uint32_t *tab, int e,
                         bool neg) {
-  fe ymx, ypx, l0, l1, all[4], mine[NR];
+  fe ymx, ypx, l0, l1, all[4], mine[G4_RANKS];
   fe_sub(ymx, p.Y, p.X);
   fe_add(ypx, p.Y, p.X);
   g4_pick(l0, neg, ypx, ymx);
   g4_pick(l1, neg, ymx, ypx);
 #pragma unroll
-  for (int i = 0; i < NR; i++) {
+  for (int i = 0; i < G4_RANKS; i++) {
     fe col, ncol, f, g;
-    g4_load<NR>(col, tab + i * G4_COLSTEP, e);
+    g4_load(col, tab + i, e);
     fe_neg(ncol, col);
     g4_pick(g, neg && r0 + i == 2, ncol, col);
     g4_sel(f, r0 + i, l0, l1, p.T, p.Z);
     fe_mul(mine[i], f, g);
   }
-  g4_gather<NR, 4>(all, mine, r0);  // a, b (swapped for neg), c, Z Z'
+  g4_gather<4>(all, mine);  // a, b (swapped for neg), c, Z Z'
   fe a, b, zz;
   g4_pick(a, neg, all[1], all[0]);
   g4_pick(b, neg, all[0], all[1]);
   fe_add(zz, all[3], all[3]);
-  g4_finish<NR, 4>(p, r0, a, b, all[2], zz);
+  g4_finish<4>(p, r0, a, b, all[2], zz);
 }
 
 // ge_add_affine_niels in place without T, with B's entry bq (4 rows) and
 // sign sn: rank 3 makes rank 2's product and drops it.
-template <int NR>
 FD_FN void g4_add_affine(ge &p, int r0, const fe *bq, int sn) {
-  fe ymx, ypx, all[4], mine[NR];
+  fe ymx, ypx, all[4], mine[G4_RANKS];
   fe_sub(ymx, p.Y, p.X);
   fe_add(ypx, p.Y, p.X);
 #pragma unroll
-  for (int i = 0; i < NR; i++) {
+  for (int i = 0; i < G4_RANKS; i++) {
     const int q = r0 + i;
     fe f;
     g4_sel(f, q, ymx, ypx, p.T, p.T);
     fe_mul(mine[i], f, bq[q == 0 ? sn : q == 1 ? 1 - sn : 2 + sn]);
   }
-  g4_gather<NR, 3>(all, mine, r0);  // a, b, c
+  g4_gather<3>(all, mine);  // a, b, c
   fe zz;
   fe_add(zz, p.Z, p.Z);
-  g4_finish<NR, 3>(p, r0, all[0], all[1], all[2], zz);
+  g4_finish<3>(p, r0, all[0], all[1], all[2], zz);
 }
 
 // ge_add: out = p + q (q's Y - X and Y + X given), T valid.
-template <int NR>
 FD_FN void g4_add(ge &out, const ge &p, const ge &q, const fe &qym,
                   const fe &qyp, const fe &d2, int r0) {
   fe pym, pyp, c, zz, all[4];
   fe_sub(pym, p.Y, p.X);
   fe_add(pyp, p.Y, p.X);
-  g4_mul<NR, 4>(all, r0, pym, qym, pyp, qyp, p.T, q.T, p.Z, q.Z);
+  g4_mul<4>(all, r0, pym, qym, pyp, qyp, p.T, q.T, p.Z, q.Z);
   fe_mul(c, all[2], d2);            // every rank: no round of its own
   fe_add(zz, all[3], all[3]);
-  g4_finish<NR, 4>(out, r0, all[0], all[1], c, zz);
+  g4_finish<4>(out, r0, all[0], all[1], c, zz);
 }
 
 // ge_to_niels of p into entry e: each rank stores its own column.
-template <int NR>
 FD_FN void g4_store_niels(uint32_t *tab, int e, const ge &p, int r0,
                           const fe &d2) {
   fe ym, yp, t2d;
@@ -296,52 +277,49 @@ FD_FN void g4_store_niels(uint32_t *tab, int e, const ge &p, int r0,
   fe_add(yp, p.Y, p.X);
   fe_mul(t2d, p.T, d2);
 #pragma unroll
-  for (int i = 0; i < NR; i++) {
+  for (int i = 0; i < G4_RANKS; i++) {
     fe col;
     g4_sel(col, r0 + i, ym, yp, t2d, p.Z);
 #pragma unroll
     for (int l = 0; l < 10; l++)
-      tab[i * G4_COLSTEP + (e * 10 + l) * G4_COLSTEP * NR] = col.v[l];
+      tab[i + (e * 10 + l) * G4_TAB_STRIDE] = col.v[l];
   }
 }
 
 // ge_niels_table(tab, p, 9, d2), each rank keeping its column.
-template <int NR>
 FD_FN void g4_niels_table(uint32_t *tab, const ge &p, const fe &d2,
                           int r0) {
   ge cur;
   ge_identity(cur);
-  g4_store_niels<NR>(tab, 0, cur, r0, d2);
-  g4_store_niels<NR>(tab, 1, p, r0, d2);
+  g4_store_niels(tab, 0, cur, r0, d2);
+  g4_store_niels(tab, 1, p, r0, d2);
   fe pym, pyp;
   fe_sub(pym, p.Y, p.X);
   fe_add(pyp, p.Y, p.X);
   cur = p;
   for (int e = 2; e < 9; e++) {
     ge nxt;
-    g4_add<NR>(nxt, cur, p, pym, pyp, d2, r0);
-    g4_store_niels<NR>(tab, e, nxt, r0, d2);
+    g4_add(nxt, cur, p, pym, pyp, d2, r0);
+    g4_store_niels(tab, e, nxt, r0, d2);
     cur = nxt;
   }
 }
 
-// ge_dsm_chain for the thread's ranks r0 .. r0 + NR - 1 of the lane (the
-// host: NR = 4, r0 = 0).  tab: the thread's columns of P's table
-// (G4_TAB_WORDS words each, laid out as above).  Every rank returns the
-// same acc.
-template <int NR>
+// ge_dsm_chain for rank r0 of the lane (on the host: all four ranks, r0
+// = 0).  tab: the rank's column of P's table, laid out as above (on the
+// host the four columns).  Every rank returns the same acc.
 FD_FN void ge_dsm_chain4(ge &acc, const ge &p, const uint8_t *smag,
                          const uint8_t *ssgn, const uint8_t *kmag,
                          const uint8_t *ksgn, const vt_consts &c,
                          uint32_t *tab, int r0) {
-  g4_niels_table<NR>(tab, p, c.d2, r0);
+  g4_niels_table(tab, p, c.d2, r0);
   ge_identity(acc);
   for (int w = 63; w >= 0; w--) {
-    g4_double<NR, false>(acc, r0);
-    g4_double<NR, false>(acc, r0);
-    g4_double<NR, false>(acc, r0);
-    g4_double<NR, true>(acc, r0);
-    g4_add_niels<NR>(acc, r0, tab, kmag[w], ksgn[w]);
-    g4_add_affine<NR>(acc, r0, c.base[smag[w]], ssgn[w]);
+    g4_double<false>(acc, r0);
+    g4_double<false>(acc, r0);
+    g4_double<false>(acc, r0);
+    g4_double<true>(acc, r0);
+    g4_add_niels(acc, r0, tab, kmag[w], ksgn[w]);
+    g4_add_affine(acc, r0, c.base[smag[w]], ssgn[w]);
   }
 }

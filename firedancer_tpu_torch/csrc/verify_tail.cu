@@ -16,23 +16,27 @@
 //
 // What bounds it: operations.  A lane does about 3,100 field products
 // (the 64-window chain, the A table and the square-root chain) of 100
-// 32x32->64 multiply-adds each, and reads 160 bytes.  But one thread per
-// lane runs them as a strictly serial chain (16 squarings and 27 products
-// a window), so a batch of a few thousand lanes, one warp per SM, is
-// bound by that chain's latency, not by the card's rate.  What the
-// design does about it: a lane is a group of four threads (ge_dsm_chain4)
-// that makes each round of the formulas' four independent products side
-// by side and gathers them by warp shuffles, 12 rounds a window instead
-// of 43 products in series, and four times the warps to hide latency
-// with.  The decompression and the scalar steps (about 7 % of a lane's
-// products) run on all four ranks alike, which needs no hand-over; rank
-// 0 writes ok and X, rank 1 writes Z.  Each rank keeps its column of the
-// [0..8](-A) Niels table in shared memory (11.5 KB a block); [0..8]B and
-// the curve constants are staged there once per block, so a lane's
-// data-dependent pick of an entry is a shared-memory read.  Doublings
-// skip T where the next step never reads it, as the TPU kernel does.
-// Blocks are one warp (8 lanes), so a batch of 4,096 lanes gives 512
-// warps, about 4 an SM.
+// 32x32->64 multiply-adds each, and reads 160 bytes.  One thread per
+// lane runs them as a strictly serial chain (16 squarings and 27
+// products a window), so a batch of a few thousand lanes, one warp per
+// SM, is bound by that chain's latency, not by the card's rate.  What
+// the design does about it: a lane is a group of four threads
+// (ge_dsm_chain4) that makes each round of the formulas' four
+// independent products side by side and gathers them by warp shuffles,
+// 12 rounds a window instead of 43 products in series, with four times
+// the warps to hide latency.  The price is work: every rank repeats the
+// additions, the selects and (here) the decompression and the scalar
+// steps, and the shuffles come on top, about 1.8 times the one-thread
+// chain's operations in all; at batches of some ten thousand lanes and
+// more, where one thread per lane already fills the card, that makes it
+// slower (PERF.md).  The decompression and scalar steps run on all four
+// ranks alike, which needs no hand-over; rank 0 writes ok and X, rank 1
+// Z.  Each rank keeps its column of the [0..8](-A) Niels table in shared
+// memory (11.5 KB a block); [0..8]B and the curve constants are staged
+// there once per block, so a lane's data-dependent pick of an entry is a
+// shared-memory read.  Doublings skip T where the next step never reads
+// it, as the TPU kernel does.  Blocks are one warp (8 lanes), so a batch
+// of 4,096 lanes gives 512 warps, about 4 an SM.
 
 #include "dsm_chain.cuh"
 #include "fe25519.cuh"
@@ -69,10 +73,9 @@ FD_FN bool vt_lane(const vt_consts &c, const uint8_t *pub, const uint8_t *s,
   return dsm_y_compare(acc, yr, qx, qz) && ok;
 }
 
-// The whole tail for ranks r0 .. r0 + NR - 1 of the lane (on the host:
-// NR = 4, all of them); tab as ge_dsm_chain4 takes it.  Every rank
-// returns the same ok bit, X and Z.
-template <int NR>
+// The whole tail for rank r0 of the lane (on the host: all four ranks,
+// r0 = 0); tab as ge_dsm_chain4 takes it.  Every rank returns the same
+// ok bit, X and Z.
 FD_FN bool vt_lane4(const vt_consts &c, const uint8_t *pub,
                     const uint8_t *s, const uint8_t *digest,
                     const uint8_t *r, fe &qx, fe &qz, uint32_t *tab,
@@ -80,7 +83,7 @@ FD_FN bool vt_lane4(const vt_consts &c, const uint8_t *pub,
   ge na, acc;
   uint8_t w[4][64];
   const bool ok = vt_prepare(c, pub, s, digest, na, w);
-  ge_dsm_chain4<NR>(acc, na, w[0], w[1], w[2], w[3], c, tab, r0);
+  ge_dsm_chain4(acc, na, w[0], w[1], w[2], w[3], c, tab, r0);
   fe yr;
   fe_frombytes(yr, r);
   return dsm_y_compare(acc, yr, qx, qz) && ok;
@@ -89,13 +92,10 @@ FD_FN bool vt_lane4(const vt_consts &c, const uint8_t *pub,
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-#define VT_THREADS 32             // a block is one warp
-static_assert(VT_THREADS == G4_COLSTEP, "tab is [entry][limb][col][thread]");
+#define VT_THREADS 32             // one warp: 8 lanes of 4 ranks
+#define VT_LANES (VT_THREADS / 4)
+static_assert(VT_THREADS == G4_TAB_STRIDE, "tab is [entry][limb][thread]");
 
-// W threads a lane (4 or 2), 32 / W lanes a block.  A partial last block
-// runs its spare groups on the last lane and drops their results: every
-// thread of the warp takes part in every shuffle.
-template <int W>
 __global__ void __launch_bounds__(VT_THREADS)
     verify_tail_kernel(const uint8_t *pub, long long pub_stride,
                        const uint8_t *s, long long s_stride,
@@ -103,43 +103,30 @@ __global__ void __launch_bounds__(VT_THREADS)
                        const uint8_t *r, long long r_stride,
                        const int32_t *consts, int n, uint8_t *ok,
                        int64_t *x_out, int64_t *z_out) {
-  constexpr int NR = 4 / W;
   __shared__ vt_consts c;
-  __shared__ uint32_t tab[G4_TAB_WORDS * VT_THREADS * NR];
+  __shared__ uint32_t tab[G4_TAB_WORDS * VT_THREADS];
   uint32_t *cw = &c.base[0][0].v[0];
   for (int i = threadIdx.x; i < VT_NCONST * 10; i += blockDim.x)
     cw[i] = (uint32_t)consts[i];
   __syncthreads();
-  const long long g =
-      (long long)blockIdx.x * (VT_THREADS / W) + threadIdx.x / W;
+  // a partial last block runs its spare groups on the last lane and
+  // drops their results: every thread of the warp takes part in every
+  // shuffle
+  const long long g = (long long)blockIdx.x * VT_LANES + threadIdx.x / 4;
   const long long lane = g < n ? g : n - 1;
-  const int t = threadIdx.x % W;
+  const int rank = threadIdx.x & 3;
   fe qx, qz;
   const bool ok_l =
-      vt_lane4<NR>(c, pub + lane * pub_stride, s + lane * s_stride,
-                   digest + lane * digest_stride, r + lane * r_stride, qx,
-                   qz, tab + threadIdx.x, t * NR);
+      vt_lane4(c, pub + lane * pub_stride, s + lane * s_stride,
+               digest + lane * digest_stride, r + lane * r_stride, qx, qz,
+               tab + threadIdx.x, rank);
   if (g >= n) return;
-  if (t == 0) {
+  if (rank == 0) {
     ok[lane] = ok_l;
     fe_store(x_out, n, lane, qx);
-  } else if (t == 1) {
+  } else if (rank == 1) {
     fe_store(z_out, n, lane, qz);
   }
-}
-
-template <int W>
-static int vt_launch(const uint8_t *pub, long long pub_stride,
-                     const uint8_t *s, long long s_stride,
-                     const uint8_t *digest, long long digest_stride,
-                     const uint8_t *r, long long r_stride,
-                     const int32_t *consts, int n, uint8_t *ok,
-                     int64_t *x_out, int64_t *z_out, cudaStream_t stream) {
-  const int lanes = VT_THREADS / W;
-  verify_tail_kernel<W><<<(n + lanes - 1) / lanes, VT_THREADS, 0, stream>>>(
-      pub, pub_stride, s, s_stride, digest, digest_stride, r, r_stride,
-      consts, n, ok, x_out, z_out);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int fd_verify_tail(const uint8_t *pub, long long pub_stride,
@@ -148,8 +135,10 @@ extern "C" int fd_verify_tail(const uint8_t *pub, long long pub_stride,
                               const uint8_t *r, long long r_stride,
                               const int32_t *consts, int n, uint8_t *ok,
                               int64_t *x_out, int64_t *z_out, void *stream) {
-  return (n <= G4_W4_MAX_LANES ? vt_launch<4> : vt_launch<2>)(
+  const int blocks = (n + VT_LANES - 1) / VT_LANES;
+  verify_tail_kernel<<<blocks, VT_THREADS, 0, (cudaStream_t)stream>>>(
       pub, pub_stride, s, s_stride, digest, digest_stride, r, r_stride,
-      consts, n, ok, x_out, z_out, (cudaStream_t)stream);
+      consts, n, ok, x_out, z_out);
+  return (int)cudaGetLastError();
 }
 #endif

@@ -141,13 +141,13 @@ int main() {
       rd(&a, sizeof a);
       if (mode != 'b') {
         fe y_r, qx, qz;
-        uint32_t tab[G4_TAB_WORDS * 4];
+        uint32_t tab[G4_TAB_WORDS * G4_RANKS];
         rd(&y_r, sizeof y_r);
         const uint8_t ok =
             mode == 't'
                 ? dsm_tail_q_lane(c, w[0], w[1], w[2], w[3], a, y_r, qx, qz)
-                : dsm_tail_q_lane4<4>(c, w[0], w[1], w[2], w[3], a, y_r,
-                                      qx, qz, tab, 0);
+                : dsm_tail_q_lane4(c, w[0], w[1], w[2], w[3], a, y_r, qx,
+                                   qz, tab, 0);
         fwrite(&ok, 1, 1, stdout);
         fwrite(qx.v, 4, 10, stdout);
         fwrite(qz.v, 4, 10, stdout);
@@ -164,10 +164,10 @@ int main() {
     for (int i = 0; i < n; i++) {
       const uint8_t *p = &in[i * 160];
       fe qx, qz;
-      uint32_t tab[G4_TAB_WORDS * 4];
+      uint32_t tab[G4_TAB_WORDS * G4_RANKS];
       const uint8_t ok =
           mode == 'V'
-              ? vt_lane4<4>(c, p, p + 32, p + 64, p + 128, qx, qz, tab, 0)
+              ? vt_lane4(c, p, p + 32, p + 64, p + 128, qx, qz, tab, 0)
               : vt_lane(c, p, p + 32, p + 64, p + 128, qx, qz);
       fwrite(&ok, 1, 1, stdout);
       fwrite(qx.v, 4, 10, stdout);
