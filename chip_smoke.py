@@ -81,16 +81,21 @@ DEC_SQR, DEC_MUL = 255, 19
 # add 9 M, a Niels add 8 M, a conversion to Niels 1 M, a doubling 4 S and
 # 3 M (4 M with T).
 GE_ADD, GE_ADD_NIELS, GE_TO_NIELS = 9, 8, 1
-# The four-rank chain of verify_tail and dsm_tail_q (csrc/dsm_chain.cuh
-# ge_dsm_chain4), per rank of a lane, counted from the code: the table
-# 30 M (nine conversions to Niels form, seven unified adds of three
-# rounds) and 560 shuffles; a window 4 S + 8 M (twelve rounds of one
-# product) and 430 shuffles (a doubling's two gathers 40 + 30, with T 40
-# + 40; the Niels add 40 + 40; the affine add 30 + 30); the y-compare
-# 1 M.  Each of verify_tail's ranks also decompresses A (DEC_SQR,
-# DEC_MUL).  A shuffle counts as one 32-bit operation.
-G4_TAB_MUL, G4_TAB_SHFL = 30, 560
-G4_WIN_SQR, G4_WIN_MUL, G4_WIN_SHFL = 4, 8, 430
+# The four-rank chain of all three chain kernels (csrc/dsm_chain.cuh
+# g4_dsm_chain: rank q holds coordinate q and makes the products whose
+# results it owns), per rank of a lane, counted from the code: the table
+# 22 M (seven unified adds of three rounds, the last entry's 2dT) and 29
+# shuffles of 10 words; a window 4 S + 8 M (twelve rounds of one
+# product) and 28 shuffles (a doubling 5, the Niels add 4, the affine add
+# 4); then verify_tail's and dsm_tail_q's y-compare 1 M and 1 shuffle, or
+# double_scalar_mul_base's identity add 2 M and 4 shuffles.  Each of
+# verify_tail's ranks also decompresses A (DEC_SQR, DEC_MUL).  A shuffled
+# word counts as one 32-bit operation; the additions and selects are not
+# counted.
+G4_TAB_MUL, G4_TAB_SHFL = 22, 290
+G4_WIN_SQR, G4_WIN_MUL, G4_WIN_SHFL = 4, 8, 280
+G4_YCMP_MUL, G4_YCMP_SHFL = 1, 10
+G4_CLOSE_MUL, G4_CLOSE_SHFL = 2, 40
 RLC_BUCKETS = ((4096, 128), (32768, 128))
 MSM_M = 8
 
@@ -486,11 +491,14 @@ def main() -> int:
               f"(bits, windows, canonical X, Y, Z, T, z s limbs), max "
               f"error {max(new_err.values())}")
 
-    # the two four-rank chain kernels (blocks of 8 lanes) at lane counts
+    # the three four-rank chain kernels (blocks of 8 lanes) at lane counts
     # that leave a partial block alone (1, 7), a whole one (8) and a
-    # partial last block (4095, 4097), on the rows above
+    # partial last block (4095, 4097), on the rows above;
+    # double_scalar_mul_base also on windows whose recode carries out of
+    # the top window (every other lane's s, the rest's k)
     blob_np = next(b[2] for b in buckets if b[:2] == (32768, 128))
     chain_counts = (1, 7, 8, 4095, 4097)
+    chain_err = 0
     for n in chain_counts:
         tail_err = max(tail_err, hold_tail(tail_args(
             hold_rows(blob_np, 128, n), 128))[0])
@@ -499,9 +507,21 @@ def main() -> int:
         new_err["dsm_tail_q"] = max(new_err["dsm_tail_q"], hold(
             "dsm_tail_q", dsm.dsm_tail_q(wins, a_pt, y_r),
             dsm.dsm_tail_q_plain(wins, a_pt, y_r)))
-    print(f"verify_tail and dsm_tail_q kernels == plain at "
-          f"{', '.join(map(str, chain_counts))} lanes (ok bits, canonical X "
-          f"and Z), max error {max(tail_err, new_err['dsm_tail_q'])}")
+        s_win = sc.scalar_windows(s_).clone()
+        k_win = sc.limbs_to_windows(sc.reduce_512(digest)).clone()
+        s_win[63, ::2] = 15
+        k_win[63, 1::2] = 15
+        new_err["double_scalar_mul_base"] = max(
+            new_err["double_scalar_mul_base"], hold(
+                "double_scalar_mul_base",
+                dsm.double_scalar_mul_base(s_win, k_win, a_pt),
+                dsm.double_scalar_mul_base_plain(s_win, k_win, a_pt)))
+        chain_err = max(chain_err, tail_err, new_err["dsm_tail_q"],
+                        new_err["double_scalar_mul_base"])
+    print(f"verify_tail, dsm_tail_q and double_scalar_mul_base kernels == "
+          f"plain at {', '.join(map(str, chain_counts))} lanes (ok bits, "
+          f"canonical X, Y, Z, T; top windows that carry out), max error "
+          f"{chain_err}")
 
     # ---- phase 6: decompress kernel vs plain on adversarial encodings and
     # on the A and R columns of the RLC buckets, whole and one row short
@@ -765,14 +785,15 @@ def main() -> int:
         return bound(batch * (32 + 32 + 64 + 32 + 1 + 160),
                      batch * (TAIL_MUL * MUL_OPS + TAIL_SQR * SQR_OPS))
 
-    def chain4_ops(n, decompress: bool):
+    def chain4_ops(n, decompress: bool, close=(G4_YCMP_MUL, G4_YCMP_SHFL)):
         """32-bit operations of the four-rank chain's own design for n
         lanes (its products and shuffles; the bound counts the one-thread
-        chain's products)."""
+        chain's products); close: the step after the chain, the
+        y-compare or the identity add, as (products, shuffled words)."""
         sqr = 64 * G4_WIN_SQR + DEC_SQR * decompress
-        mul = G4_TAB_MUL + 64 * G4_WIN_MUL + 1 + DEC_MUL * decompress
+        mul = G4_TAB_MUL + 64 * G4_WIN_MUL + close[0] + DEC_MUL * decompress
         return 4 * n * (sqr * SQR_OPS + mul * MUL_OPS + G4_TAB_SHFL
-                        + 64 * G4_WIN_SHFL)
+                        + 64 * G4_WIN_SHFL + close[1])
 
     def design_note(own, t_k, b_):
         return (f"the kernel's own design does {own} 32-bit operations, "
@@ -872,6 +893,9 @@ def main() -> int:
                     f"{b_[0]:.5f} ms, {b_[1]})")
             if name == "dsm_tail_q":
                 line += "; " + design_note(chain4_ops(batch, False), t_k, b_)
+            elif name == "double_scalar_mul_base":
+                line += "; " + design_note(chain4_ops(
+                    batch, False, (G4_CLOSE_MUL, G4_CLOSE_SHFL)), t_k, b_)
             if batch == buckets[0][0]:
                 new_plain[name] = cuda_ms(plain, PLAIN_RUNS, 1)
                 line += f", plain {new_plain[name]:.4f} ms"

@@ -66,22 +66,25 @@ FD_FN void fe_set(fe &r, uint32_t v0) {
   for (int i = 1; i < 10; i++) r.v[i] = 0;
 }
 
-FD_FN void fe_add(fe &r, const fe &a, const fe &b) {
-  uint32_t h[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = a.v[i] + b.v[i];
-  fe_carry(r, h);
-}
-
-FD_FN void fe_sub(fe &r, const fe &a, const fe &b) {
+// sub ? a - b : a + b.  sub adds 2p before subtracting (limbs of 2p:
+// 2 * (2^26 - 19), then 2 * (2^w - 1)); a tight b never exceeds it.
+// Threads that need different sums run one instruction stream.
+FD_FN void fe_addsub(fe &r, const fe &a, const fe &b, bool sub) {
   uint32_t h[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
-    // limbs of 2p: 2 * (2^26 - 19), then 2 * (2^w - 1)
     uint32_t two_p = i == 0 ? 0x7ffffdau : ((i & 1) ? 0x3fffffeu : 0x7fffffeu);
-    h[i] = a.v[i] + two_p - b.v[i];
+    h[i] = a.v[i] + (sub ? two_p - b.v[i] : b.v[i]);
   }
   fe_carry(r, h);
+}
+
+FD_FN void fe_add(fe &r, const fe &a, const fe &b) {
+  fe_addsub(r, a, b, false);
+}
+
+FD_FN void fe_sub(fe &r, const fe &a, const fe &b) {
+  fe_addsub(r, a, b, true);
 }
 
 FD_FN void fe_neg(fe &r, const fe &a) {

@@ -1,5 +1,7 @@
 // ed25519 point arithmetic (twisted Edwards, a = -1) for one lane per
-// thread, over fe25519.cuh.  The formulas and their order are those of
+// thread, over fe25519.cuh: msm.cu's points and the decompression that
+// the chain kernels share (the chain itself runs on four threads a lane,
+// dsm_chain.cuh).  The formulas and their order are those of
 // firedancer_tpu_torch/ops/curve25519.py, so the kernel and the torch
 // code produce equal coordinates, not merely equal projective points.
 
@@ -100,19 +102,6 @@ GE_FN void ge_add_niels(ge &r, const ge &p, const fe &ym, const fe &yp,
   fe_mul(zz, p.Z, z);
   fe_add(zz, zz, zz);
   ge_finish(r, a, b, c, zz, true);
-}
-
-// p + q with q affine (Z = 1) in Niels form.  want_t = false skips T.
-GE_FN void ge_add_affine_niels(ge &r, const ge &p, const fe &ym,
-                               const fe &yp, const fe &t2d, bool want_t) {
-  fe a, b, c, zz, t;
-  fe_sub(t, p.Y, p.X);
-  fe_mul(a, t, ym);
-  fe_add(t, p.Y, p.X);
-  fe_mul(b, t, yp);
-  fe_mul(c, p.T, t2d);
-  fe_add(zz, p.Z, p.Z);
-  ge_finish(r, a, b, c, zz, want_t);
 }
 
 // [0..n-1]P in Niels form: entry 0 the identity, entry 1 P itself, then

@@ -4,7 +4,7 @@
 // (_fused_tail_kernel).  Per lane: decompress A and test it for small
 // order, test S < L, reduce the SHA-512 digest k mod L, recode S and k to
 // signed 4-bit digits (sc_reduce_recode in sc25519.cuh), run the shared
-// chain Q = [S]B + [k](-A) over 64 windows (ge_dsm_chain4 in
+// chain Q = [S]B + [k](-A) over 64 windows (g4_dsm_chain in
 // dsm_chain.cuh), and compare Q.Y with y_R * Q.Z.  The split layout runs
 // the same helpers as separate kernels (reduce_recode.cu, dsm.cu).
 // Writes the folded ok bit and Q's X and Z as (10, n) int64 limb planes
@@ -17,26 +17,26 @@
 // What bounds it: operations.  A lane does about 3,100 field products
 // (the 64-window chain, the A table and the square-root chain) of 100
 // 32x32->64 multiply-adds each, and reads 160 bytes.  One thread per
-// lane runs them as a strictly serial chain (16 squarings and 27
+// lane would run them as a strictly serial chain (16 squarings and 27
 // products a window), so a batch of a few thousand lanes, one warp per
-// SM, is bound by that chain's latency, not by the card's rate.  What
-// the design does about it: a lane is a group of four threads
-// (ge_dsm_chain4) that makes each round of the formulas' four
-// independent products side by side and gathers them by warp shuffles,
-// 12 rounds a window instead of 43 products in series, with four times
-// the warps to hide latency.  The price is work: every rank repeats the
-// additions, the selects and (here) the decompression and the scalar
-// steps, and the shuffles come on top, about 1.8 times the one-thread
-// chain's operations in all; at batches of some ten thousand lanes and
-// more, where one thread per lane already fills the card, that makes it
-// slower (PERF.md).  The decompression and scalar steps run on all four
-// ranks alike, which needs no hand-over; rank 0 writes ok and X, rank 1
-// Z.  Each rank keeps its column of the [0..8](-A) Niels table in shared
-// memory (11.5 KB a block); [0..8]B and the curve constants are staged
-// there once per block, so a lane's data-dependent pick of an entry is a
-// shared-memory read.  Doublings skip T where the next step never reads
-// it, as the TPU kernel does.  Blocks are one warp (8 lanes), so a batch
-// of 4,096 lanes gives 512 warps, about 4 an SM.
+// SM, would be bound by that chain's latency, not by the card's rate.
+// What the design does about it: a lane is a group of four threads
+// (g4_dsm_chain), rank q holding coordinate q of the lane's points (X,
+// Y, Z, T) and making the products whose results it owns, 12 rounds a
+// window instead of 43 products in series, with four times the warps to
+// hide latency.  Operands move between ranks by warp shuffles with a
+// rank-dependent source, and each addition is made only by the ranks
+// that read it, so the four ranks between them issue about the
+// one-thread chain's products and additions (48 products a window
+// against 43), plus the shuffles and the rank selects.  The
+// decompression and the scalar steps run on all four ranks alike, which
+// needs no hand-over; rank 0 writes X, rank 2 (which makes the
+// y-compare) ok and Z.  Each rank keeps its column of the [0..8](-A)
+// Niels table in shared memory (11.5 KB a block); [0..8]B and the curve
+// constants are staged there once per block, so a lane's data-dependent
+// pick of an entry is a shared-memory read.  Doublings skip T where the next step
+// never reads it, as the TPU kernel does.  Blocks are one warp (8
+// lanes), so a batch of 4,096 lanes gives 512 warps, about 4 an SM.
 
 #include "dsm_chain.cuh"
 #include "fe25519.cuh"
@@ -59,34 +59,23 @@ FD_FN bool vt_prepare(const vt_consts &c, const uint8_t *pub,
   return ok_a && !small && ok_s;
 }
 
-// The whole tail for one lane on one thread (the one-thread chain, which
-// the host tests hold the four-rank one against).  Returns the ok bit;
-// writes Q's X and Z.
-FD_FN bool vt_lane(const vt_consts &c, const uint8_t *pub, const uint8_t *s,
-                   const uint8_t *digest, const uint8_t *r, fe &qx, fe &qz) {
-  ge na, acc;
+// The whole tail for rank r0 of the lane (on the host: all four ranks,
+// r0 = 0); tab as g4_dsm_chain takes it.  q gets Q in the layout (X on
+// rank 0, Z on rank 2), ok the folded ok bit (rank 2's counts).
+FD_FN void vt_lane4(const vt_consts &c, const uint8_t *pub, const uint8_t *s,
+                    const uint8_t *digest, const uint8_t *r, fe *q,
+                    bool *ok, uint32_t *tab, int r0) {
+  ge na;
+  fe p[G4_RANKS];
   uint8_t w[4][64];
-  const bool ok = vt_prepare(c, pub, s, digest, na, w);
-  ge_dsm_chain(acc, na, w[0], w[1], w[2], w[3], c);
+  const bool ok_a = vt_prepare(c, pub, s, digest, na, w);
+  g4_from_ge(p, na, r0);
+  g4_dsm_chain(q, p, w[0], w[1], w[2], w[3], c, tab, r0);
   fe yr;
   fe_frombytes(yr, r);      // R's encoded y, mod p
-  return dsm_y_compare(acc, yr, qx, qz) && ok;
-}
-
-// The whole tail for rank r0 of the lane (on the host: all four ranks,
-// r0 = 0); tab as ge_dsm_chain4 takes it.  Every rank returns the same
-// ok bit, X and Z.
-FD_FN bool vt_lane4(const vt_consts &c, const uint8_t *pub,
-                    const uint8_t *s, const uint8_t *digest,
-                    const uint8_t *r, fe &qx, fe &qz, uint32_t *tab,
-                    int r0) {
-  ge na, acc;
-  uint8_t w[4][64];
-  const bool ok = vt_prepare(c, pub, s, digest, na, w);
-  ge_dsm_chain4(acc, na, w[0], w[1], w[2], w[3], c, tab, r0);
-  fe yr;
-  fe_frombytes(yr, r);
-  return dsm_y_compare(acc, yr, qx, qz) && ok;
+  g4_y_compare(ok, q, yr, r0);
+#pragma unroll
+  for (int i = 0; i < G4_RANKS; i++) ok[i] = ok[i] && ok_a;
 }
 
 #if defined(__CUDACC__)
@@ -115,17 +104,17 @@ __global__ void __launch_bounds__(VT_THREADS)
   const long long g = (long long)blockIdx.x * VT_LANES + threadIdx.x / 4;
   const long long lane = g < n ? g : n - 1;
   const int rank = threadIdx.x & 3;
-  fe qx, qz;
-  const bool ok_l =
-      vt_lane4(c, pub + lane * pub_stride, s + lane * s_stride,
-               digest + lane * digest_stride, r + lane * r_stride, qx, qz,
-               tab + threadIdx.x, rank);
+  fe q;
+  bool ok_l;
+  vt_lane4(c, pub + lane * pub_stride, s + lane * s_stride,
+           digest + lane * digest_stride, r + lane * r_stride, &q, &ok_l,
+           tab + threadIdx.x, rank);
   if (g >= n) return;
   if (rank == 0) {
+    fe_store(x_out, n, lane, q);
+  } else if (rank == 2) {
     ok[lane] = ok_l;
-    fe_store(x_out, n, lane, qx);
-  } else if (rank == 1) {
-    fe_store(z_out, n, lane, qz);
+    fe_store(z_out, n, lane, q);
   }
 }
 

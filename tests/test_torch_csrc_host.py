@@ -3,15 +3,16 @@ plain torch versions.
 
 Each kernel in csrc/ keeps its per-lane body (sha512_lane, vt_lane4,
 dc_lane, msm_point and msm_tree_step, sc_reduce_recode,
-dsm_tail_q_lane4, dsm_base_lane, rlc_lane, and sc_mul_mod_l under the
+dsm_tail_q_lane4, dsm_base_lane4, rlc_lane, and sc_mul_mod_l under the
 last) in functions that also compile as plain C++ outside nvcc.  This
 test builds them with the host C++ compiler into a small harness and runs
 the same lanes through them and through the plain torch versions, so the
 kernels' arithmetic is checked on a machine with no GPU.  Where a kernel
 runs a lane on several threads (msm's points, the four ranks of the
-chain in vt_lane4 and dsm_tail_q_lane4), the harness runs those threads
-in lockstep and passes what the warp's shuffles would through arrays;
-the one-thread vt_lane and dsm_tail_q_lane are held beside them.  The
+chain in vt_lane4, dsm_tail_q_lane4 and dsm_base_lane4, each holding
+one coordinate), the harness runs those threads in lockstep and passes
+what the warp's shuffles would through arrays; each point step of the
+four-rank chain is also held alone against its plain function.  The
 launch, the grid and the memory layout are not checked here:
 chip_smoke.py checks those on the card.
 """
@@ -131,47 +132,78 @@ int main() {
       fwrite(zw, 1, 32, stdout);
       fwrite(zs, sizeof zs, 1, stdout);
     }
-  } else if (mode == 't' || mode == 'T' || mode == 'b') {
+  } else if (mode == 'T' || mode == 'b') {
     vt_consts c;                // consts, then per lane its windows (4 x 64
-    rd(&c, sizeof c);           // signed for t and T, 2 x 64 unsigned for
-    for (int i = 0; i < n; i++) {   // b), A and for t and T y_R; T runs
-      uint8_t w[4][64];             // the four ranks of a lane
-      ge a, q;
+    rd(&c, sizeof c);           // signed for T, 2 x 64 unsigned for b), A
+    for (int i = 0; i < n; i++) {   // and for T y_R; the lane's four ranks
+      uint8_t w[4][64];             // run in lockstep
+      ge a;
+      fe a4[4], q[4];
+      uint32_t tab[G4_TAB_WORDS * G4_RANKS];
       rd(w, (mode == 'b' ? 2 : 4) * 64);
       rd(&a, sizeof a);
-      if (mode != 'b') {
-        fe y_r, qx, qz;
-        uint32_t tab[G4_TAB_WORDS * G4_RANKS];
+      g4_from_ge(a4, a, 0);
+      if (mode == 'T') {
+        fe y_r;
+        bool ok[4];
         rd(&y_r, sizeof y_r);
-        const uint8_t ok =
-            mode == 't'
-                ? dsm_tail_q_lane(c, w[0], w[1], w[2], w[3], a, y_r, qx, qz)
-                : dsm_tail_q_lane4(c, w[0], w[1], w[2], w[3], a, y_r, qx,
-                                   qz, tab, 0);
-        fwrite(&ok, 1, 1, stdout);
-        fwrite(qx.v, 4, 10, stdout);
-        fwrite(qz.v, 4, 10, stdout);
+        dsm_tail_q_lane4(c, w[0], w[1], w[2], w[3], a4, y_r, q, ok, tab, 0);
+        const uint8_t ok2 = ok[2];
+        fwrite(&ok2, 1, 1, stdout);
+        fwrite(q[0].v, 4, 10, stdout);
+        fwrite(q[2].v, 4, 10, stdout);
       } else {
-        dsm_base_lane(c, w[0], w[1], a, q);
-        fwrite(&q, sizeof q, 1, stdout);
+        dsm_base_lane4(c, w[0], w[1], a4, q, tab, 0);
+        fwrite(q, sizeof q, 1, stdout);
       }
     }
-  } else {                      // consts, then (pub, s, digest, r) lanes;
-    vt_consts c;                // V runs the four ranks of a lane
+  } else if (mode == 'g') {     // one point step (ml): consts, then per
+    vt_consts c;                // lane p, an operand of four fe and a sign
+    rd(&c, sizeof c);
+    for (int i = 0; i < n; i++) {
+      ge p, o;
+      uint8_t sgn;
+      rd(&p, sizeof p);
+      rd(&o, sizeof o);
+      rd(&sgn, 1);
+      fe p4[4], o4[4], t2d[4];
+      uint32_t tab[G4_TAB_WORDS * G4_RANKS];
+      g4_from_ge(p4, p, 0);
+      g4_from_ge(o4, o, 0);   // Niels columns, B's rows, or a point q
+      fe_set(t2d[2], 0);
+      if (ml == 0) {
+        g4_double<false>(p4, 0);
+      } else if (ml == 1) {
+        g4_double<true>(p4, 0);
+      } else if (ml == 2) {
+        for (int r = 0; r < 4; r++) g4_store(tab + r, 0, o4[r]);
+        g4_add_niels(p4, 0, tab, 0, sgn);
+      } else if (ml == 3) {
+        g4_add_affine(p4, 0, o4, sgn);
+      } else {                  // p + q; rank 2's t2d is p's 2dT
+        fe lp[4], tp[4], lq[4], tq[4];
+        g4_sums(lp, tp, p4, 0);
+        g4_sums(lq, tq, o4, 0);
+        g4_add(p4, t2d, lp, tp, lq, c.d2, 0);
+      }
+      fwrite(p4, sizeof p4, 1, stdout);
+      fwrite(t2d[2].v, 4, 10, stdout);
+    }
+  } else {                      // consts, then (pub, s, digest, r) lanes,
+    vt_consts c;                // the four ranks of a lane in lockstep
     rd(&c, sizeof c);
     std::vector<uint8_t> in(n * 160);
     rd(in.data(), in.size());
     for (int i = 0; i < n; i++) {
       const uint8_t *p = &in[i * 160];
-      fe qx, qz;
+      fe q[4];
+      bool ok[4];
       uint32_t tab[G4_TAB_WORDS * G4_RANKS];
-      const uint8_t ok =
-          mode == 'V'
-              ? vt_lane4(c, p, p + 32, p + 64, p + 128, qx, qz, tab, 0)
-              : vt_lane(c, p, p + 32, p + 64, p + 128, qx, qz);
-      fwrite(&ok, 1, 1, stdout);
-      fwrite(qx.v, 4, 10, stdout);
-      fwrite(qz.v, 4, 10, stdout);
+      vt_lane4(c, p, p + 32, p + 64, p + 128, q, ok, tab, 0);
+      const uint8_t ok2 = ok[2];
+      fwrite(&ok2, 1, 1, stdout);
+      fwrite(q[0].v, 4, 10, stdout);
+      fwrite(q[2].v, 4, 10, stdout);
     }
   }
   return 0;
@@ -221,12 +253,11 @@ def test_sha512_lane_matches_plain_and_hashlib(harness):
             bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :k])).digest()
 
 
-@pytest.mark.parametrize("mode", [b"v", b"V"], ids=["one_thread",
-                                                    "four_ranks"])
+@pytest.mark.parametrize("mode", [b"V"], ids=["four_ranks"])
 def test_verify_tail_lane_matches_plain(harness, mode):
-    """The tail's lane on one thread (v) and on the four ranks of a group,
-    run in lockstep (V): ok bits and canonical X, Z equal the plain
-    version's, and the four ranks' equal the one thread's."""
+    """The tail's lane on the four ranks of a group, run in lockstep: the
+    ok bit of rank 2 and canonical X (rank 0) and Z (rank 2) equal the
+    plain version's."""
     msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
     bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
     r, s, a = bt[:, 64:96], bt[:, 96:128], bt[:, 128:160]
@@ -236,19 +267,13 @@ def test_verify_tail_lane_matches_plain(harness, mode):
     lanes = np.concatenate([pubs, sigs[:, 32:], digest.numpy(), sigs[:, :32]],
                            axis=1)
     n = len(lanes)
-
-    def run(m):
-        rec = np.frombuffer(harness(m, n, 0, consts.tobytes()
-                                    + lanes.tobytes()), np.uint8).reshape(n, 81)
-        x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
-        return (rec[:, 0].astype(bool).tolist(), fe.to_ints(x),
-                fe.to_ints(z))
-
-    got = run(mode)
-    assert got == (ok_p.tolist(), fe.to_ints(x_p), fe.to_ints(z_p))
+    rec = np.frombuffer(harness(mode, n, 0, consts.tobytes()
+                                + lanes.tobytes()), np.uint8).reshape(n, 81)
+    x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
+    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
+    assert fe.to_ints(x) == fe.to_ints(x_p)
+    assert fe.to_ints(z) == fe.to_ints(z_p)
     assert ok_p.any() and not ok_p.all()
-    if mode == b"V":
-        assert got == run(b"v")
 
 
 def _planes(raw: np.ndarray, k: int) -> list[torch.Tensor]:
@@ -417,14 +442,13 @@ def _ge_payload(pts: cv.Point) -> np.ndarray:
         np.uint8).reshape(limbs.shape[2], 160)
 
 
-@pytest.mark.parametrize("mode", [b"t", b"T"], ids=["one_thread",
-                                                    "four_ranks"])
+@pytest.mark.parametrize("mode", [b"T"], ids=["four_ranks"])
 def test_dsm_tail_q_lane_matches_plain(harness, mode):
-    """The chain of the split layout, on one thread (t) and on the four
-    ranks of a group in lockstep (T), from an A with Z != 1, signed windows
-    of random S (non-canonical ones included) and k, and y_R of random
-    bytes: ok_y and canonical X, Z equal the plain version's, and the four
-    ranks' equal the one thread's."""
+    """The chain of the split layout on the four ranks of a group, in
+    lockstep, from an A with Z != 1, signed windows of random S
+    (non-canonical ones included) and k, and y_R of random bytes: ok_y
+    (rank 2) and canonical X (rank 0) and Z (rank 2) equal the plain
+    version's."""
     from firedancer_tpu_torch.ops import dsm
     from firedancer_tpu_torch.ops import reduce_recode as rr
     a = _scaled_points(27)
@@ -439,23 +463,18 @@ def test_dsm_tail_q_lane_matches_plain(harness, mode):
     yr = y_r.numpy().astype(np.uint32).T.copy().view(np.uint8)
     payload = consts.tobytes() + np.concatenate(
         [w, _ge_payload(a), yr], axis=1).tobytes()
-
-    def run(m):
-        rec = np.frombuffer(harness(m, n, 0, payload), np.uint8).reshape(n, 81)
-        x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
-        return (rec[:, 0].astype(bool).tolist(), fe.to_ints(x),
-                fe.to_ints(z))
-
-    got = run(mode)
-    assert got == (ok_p.tolist(), fe.to_ints(x_p), fe.to_ints(z_p))
-    if mode == b"T":
-        assert got == run(b"t")
+    rec = np.frombuffer(harness(mode, n, 0, payload), np.uint8).reshape(n, 81)
+    x, z = _planes(rec[:, 1:].copy().view(np.uint32), 2)
+    assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
+    assert fe.to_ints(x) == fe.to_ints(x_p)
+    assert fe.to_ints(z) == fe.to_ints(z_p)
 
 
 def test_dsm_base_lane_matches_plain(harness):
-    """double_scalar_mul_base's lane from an A with Z != 1 and unsigned
-    windows whose recode carries out of the top window: canonical X, Y,
-    Z, T equal the plain version's, and T Z = X Y."""
+    """double_scalar_mul_base's lane on the four ranks of a group, in
+    lockstep, from an A with Z != 1 and unsigned windows whose recode
+    carries out of the top window: canonical X, Y, Z, T (ranks 0-3) equal
+    the plain version's, and T Z = X Y."""
     from firedancer_tpu_torch.ops import dsm
     a = _scaled_points(30)
     n = a.X.shape[1]
@@ -476,3 +495,61 @@ def test_dsm_base_lane_matches_plain(harness):
     x, y, z, t = (fe.to_ints(g) for g in got)
     assert all(ti * zi % fe.P == xi * yi % fe.P
                for xi, yi, zi, ti in zip(x, y, z, t))
+
+
+_STEPS = ["double", "double_t", "niels", "niels_neg", "affine",
+          "affine_neg", "add"]
+
+
+@pytest.mark.parametrize("step", _STEPS)
+def test_chain_step_matches_plain(harness, step):
+    """One point step of the four-rank chain (dsm_chain.cuh), its four
+    ranks in lockstep, on points with Z != 1 (off the curve and of small
+    order among them), against its plain function: the coordinates read
+    off ranks 0-3 equal cv.double (with and without T), cv.add_niels
+    (either digit sign, the entry as _add_signed passes it),
+    cv.add_affine_niels (either sign, without T) and cv.add canonically.
+    The unified add also makes the table's column 2dT of its first point
+    on rank 2."""
+    from firedancer_tpu_torch.ops import dsm
+    p = _scaled_points(32)
+    n = p.X.shape[1]
+    q = _scaled_points(33)
+    q = cv.Point(*(t.flip(1) for t in q))
+    neg = step.endswith("_neg")
+    sgn = torch.full((n,), neg)
+    kind = next(i for i, k in enumerate(
+        ("double", "double_t", "niels", "affine", "add"))
+        if step.removesuffix("_neg") == k)
+    if kind < 2:
+        operand = q
+        want = cv.double(p, want_t=kind == 1)
+    elif kind == 2:
+        operand = cv.to_niels(q)
+        ym, yp, z, t2d = operand
+        want = cv.add_niels(p, cv.Niels(
+            torch.where(sgn, yp, ym), torch.where(sgn, ym, yp), z,
+            torch.where(sgn, fe.neg(t2d), t2d)))
+    elif kind == 3:
+        mag = np.random.default_rng(34).integers(0, 9, n)
+        rows = cv.base_table("cpu")[torch.from_numpy(mag)]   # (n, 4, 10)
+        operand = cv.Point(*(rows[:, k].T.contiguous() for k in range(4)))
+        bym, byp, bt2d, bnt2d = operand
+        want = cv.add_affine_niels(p, torch.where(sgn, byp, bym),
+                                   torch.where(sgn, bym, byp),
+                                   torch.where(sgn, bnt2d, bt2d),
+                                   want_t=False)
+    else:
+        operand = q
+        want = cv.add(p, q)
+    consts = dsm.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    payload = np.concatenate([_ge_payload(p), _ge_payload(operand),
+                              np.full((n, 1), neg, np.uint8)], axis=1)
+    rec = np.frombuffer(harness(b"g", n, kind, consts.tobytes()
+                                + payload.tobytes()),
+                        np.uint32).reshape(n, 50)
+    got = _planes(rec, 5)
+    for g, plane in zip(got, want):
+        assert fe.to_ints(g) == fe.to_ints(plane)
+    if kind == 4:
+        assert fe.to_ints(got[4]) == fe.to_ints(cv.to_niels(p).T2d)

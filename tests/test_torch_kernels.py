@@ -59,7 +59,8 @@ def test_sha512_kernel_matches_plain_and_hashlib(cuda, n, ml):
             bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :k])).digest()
 
 
-# lane counts of the four-rank chain kernels (verify_tail, dsm_tail_q):
+# lane counts of the four-rank chain kernels (verify_tail, dsm_tail_q,
+# double_scalar_mul_base):
 # blocks of 8 lanes, so 1 and 7 give a partial block alone, 4095 and 4097
 # a partial last block
 _CHAIN_SHAPES = [1, 7, 8, 66, 4095, 4097]
@@ -230,7 +231,7 @@ def test_dsm_tail_q_kernel_matches_plain(cuda, n):
         assert _canon_equal(got[1:], want[1:])
 
 
-@pytest.mark.parametrize("n", _SHAPES)
+@pytest.mark.parametrize("n", _CHAIN_SHAPES)
 def test_double_scalar_mul_base_kernel_matches_plain(cuda, n):
     a = _scaled_points(n, cuda)
     w = torch.from_numpy(np.random.default_rng(n).integers(
