@@ -127,6 +127,7 @@ def main() -> int:
         from firedancer_tpu_torch.ops import scalar25519 as sc
         from firedancer_tpu_torch.ops import sha512_kernel as sk
         from firedancer_tpu_torch.ops import verify_tail as vt
+        from firedancer_tpu_torch.tools.kernel_time import device_ms
     except ImportError as exc:
         print(f"chip_smoke: the port package is missing: {exc}",
               file=sys.stderr)
@@ -160,6 +161,14 @@ def main() -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def dev_ms(fn, entry: str) -> float:
+        """The kernel entry's device ms a call (torch.profiler over RUNS
+        calls: tools/kernel_time.py device_ms)."""
+        ms, _, _, how = device_ms(torch, fn, entry, RUNS)
+        if how != "profiler":
+            raise AssertionError(f"{entry}: the profiler saw no device time")
+        return ms
 
     def wall_ms(fn, runs: int = RUNS) -> float:
         for _ in range(3):
@@ -267,6 +276,17 @@ def main() -> int:
     sha_err = int(np.abs(got.astype(np.int64) - plain).max())
     print(f"sha512: kernel == plain == hashlib on {n} lanes, lengths "
           f"0..{ml} incl. {edge}")
+    # the kernel's warps of 32 lanes: 1, 31, 33 and 4097 lanes (a partial
+    # warp alone, a partial last warp) on these rows, and on a packed blob
+    # of ml 127, whose rows (227 bytes apart) it stages by byte loads
+    odd_np = V.pack_blob(msgs[:, :127], lens.clip(0, 127), sigs, pubs)
+    for rows_np, rml in ((V.pack_blob(msgs, lens, sigs, pubs), ml),
+                         (odd_np, 127)):
+        rows = torch.from_numpy(np.concatenate([rows_np, rows_np[:1]])).to(dev)
+        for k in (1, 31, 33, 4097):
+            sha_err = max(sha_err, hold_sha(rows[:k], rml))
+    print(f"sha512: kernel == plain at 1, 31, 33 and 4097 lanes of ml {ml} "
+          f"and of ml 127 (rows 227 bytes apart, byte-load staging)")
 
     # ---- phase 3: verify tail kernel vs plain on adversarial lanes
     msgs, lens, sigs, pubs, kinds = V.make_adversarial_batch(TAIL_LANES, 128)
@@ -523,35 +543,57 @@ def main() -> int:
           f"canonical X, Y, Z, T; top windows that carry out), max error "
           f"{chain_err}")
 
-    # ---- phase 6: decompress kernel vs plain on adversarial encodings and
-    # on the A and R columns of the RLC buckets, whole and one row short
-    # (a lane count that is not a multiple of the block size)
-    def hold_dec(b) -> int:
-        (ok_k, sm_k, p_k), (ok_p, sm_p, p_p) = (dc.decompress(b),
-                                                dc.decompress_plain(b))
-        if not (torch.equal(ok_k, ok_p) and torch.equal(sm_k, sm_p)):
-            raise AssertionError(f"decompress {len(b)} lanes: ok or small "
-                                 f"bits differ from plain")
+    # ---- phase 6: decompress kernel vs plain, one view a launch and the
+    # RLC pair (A and R in one launch), on adversarial encodings and on
+    # the A and R columns of the RLC buckets, at lane counts that leave a
+    # partial block (16 lanes of two threads) alone (1, 7, 8) or last
+    # (4095, 4097)
+    def same_dec(name, got, want) -> int:
+        (ok_k, sm_k, p_k), (ok_p, sm_p, p_p) = got, want
+        if not (ok_k.dtype == sm_k.dtype == torch.bool
+                and torch.equal(ok_k, ok_p) and torch.equal(sm_k, sm_p)):
+            raise AssertionError(f"{name}: ok or small bits differ from "
+                                 f"plain")
         err = max(int((fe.canonical(k) - fe.canonical(q)).abs().max())
                   for k, q in zip(p_k, p_p))
         if err:
-            raise AssertionError(f"decompress {len(b)} lanes: X/Y/Z/T differ "
-                                 f"from plain, max {err}")
+            raise AssertionError(f"{name}: X/Y/Z/T differ from plain, max "
+                                 f"{err}")
         return err
 
+    def hold_dec(b) -> int:
+        return same_dec(f"decompress {len(b)} lanes", dc.decompress(b),
+                        dc.decompress_plain(b))
+
+    def hold_pair(a, r) -> int:
+        before = dc.decompress.launches
+        got = dc.decompress_pair(a, r)
+        if dc.decompress.launches != before + 1:
+            raise AssertionError("decompress_pair: not one launch")
+        return max(same_dec(f"decompress_pair {len(a)} lanes, {w}", g,
+                            dc.decompress_plain(b))
+                   for w, g, b in zip("AR", got, (a, r)))
+
     adv = torch.from_numpy(np.concatenate([pubs, sigs[:, :32]])).to(dev)
-    dec_err = hold_dec(adv[:-1])
+    dec_err = max(hold_dec(adv[:-1]), hold_pair(adv[:len(pubs)],
+                                                adv[len(pubs):]))
     rlc_dev = {}
     for batch, bml in RLC_BUCKETS:
         args = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                      for x in clean[(batch, bml)])
         rlc_dev[(batch, bml)] = args
-        for b in (args[3], args[2][:, :32]):
-            dec_err = max(dec_err, hold_dec(b), hold_dec(b[:-1]))
-    print(f"decompress: kernel == plain on {len(adv) - 1} adversarial "
-          f"encodings and the A and R columns of "
-          f"{', '.join(f'{b}x{m}' for b, m in RLC_BUCKETS)} (n and n - 1 "
-          f"lanes): ok and small bits, canonical X, Y, Z, T")
+    dec_counts = (1, 7, 8, 4095, 4096, 4097, 32768)
+    for k in dec_counts:
+        args = rlc_dev[(4096 if k == 4096 else 32768, 128)]
+        a_col, r_col = args[3][:k], args[2][:k, :32]
+        dec_err = max(dec_err, hold_dec(a_col), hold_dec(r_col),
+                      hold_pair(a_col, r_col))
+    print(f"decompress: kernel == plain, one view a launch and the A, R "
+          f"pair in one launch, on {len(adv) - 1} adversarial encodings "
+          f"(the pair on {len(pubs)} keys and R values) and the A and R "
+          f"columns of the RLC buckets at {', '.join(map(str, dec_counts))} "
+          f"lanes: ok and small bits (bool), canonical X, Y, Z, T, max "
+          f"error {dec_err}")
 
     # ---- phase 7: msm kernel vs plain per lane, both selects, on the
     # RLC path's own inputs at 32768 x 128
@@ -632,8 +674,8 @@ def main() -> int:
           f"error {msm_err}")
 
     # ---- phase 8: the RLC path, SigVerifier(mode="rlc").__call__, clean
-    # buckets with both selects; per call 2 decompress, 2 msm, 1 sha512,
-    # 1 rlc_recode
+    # buckets with both selects; per call 1 decompress (A and R), 2 msm,
+    # 1 sha512, 1 rlc_recode
     rlc_runs = [(4096, 128, "legacy"), (32768, 128, "legacy"),
                 (32768, 128, "p16")]
     rlc_vers = {(b, m, sel): V.SigVerifier(V.VerifierConfig(b, m),
@@ -646,7 +688,7 @@ def main() -> int:
         res = np.asarray(rlc_vers[(batch, bml, sel)](*clean[(batch, bml)]))
         delta = {k: v - before[k] for k, v in counts().items()}
         want = {**dict.fromkeys(counted, 0), "sha512_ram": 1,
-                "decompress": 2, "rlc_recode": 1,
+                "decompress": 1, "rlc_recode": 1,
                 **{f"msm_{s}": 2 * (s == sel) for s in ms.SELECTS}}
         if delta != want:
             raise AssertionError(f"rlc {batch}x{bml} {sel}: launches "
@@ -805,21 +847,30 @@ def main() -> int:
     for batch, bml, blob_np, _, nblocks, msg_bytes in buckets:
         blob = torch.from_numpy(blob_np).to(dev)
         t_sha = cuda_ms(lambda: sha(blob, bml))
+        d_sha = dev_ms(lambda: sha(blob, bml), "sha512_ram_kernel")
         args = tail_args(blob, bml)
         t_tail = cuda_ms(lambda: vt.verify_tail(*args))
+        d_tail = dev_ms(lambda: vt.verify_tail(*args), "verify_tail_kernel")
+        # a warp runs to its longest lane: its 32 lanes' most blocks over
+        # their blocks, summed over the warps
+        nb = (clean[(batch, bml)][1].astype(np.int64) + 64 + 17 + 127) // 128
+        nb_w = np.pad(nb, (0, -len(nb) % 32)).reshape(-1, 32)
+        ragged = nb_w.max(1).sum() * 32 / nb.sum()
         ok_t, qx, qz = vt.verify_tail(*args)
         r_bytes = args[3]
         t_r = cuda_ms(lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t))
         ver = verifiers[(batch, bml)]
         t_e2e = wall_ms(lambda: np.asarray(ver.dispatch_blob(blob_np)))
         sb, tb = sha_bound(batch, nblocks, msg_bytes), tail_bound(batch)
-        timing[(batch, bml)] = (t_sha, t_tail, sb, tb)
-        note(f"{batch}x{bml}: sha512 kernel {t_sha:.5f} ms (bound "
-             f"{sb[0]:.5f} ms, {sb[1]}), verify_tail kernel {t_tail:.5f} ms "
-             f"(bound {tb[0]:.5f} ms, {tb[1]}), _compressed_r_check "
+        timing[(batch, bml)] = (t_sha, t_tail, sb, tb, d_sha, d_tail)
+        note(f"{batch}x{bml}: sha512 kernel call {t_sha:.5f} ms, device "
+             f"{d_sha:.5f} ms (bound {sb[0]:.5f} ms, {sb[1]}; a warp's most "
+             f"blocks over its blocks {ragged:.4f}), verify_tail kernel call "
+             f"{t_tail:.5f} ms, device {d_tail:.5f} ms (bound {tb[0]:.5f} "
+             f"ms, {tb[1]}), _compressed_r_check "
              f"{t_r:.5f} ms, dispatch_blob end to end {t_e2e:.4f} ms = "
              f"{batch / t_e2e * 1e3:.1f} verifies/s; verify_tail: "
-             f"{design_note(chain4_ops(batch, True), t_tail, tb)}")
+             f"{design_note(chain4_ops(batch, True), d_tail, tb)}")
         for what, fn in (
                 ("_compressed_r_check",
                  lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t)),
@@ -885,17 +936,22 @@ def main() -> int:
                                                          neg_a)),
             "rlc_recode": (lambda: rl.rlc_recode(s_, digest, z_d),
                            lambda: rl.rlc_recode_plain(s_, digest, z_d))}
+        entries = {"reduce_recode": "reduce_recode_kernel",
+                   "dsm_tail_q": "dsm_tail_q_kernel",
+                   "double_scalar_mul_base": "dsm_base_kernel",
+                   "rlc_recode": "rlc_recode_kernel"}
         for name, (kern, plain) in calls.items():
             t_k = cuda_ms(kern)
+            d_k = dev_ms(kern, entries[name])
             b_ = new_bounds[name](batch)
-            new_ms[(name, batch)] = (t_k, b_)
-            line = (f"{batch}x{bml}: {name} kernel {t_k:.5f} ms (bound "
-                    f"{b_[0]:.5f} ms, {b_[1]})")
+            new_ms[(name, batch)] = (t_k, b_, d_k)
+            line = (f"{batch}x{bml}: {name} kernel call {t_k:.5f} ms, "
+                    f"device {d_k:.5f} ms (bound {b_[0]:.5f} ms, {b_[1]})")
             if name == "dsm_tail_q":
-                line += "; " + design_note(chain4_ops(batch, False), t_k, b_)
+                line += "; " + design_note(chain4_ops(batch, False), d_k, b_)
             elif name == "double_scalar_mul_base":
                 line += "; " + design_note(chain4_ops(
-                    batch, False, (G4_CLOSE_MUL, G4_CLOSE_SHFL)), t_k, b_)
+                    batch, False, (G4_CLOSE_MUL, G4_CLOSE_SHFL)), d_k, b_)
             if batch == buckets[0][0]:
                 new_plain[name] = cuda_ms(plain, PLAIN_RUNS, 1)
                 line += f", plain {new_plain[name]:.4f} ms"
@@ -914,8 +970,8 @@ def main() -> int:
 
     # ---- phase 12: the RLC path's times and launches
     def dec_bound(n):
-        # reads 32 bytes, writes ok, small and the X, Y, T int64 planes
-        return bound(n * (32 + 2 + 3 * 80),
+        # reads 32 bytes, writes ok, small and the X, Y, Z, T int64 planes
+        return bound(n * (32 + 2 + 4 * 80),
                      n * (DEC_SQR * SQR_OPS + DEC_MUL * MUL_OPS))
 
     def msm_bound(n, nwin, select):
@@ -952,23 +1008,32 @@ def main() -> int:
     rlc_kern = {}
     for batch, bml in RLC_BUCKETS:
         args = rlc_dev[(batch, bml)]
-        pubs_d = args[3]
+        pubs_d, r_d = args[3], args[2][:, :32]
         t_dec = cuda_ms(lambda: dc.decompress(pubs_d))
-        db = dec_bound(batch)
-        rlc_kern[("decompress", batch)] = (t_dec, db)
-        note(f"{batch}x{bml}: decompress kernel {t_dec:.5f} ms (bound "
-             f"{db[0]:.5f} ms, {db[1]}), 2 per RLC call")
+        d_dec = dev_ms(lambda: dc.decompress(pubs_d), "decompress_kernel")
+        t_pair = cuda_ms(lambda: dc.decompress_pair(pubs_d, r_d))
+        d_pair = dev_ms(lambda: dc.decompress_pair(pubs_d, r_d),
+                        "decompress_kernel")
+        db, pb = dec_bound(batch), dec_bound(2 * batch)
+        rlc_kern[("decompress", batch)] = (t_dec, db, d_dec, t_pair, d_pair,
+                                           pb)
+        note(f"{batch}x{bml}: decompress kernel call {t_dec:.5f} ms, device "
+             f"{d_dec:.5f} ms (bound {db[0]:.5f} ms, {db[1]}); the A, R pair "
+             f"(one launch a RLC call) call {t_pair:.5f} ms, device "
+             f"{d_pair:.5f} ms (bound {pb[0]:.5f} ms)")
         msm_in, c_win, scal_in = msm_inputs(args, batch)
         for sel in ms.SELECTS:
             for win, pts, nwin in msm_in:
                 t_m = cuda_ms(lambda: ms.msm_lanes(win, pts, MSM_M, nwin, sel))
+                d_m = dev_ms(lambda: ms.msm_lanes(win, pts, MSM_M, nwin, sel),
+                             "msm_kernel")
                 mb = msm_bound(batch, nwin, sel)
-                rlc_kern[(f"msm_{sel}", batch, nwin)] = (t_m, mb)
+                rlc_kern[(f"msm_{sel}", batch, nwin)] = (t_m, mb, d_m)
                 own = msm_design_ops(batch, nwin, sel)
                 note(f"{batch}x{bml}: msm {sel} kernel nwin {nwin}, "
-                     f"{batch // MSM_M} lanes: {t_m:.5f} ms (bound "
-                     f"{mb[0]:.5f} ms, {mb[1]}); "
-                     f"{design_note(own, t_m, mb)}")
+                     f"{batch // MSM_M} lanes: call {t_m:.5f} ms, device "
+                     f"{d_m:.5f} ms (bound {mb[0]:.5f} ms, {mb[1]}); "
+                     f"{design_note(own, d_m, mb)}")
         # the torch finish: the scalar chain, the two folds, [c]B and the
         # identity test
         lanes_ar = [ms.msm_lanes(win, pts, MSM_M, nwin, "legacy")
@@ -987,6 +1052,16 @@ def main() -> int:
             note(f"{batch}x{bml}: torch finish, {what}: {t_f:.4f} ms; under "
                  f"torch.profiler {calls} kernel launch calls, {nk} device "
                  f"ops busy {busy:.4f} ms of {wall:.4f} ms wall")
+    zb = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 256, (4096, 16), np.uint8)).to(dev)
+    _, dec_calls, _, _ = device_ms(
+        torch, lambda: ed.verify_batch_rlc(*rlc_dev[(4096, 128)], zb,
+                                           m=MSM_M), "decompress_kernel", 1, 1)
+    if dec_calls != 1:
+        raise AssertionError(f"one RLC call made {dec_calls} decompress "
+                             f"launches under torch.profiler")
+    note("verify_batch_rlc 4096x128 under torch.profiler: 1 decompress "
+         "launch (A and R)")
     for batch, bml, sel in rlc_runs:
         ver, arrs = rlc_vers[(batch, bml, sel)], clean[(batch, bml)]
         t_e2e = wall_ms(lambda: np.asarray(ver(*arrs)))
@@ -1026,38 +1101,40 @@ def main() -> int:
     # (the first, where their plain versions were timed), the RLC kernels
     # at 32768 x 128 (the A side for msm); launches from each path's run
     # above
-    t_sha, t_tail, sb, tb = timing[BUCKETS[0][:2]]
-    t_dec, db = rlc_kern[("decompress", 32768)]
+    t_sha, t_tail, sb, tb, d_sha, d_tail = timing[BUCKETS[0][:2]]
+    t_dec, db, d_dec, t_pair, d_pair, pb = rlc_kern[("decompress", 32768)]
     rlc_rows = [
         {"name": "decompress", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/decompress.cu",
          "replaces": "firedancer_tpu/ops/curve_pallas.py:649",
          "launches": rlc_launches["decompress"], "max_abs_err": dec_err,
-         "ms": t_dec, "plain_ms": plain_dec, "bound_ms": db[0],
-         "bound_by": db[1], "library_ms": None, "shape": "32768x32"}]
+         "ms": t_dec, "device_ms": d_dec, "plain_ms": plain_dec,
+         "bound_ms": db[0], "bound_by": db[1], "library_ms": None,
+         "shape": "32768x32", "pair_ms": t_pair, "pair_device_ms": d_pair,
+         "pair_bound_ms": pb[0]}]
     for sel, line in (("legacy", 1255), ("p16", 1243)):
-        t_m, mb = rlc_kern[(f"msm_{sel}", 32768, 64)]
+        t_m, mb, d_m = rlc_kern[(f"msm_{sel}", 32768, 64)]
         rlc_rows.append(
             {"name": f"msm_{sel}", "route": "cuda",
              "source": "firedancer_tpu_torch/csrc/msm.cu",
              "replaces": f"firedancer_tpu/ops/curve_pallas.py:{line}",
              "launches": rlc_launches[f"msm_{sel}"], "max_abs_err": msm_err,
-             "ms": t_m, "plain_ms": plain_msm[sel], "bound_ms": mb[0],
-             "bound_by": mb[1], "library_ms": None,
+             "ms": t_m, "device_ms": d_m, "plain_ms": plain_msm[sel],
+             "bound_ms": mb[0], "bound_by": mb[1], "library_ms": None,
              "shape": f"32768 points, m {MSM_M}, nwin 64"})
     kernels = [
         {"name": "sha512_ram", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/sha512.cu",
          "replaces": "firedancer_tpu/ops/sha512_pallas.py:118",
          "launches": launches["sha512_ram"], "max_abs_err": sha_err,
-         "ms": t_sha, "plain_ms": plain_sha, "bound_ms": sb[0],
-         "bound_by": sb[1], "library_ms": None},
+         "ms": t_sha, "device_ms": d_sha, "plain_ms": plain_sha,
+         "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None},
         {"name": "verify_tail", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/verify_tail.cu",
          "replaces": "firedancer_tpu/ops/curve_pallas.py:1039",
          "launches": launches["verify_tail"], "max_abs_err": tail_err,
-         "ms": t_tail, "plain_ms": plain_tail, "bound_ms": tb[0],
-         "bound_by": tb[1], "library_ms": None},
+         "ms": t_tail, "device_ms": d_tail, "plain_ms": plain_tail,
+         "bound_ms": tb[0], "bound_by": tb[1], "library_ms": None},
     ] + rlc_rows
     # the kernels of the split and unfused layouts and of the RLC scalar
     # chain, at 4096 x 128 (where their plain versions were timed);
@@ -1067,14 +1144,15 @@ def main() -> int:
             ("dsm_tail_q", 472, layout_launches["split"]),
             ("double_scalar_mul_base", 499, layout_launches["unfused"]),
             ("rlc_recode", 921, rlc_launches)):
-        t_k, b_ = new_ms[(name, buckets[0][0])]
+        t_k, b_, d_k = new_ms[(name, buckets[0][0])]
         src = "dsm" if name.startswith("d") else name
         kernels.append(
             {"name": name, "route": "cuda",
              "source": f"firedancer_tpu_torch/csrc/{src}.cu",
              "replaces": f"firedancer_tpu/ops/curve_pallas.py:{line}",
              "launches": launched[name], "max_abs_err": new_err[name],
-             "ms": t_k, "plain_ms": new_plain[name], "bound_ms": b_[0],
+             "ms": t_k, "device_ms": d_k, "plain_ms": new_plain[name],
+             "bound_ms": b_[0],
              "bound_by": b_[1], "library_ms": None,
              "shape": f"{buckets[0][0]}x{buckets[0][1]}"})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

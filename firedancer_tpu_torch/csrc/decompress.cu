@@ -1,74 +1,79 @@
-// Batched point decompression with the small-order test: one thread per
+// Batched point decompression with the small-order test: two threads a
 // point.
 //
 // Replaces firedancer_tpu/ops/curve_pallas.py::decompress
 // (_decompress_kernel).  Per lane: y from the 32 bytes, u = y^2 - 1 and
 // v = d y^2 + 1, the square-root chain, the sign fix, the small-order bit
-// and T = x y (ge_frombytes in ge25519.cuh, which the verify tail calls
-// too).  Writes ok and small as uint8 and X, Y, T as (10, n) int64 limb
-// planes (ops/f25519.py layout); Z = 1 is left to the wrapper.  On the
-// TPU the byte unpacking of y stayed in XLA; here the lane reads its row
-// in place through the row stride, so the kernel is the whole function.
+// and T = x y (dc2_lane in fe25519_x2.cuh: ge25519.cuh's ge_frombytes, as
+// the verify tail runs it, on the two-rank products).  One launch writes
+// every output: ok and small as bool (n,) planes of one (2, n) buffer,
+// and X, Y, Z = 1 and T as the int64 (10, n) limb planes (ops/f25519.py
+// layout) of one (4, 10, n) buffer.  A launch may take two row views of n
+// rows each (A and R of the RLC check): lanes n .. 2n - 1 read the second
+// and write the second half of each output.  On the TPU the byte
+// unpacking of y stayed in XLA; here the lane reads its row in place
+// through the row stride, so the kernel is the whole function.
 //
 // What bounds it: operations.  A lane does some 255 squarings and 19
-// products (the pow22523 chain dominates) against 32 bytes read and 242
-// written.  What the design does about it: every intermediate stays in
-// registers, and blocks of DC_THREADS spread a batch of a few thousand
-// lanes over all SMs.  The four curve constants are read by every thread
-// from the same addresses (a broadcast).
+// products (the pow22523 chain dominates) against 32 bytes read and 322
+// written, one dependent chain.  What the design does about it: every
+// intermediate stays in registers, and each product of the chain is split
+// over the lane's two threads by output column (fe25519_x2.cuh), so a
+// batch of a few thousand lanes puts twice the warps on the card and
+// each warp's chain issues about half the multiply-adds.  The curve
+// constants are read by every thread from the same addresses (a
+// broadcast).
 
 #include "fe25519.cuh"
+#include "fe25519_x2.cuh"
 #include "ge25519.cuh"
-
-// Constants table, int32 (DC_NCONST, 10) limb rows: d, sqrt(-1) and the
-// two order-8 y values.
-#define DC_NCONST 4
-
-struct dc_consts {
-  fe d, sqrt_m1, y8_0, y8_1;
-};
-
-// One lane: returns ok; writes small, X, Y and T.
-FD_FN bool dc_lane(const dc_consts &c, const uint8_t *b, bool &small, fe &x,
-                   fe &y, fe &t) {
-  const bool ok = ge_frombytes(x, y, small, b, c.d, c.sqrt_m1, c.y8_0, c.y8_1);
-  fe_mul(t, x, y);
-  return ok;
-}
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-#define DC_THREADS 64
+#define DC_THREADS 32   // 16 lanes of two ranks
 
 __global__ void __launch_bounds__(DC_THREADS)
-    decompress_kernel(const uint8_t *b, long long b_stride,
-                      const int32_t *consts, int n, uint8_t *ok,
-                      uint8_t *small, int64_t *x_out, int64_t *y_out,
-                      int64_t *t_out) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+    decompress_kernel(const uint8_t *b0, long long b0_stride,
+                      const uint8_t *b1, long long b1_stride,
+                      const int32_t *consts, int n, int lanes, uint8_t *bits,
+                      int64_t *pts) {
+  const long long lane =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 1;
+  const int q = threadIdx.x & 1;
+  // the threads of live pairs: a pair past the last lane leaves together
+  const unsigned mask = __ballot_sync(0xffffffffu, lane < lanes);
+  if (lane >= lanes) return;
   dc_consts c;
   uint32_t *cw = &c.d.v[0];
   for (int i = 0; i < DC_NCONST * 10; i++) cw[i] = (uint32_t)consts[i];
-  fe x, y, t;
-  bool sm;
-  ok[lane] = dc_lane(c, b + lane * b_stride, sm, x, y, t);
-  small[lane] = sm;
-  for (int i = 0; i < 10; i++) {
-    x_out[i * (long long)n + lane] = x.v[i];
-    y_out[i * (long long)n + lane] = y.v[i];
-    t_out[i * (long long)n + lane] = t.v[i];
-  }
+  const int which = lane >= n;
+  const long long j = lane - (long long)which * n;
+  const uint8_t *b = which ? b1 + j * b1_stride : b0 + j * b0_stride;
+  fe x, y, t, one;
+  bool ok, small;
+  dc2_lane(c, b, &ok, &small, &x, &y, &t, q, mask);
+  if (q) return;
+  uint8_t *bw = bits + (long long)which * 2 * n;
+  bw[j] = ok;
+  bw[n + j] = small;
+  int64_t *pw = pts + (long long)which * 40 * n;
+  fe_set(one, 1);
+  fe_store(pw, n, j, x);
+  fe_store(pw + 10LL * n, n, j, y);
+  fe_store(pw + 20LL * n, n, j, one);
+  fe_store(pw + 30LL * n, n, j, t);
 }
 
-extern "C" int fd_decompress(const uint8_t *b, long long b_stride,
-                             const int32_t *consts, int n, uint8_t *ok,
-                             uint8_t *small, int64_t *x_out, int64_t *y_out,
-                             int64_t *t_out, void *stream) {
-  const int blocks = (n + DC_THREADS - 1) / DC_THREADS;
+// lanes = n (b0 alone) or 2 n (b0, then b1).
+extern "C" int fd_decompress(const uint8_t *b0, long long b0_stride,
+                             const uint8_t *b1, long long b1_stride,
+                             const int32_t *consts, int n, int lanes,
+                             uint8_t *bits, int64_t *pts, void *stream) {
+  const long long threads = 2LL * lanes;
+  const int blocks = (int)((threads + DC_THREADS - 1) / DC_THREADS);
   decompress_kernel<<<blocks, DC_THREADS, 0, (cudaStream_t)stream>>>(
-      b, b_stride, consts, n, ok, small, x_out, y_out, t_out);
+      b0, b0_stride, b1, b1_stride, consts, n, lanes, bits, pts);
   return (int)cudaGetLastError();
 }
 #endif

@@ -1,4 +1,5 @@
-// Batched SHA-512 of R || A || M, one thread per signature.
+// Batched SHA-512 of R || A || M, one thread per signature, blocks of one
+// warp.
 //
 // Replaces firedancer_tpu/ops/sha512_pallas.py::sha512 (_sha_kernel).
 // Reads the packed rows in place through row strides: R and A come from
@@ -11,10 +12,21 @@
 // What bounds it: operations, mostly.  A block is 80 rounds of about 40
 // 64-bit operations (each two or three 32-bit instructions on this card)
 // against 128 bytes read, so at full memory rate the ALUs are the limit.
+// A lane's rounds are one dependent chain, so a batch of a few thousand
+// lanes (about one warp a scheduler) waits on each warp's own issue.
 // What the design does about it: words are native uint64 (the TPU split
 // each into hi/lo uint32 planes), the 16-word schedule is a ring in
 // registers, K sits in constant memory (every thread reads the same round
-// constant at once), and the rounds are unrolled.
+// constant at once), and the rounds are unrolled.  The loads stay off the
+// chain: a block is one warp, and for each 128-byte message block the
+// warp copies its 32 lanes' rows into shared memory, one row at a time as
+// 32 words (coalesced), by cp.async into a two-stage ring, so block j + 1
+// loads while block j compresses.  A row's pitch is 33 words, so a
+// thread's reads of its own row are free of bank conflicts.  Each thread
+// then builds its 16 big-endian words with __byte_perm and inserts the
+// 0x80 byte and the length in registers.  Views whose base or row stride
+// is not a multiple of 4 take byte loads into the same layout.  The
+// digests leave through shared memory as 16-byte stores.
 
 #include <stdint.h>
 
@@ -80,42 +92,115 @@ SHA_FN void sha512_compress(uint64_t h[8], uint64_t w[16]) {
   h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
 }
 
-// Byte p of the padded preimage R || A || M[:len] | 0x80 | 0.. | bitlen.
-SHA_FN uint32_t sha_byte(const uint8_t *r, const uint8_t *a,
-                         const uint8_t *msg, uint32_t total, uint32_t end,
-                         uint32_t p) {
-  if (p < 32) return r[p];
-  if (p < 64) return a[p - 32];
-  if (p < total) return msg[p - 64];
-  if (p == total) return 0x80;
-  if (p >= end - 8) return (uint32_t)(((uint64_t)total * 8) >> (8 * (end - 1 - p))) & 0xff;
-  return 0;
+// __byte_perm(x, y, s): byte i of the result is byte (s >> 4i) & 7 of the
+// eight bytes y:x (the host spells out the device intrinsic).
+SHA_FN uint32_t sha_byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+#if defined(__CUDACC__)
+  return __byte_perm(x, y, s);
+#else
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; i++)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+#endif
+}
+
+// Where word k of block blk of a lane's preimage R || A || M[:len] starts
+// (byte p = 128 blk + 4k), and how many of its 4 bytes are data (avail, 4
+// in R and A; <= 0 past the message, and src is then the message row).
+SHA_FN const uint8_t *sha_src(const uint8_t *r, const uint8_t *a,
+                              const uint8_t *msg, int len, int p,
+                              int &avail) {
+  avail = 4;
+  if (p < 32) return r + p;
+  if (p < 64) return a + p - 32;
+  avail = len - (p - 64);
+  return avail > 0 ? msg + p - 64 : msg;
+}
+
+// The staged word by byte loads: the avail data bytes little-endian, the
+// rest 0 (what cp.async with src-size avail leaves in shared memory).
+SHA_FN uint32_t sha_gather4(const uint8_t *src, int avail) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int e = 0; e < 4; e++)
+    if (e < avail) x |= (uint32_t)src[e] << (8 * e);
+  return x;
+}
+
+// A big-endian word of bytes q .. q + 3 with rem = total - q: the data
+// bytes kept, byte total set to 0x80, bytes past it 0.
+SHA_FN uint32_t sha_pad32(uint32_t v, int rem) {
+  if (rem >= 4) return v;
+  if (rem < 0) return 0;
+  const uint32_t keep = rem ? ~(0xffffffffu >> (8 * rem)) : 0u;
+  return (v & keep) | (0x80u << (24 - 8 * rem));
+}
+
+// The 16 schedule words of block blk from its staged row (32 words as
+// memory holds the bytes), total = 64 + len bytes in nb blocks: each
+// uint64 big-endian from two byte-swapped words, the 0x80 byte and the
+// zeros after the data, and in the last block the bit length in word 15
+// (bytes end - 16 .. end - 9, the length's high half, are past the data
+// and already 0).
+SHA_FN void sha_block_words(uint64_t w[16], const uint32_t *row, uint32_t blk,
+                            uint32_t total, uint32_t nb) {
+#pragma unroll
+  for (int t = 0; t < 16; t++) {
+    const int q = (int)(128 * blk) + 8 * t;
+    const uint32_t hi = sha_pad32(sha_byte_perm(row[2 * t], 0, 0x0123),
+                                  (int)total - q);
+    const uint32_t lo = sha_pad32(sha_byte_perm(row[2 * t + 1], 0, 0x0123),
+                                  (int)total - q - 4);
+    w[t] = ((uint64_t)hi << 32) | lo;
+  }
+  if (blk + 1 == nb) w[15] |= (uint64_t)total * 8;
+}
+
+SHA_FN int sha_len(const uint8_t *len4, int ml) {
+  int32_t len = (int32_t)((uint32_t)len4[0] | ((uint32_t)len4[1] << 8) |
+                          ((uint32_t)len4[2] << 16) | ((uint32_t)len4[3] << 24));
+  return len < 0 ? 0 : (len > ml ? ml : len);
+}
+
+SHA_FN uint32_t sha_blocks(uint32_t total) { return (total + 17 + 127) / 128; }
+
+SHA_FN void sha_init(uint64_t h[8]) {
+  const uint64_t iv[8] = {0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull,
+                          0x3c6ef372fe94f82bull, 0xa54ff53a5f1d36f1ull,
+                          0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
+                          0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull};
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] = iv[i];
+}
+
+// Block blk's schedule words as the host makes them: the block staged
+// by byte loads into a 32-word row, then sha_block_words, as the kernel
+// makes them from its shared-memory row.
+SHA_FN void sha_lane_block(uint64_t w[16], const uint8_t *msg,
+                           const uint8_t *r, const uint8_t *a, int len,
+                           uint32_t blk, uint32_t nb) {
+  uint32_t row[32];
+  for (int k = 0; k < 32; k++) {
+    int avail;
+    const uint8_t *src = sha_src(r, a, msg, len, 128 * blk + 4 * k, avail);
+    row[k] = sha_gather4(src, avail);
+  }
+  sha_block_words(w, row, blk, (uint32_t)len + 64, nb);
 }
 
 // One lane: digest of R || A || M[:clamp(len, 0, ml)] into out[0..63].
 SHA_FN void sha512_lane(const uint8_t *msg, const uint8_t *r,
                         const uint8_t *a, const uint8_t *len4, int ml,
                         uint8_t *out) {
-  int32_t len = (int32_t)((uint32_t)len4[0] | ((uint32_t)len4[1] << 8) |
-                          ((uint32_t)len4[2] << 16) | ((uint32_t)len4[3] << 24));
-  len = len < 0 ? 0 : (len > ml ? ml : len);
-  const uint32_t total = (uint32_t)len + 64;
-  const uint32_t nb = (total + 17 + 127) / 128;
-  const uint32_t end = nb * 128;
-  uint64_t h[8] = {0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull,
-                   0x3c6ef372fe94f82bull, 0xa54ff53a5f1d36f1ull,
-                   0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
-                   0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull};
+  const int len = sha_len(len4, ml);
+  const uint32_t nb = sha_blocks((uint32_t)len + 64);
+  uint64_t h[8];
+  sha_init(h);
   for (uint32_t blk = 0; blk < nb; blk++) {
     uint64_t w[16];
-#pragma unroll
-    for (int t = 0; t < 16; t++) {
-      uint64_t x = 0;
-#pragma unroll
-      for (int j = 0; j < 8; j++)
-        x = (x << 8) | sha_byte(r, a, msg, total, end, blk * 128 + 8 * t + j);
-      w[t] = x;
-    }
+    sha_lane_block(w, msg, r, a, len, blk, nb);
     sha512_compress(h, w);
   }
 #pragma unroll
@@ -128,29 +213,115 @@ SHA_FN void sha512_lane(const uint8_t *msg, const uint8_t *r,
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-#define SHA_THREADS 64
+#define SHA_WARP 32
+#define SHA_PITCH 33    // words a staged row: 132 B
 
-__global__ void __launch_bounds__(SHA_THREADS)
+__device__ __forceinline__ void sha_cp_async4(uint32_t *dst,
+                                              const uint8_t *src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void sha_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void sha_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp stages block blk of each of its rows that has one: row i of
+// the stage holds lane base + i's words, thread t copies word t.
+__device__ __forceinline__ void sha_stage(
+    uint32_t *stage, uint32_t blk, int len, uint32_t nb, bool aligned,
+    long long base, const uint8_t *msg, long long msg_stride,
+    const uint8_t *r, long long r_stride, const uint8_t *a,
+    long long a_stride) {
+  const int t = threadIdx.x;
+  for (int i = 0; i < SHA_WARP; i++) {
+    const int len_i = __shfl_sync(0xffffffffu, len, i);
+    const uint32_t nb_i = __shfl_sync(0xffffffffu, nb, i);
+    if (blk >= nb_i) continue;
+    const long long row = base + i;
+    int avail;
+    const uint8_t *src = sha_src(r + row * r_stride, a + row * a_stride,
+                                 msg + row * msg_stride, len_i,
+                                 128 * blk + 4 * t, avail);
+    uint32_t *dst = stage + i * SHA_PITCH + t;
+    if (aligned)
+      sha_cp_async4(dst, src, avail < 0 ? 0 : (avail > 4 ? 4 : avail));
+    else
+      *dst = sha_gather4(src, avail);
+  }
+}
+
+__global__ void __launch_bounds__(SHA_WARP)
     sha512_ram_kernel(const uint8_t *msg, long long msg_stride,
                       const uint8_t *r, long long r_stride, const uint8_t *a,
                       long long a_stride, const uint8_t *len4,
-                      long long len_stride, int ml, int n, uint8_t *out) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  sha512_lane(msg + lane * msg_stride, r + lane * r_stride,
-              a + lane * a_stride, len4 + lane * len_stride, ml,
-              out + lane * 64);
+                      long long len_stride, int ml, int n, int aligned,
+                      uint8_t *out) {
+  __shared__ __align__(16) uint32_t ring[2][SHA_WARP * SHA_PITCH];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * SHA_WARP;
+  const bool live = base + t < n;
+  const int len = live ? sha_len(len4 + (base + t) * len_stride, ml) : 0;
+  const uint32_t total = (uint32_t)len + 64;
+  const uint32_t nb = live ? sha_blocks(total) : 0;
+  const uint32_t nb_max = __reduce_max_sync(0xffffffffu, nb);
+  uint64_t h[8];
+  sha_init(h);
+  sha_stage(ring[0], 0, len, nb, aligned, base, msg, msg_stride, r, r_stride,
+            a, a_stride);
+  sha_cp_commit();
+  for (uint32_t blk = 0; blk < nb_max; blk++) {
+    if (blk + 1 < nb_max)
+      sha_stage(ring[(blk + 1) & 1], blk + 1, len, nb, aligned, base, msg,
+                msg_stride, r, r_stride, a, a_stride);
+    sha_cp_commit();
+    sha_cp_wait<1>();   // block blk has landed
+    __syncwarp();
+    uint64_t w[16];
+    if (blk < nb) sha_block_words(w, ring[blk & 1] + t * SHA_PITCH, blk, total, nb);
+    __syncwarp();       // the stage is read before it is refilled
+    if (blk < nb) sha512_compress(h, w);
+  }
+  sha_cp_wait<0>();
+  __syncwarp();
+  // the warp's digests are 32 x 64 contiguous bytes of out
+  uint4 *dig = reinterpret_cast<uint4 *>(&ring[0][0]);
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    uint4 v;
+    v.x = sha_byte_perm((uint32_t)(h[2 * k] >> 32), 0, 0x0123);
+    v.y = sha_byte_perm((uint32_t)h[2 * k], 0, 0x0123);
+    v.z = sha_byte_perm((uint32_t)(h[2 * k + 1] >> 32), 0, 0x0123);
+    v.w = sha_byte_perm((uint32_t)h[2 * k + 1], 0, 0x0123);
+    dig[4 * t + k] = v;
+  }
+  __syncwarp();
+  uint4 *dst = reinterpret_cast<uint4 *>(out) + base * 4;
+  const long long valid = (n - base < SHA_WARP ? n - base : SHA_WARP) * 4;
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const int idx = k * SHA_WARP + t;
+    if (idx < valid) dst[idx] = dig[idx];
+  }
 }
 
 extern "C" int fd_sha512_ram(const uint8_t *msg, long long msg_stride,
                              const uint8_t *r, long long r_stride,
                              const uint8_t *a, long long a_stride,
                              const uint8_t *len4, long long len_stride,
-                             int ml, int n, uint8_t *out, void *stream) {
-  const int blocks = (n + SHA_THREADS - 1) / SHA_THREADS;
-  sha512_ram_kernel<<<blocks, SHA_THREADS, 0, (cudaStream_t)stream>>>(
+                             int ml, int n, int aligned, uint8_t *out,
+                             void *stream) {
+  const int blocks = (n + SHA_WARP - 1) / SHA_WARP;
+  sha512_ram_kernel<<<blocks, SHA_WARP, 0, (cudaStream_t)stream>>>(
       msg, msg_stride, r, r_stride, a, a_stride, len4, len_stride, ml, n,
-      out);
+      aligned, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -30,7 +30,7 @@ On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
 run.
 
 verify_batch_rlc is the random-linear-combination batch check (one bit
-for a whole batch): the decompress kernel for A and R, the same SHA-512
+for a whole batch): one decompress launch for A and R, the same SHA-512
 kernel, the rlc_recode kernel for the per-signature scalars, the msm
 kernel for the two multi-scalar sums, and a torch finish (the sum of the
 z s products, the lane folds, the comb [c]B and the identity test).
@@ -46,7 +46,7 @@ import torch
 from . import curve25519 as cv
 from . import f25519 as fe
 from . import scalar25519 as sc
-from .decompress import decompress
+from .decompress import decompress, decompress_pair
 from .dsm import double_scalar_mul_base, dsm_tail_q
 from .msm import msm
 from .reduce_recode import reduce_recode
@@ -106,7 +106,11 @@ def _compressed_r_check(qx, qz, r_bytes, ok_y=None, *, qy=None,
 
 def _decompress_checked(b):
     """(ok, point): decompress, with a small-order point rejected."""
-    ok, small, pt = decompress(b)
+    return _checked(decompress(b))
+
+
+def _checked(dec):
+    ok, small, pt = dec
     return ok & ~small, pt
 
 
@@ -182,8 +186,8 @@ def verify_batch_rlc(msgs, msg_len, sigs, pubkeys, z_bytes, m: int = 8,
     device, where prechecks is S < L and both A and R decompress to points
     not of small order."""
     r_bytes, s_bytes = sigs[:, :32], sigs[:, 32:]
-    ok_a, a_pt = _decompress_checked(pubkeys)
-    ok_r, r_pt = _decompress_checked(r_bytes)
+    (ok_a, a_pt), (ok_r, r_pt) = map(_checked,
+                                     decompress_pair(pubkeys, r_bytes))
     digest = sha512_ram(msgs, r_bytes, pubkeys, lens_to_bytes(msg_len))
     ok_s, w_windows, z_windows, c_windows = _rlc_scalars(digest, s_bytes,
                                                          z_bytes)

@@ -5,8 +5,12 @@ firedancer_tpu/ops/sha512_pallas.py::sha512).
 Inputs are uint8 row views of any row stride (the columns of a packed
 blob, or separate arrays): msgs (n, ml), r and a (n, 32) and the
 little-endian int32 message lengths as bytes, len4 (n, 4).  A length is
-clamped to [0, ml].  On a CUDA tensor the wrapper launches the kernel or
-raises; on a CPU tensor it runs the plain version.
+clamped to [0, ml].  Where msgs, r and a all have a base and a row
+stride that are multiples of 4 (a packed blob of a 128- or 1232-byte
+bucket), the kernel stages them by cp.async, else by byte loads, into
+the same layout: one kernel, one result.  On a CUDA tensor the wrapper
+launches the kernel or raises; on a CPU tensor it runs the plain
+version.
 """
 
 import ctypes
@@ -49,7 +53,7 @@ def _rows(t, width: int | None, name: str):
 def _fn():
     fn = build.load("sha512").fd_sha512_ram
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, ll, p, ll, p, ll, p, ll, i, i, p, p]
+    fn.argtypes = [p, ll, p, ll, p, ll, p, ll, i, i, i, p, p]
     fn.restype = i
     return fn
 
@@ -67,10 +71,12 @@ def sha512_ram(msgs, r, a, len4):
     out = torch.empty((n, 64), dtype=torch.uint8, device=msgs.device)
     if n == 0:
         return out
+    aligned = all(t.data_ptr() % 4 == 0 and t.stride(0) % 4 == 0
+                  for t in (msgs, r, a))
     with torch.cuda.device(msgs.device):
         rc = _fn()(msgs.data_ptr(), msgs.stride(0), r.data_ptr(),
                    r.stride(0), a.data_ptr(), a.stride(0), len4.data_ptr(),
-                   len4.stride(0), msgs.shape[1], n, out.data_ptr(),
+                   len4.stride(0), msgs.shape[1], n, aligned, out.data_ptr(),
                    torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"sha512 kernel launch failed: CUDA error {rc}")

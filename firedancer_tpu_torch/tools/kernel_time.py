@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's point-chain kernels of one checkout on the card.
+"""Time the port's kernels of one checkout on the card.
 
     python3 firedancer_tpu_torch/tools/kernel_time.py [--root DIR]
-        [--label L] [--kernels msm,verify_tail,dsm_tail_q,dsm_base]
-        [--lanes N,...] [--sass]
+        [--label L] [--kernels msm,verify_tail,dsm_tail_q,dsm_base,
+        sha512,decompress,reduce_recode,rlc_recode] [--lanes N,...]
+        [--sass]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
 lines (registers, shared memory, stack and spills of each entry and
 out-of-line function), with --sass also the static SASS instruction
 counts of each kernel entry by opcode (cuobjdump -sass: the code as
-compiled, not as executed), and times them with CUDA events (median,
-min and max of 20 after 3 warm-ups), on inputs made from fixed seeds:
+compiled, not as executed), and times each call two ways:
+  call ms    CUDA events around the whole wrapper call (median, min and
+             max of 20 after 3 warm-ups): the host's enqueue, the
+             allocations and the follow-on device ops included;
+  device ms  the kernel entry's own device time a call from
+             torch.profiler's key_averages() over 20 calls, beside the
+             entry's launches and the other device ops a call (if the
+             profiler shows no device time, CUDA events around 20
+             back-to-back calls over 20; the JSON says which).
+On inputs made from fixed seeds:
   msm          msm_lanes at 4096 and 32768 points, m 8, nwin 64 and 32,
                both selects, on points decompressed from random encodings
                and random digits;
@@ -25,10 +34,21 @@ min and max of 20 after 3 warm-ups), on inputs made from fixed seeds:
   dsm_base     double_scalar_mul_base at the same 128-byte shapes, on
                the same signatures' unsigned windows of S and of k mod L
                and the negated keys, as chip_smoke's phase 11b gives
-               them.
+               them;
+  sha512       sha512_ram at the same shapes, on chip_smoke's serving
+               buckets (64-byte messages at 128; lengths uniform in
+               [0, 1232] at 1232), read in place from the packed blob;
+  decompress   the keys at the 128-byte shapes, and the RLC pair (A and
+               R; decompress_pair where the checkout has it, else two
+               decompress calls), plus the decompress launches of one
+               verify_batch_rlc call at the first shape;
+  reduce_recode, rlc_recode  at the 128-byte shapes, on the same
+               signatures' S and digests and random z.
 The last line is one JSON object: the label, the card's name and power
-limit (nvidia-smi) and the times in ms.  To compare two checkouts, run it
-for each in turn on one card, one run after another: A, B, B, A.
+limit (nvidia-smi), the call times in ms, the device times in ms, the
+launches and the other device ops a call, and the device-time method.
+To compare two checkouts, run it for each in turn on one card, one run
+after another: A, B, B, A.
 """
 
 import argparse
@@ -43,7 +63,14 @@ import numpy as np
 
 RUNS, M = 20, 8
 SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "dsm_tail_q": "dsm",
-           "dsm_base": "dsm"}
+           "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
+           "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode"}
+# each kernel's entry, as the profiler names its device events
+ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
+           "dsm_tail_q": "dsm_tail_q_kernel", "dsm_base": "dsm_base_kernel",
+           "sha512": "sha512_ram_kernel", "decompress": "decompress_kernel",
+           "reduce_recode": "reduce_recode_kernel",
+           "rlc_recode": "rlc_recode_kernel"}
 
 
 def cuda_ms(torch, fn) -> list[float]:
@@ -61,6 +88,50 @@ def cuda_ms(torch, fn) -> list[float]:
         z.synchronize()
         ts.append(a.elapsed_time(z))
     return [statistics.median(ts), min(ts), max(ts)]
+
+
+def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3):
+    """(ms, launches, other device ops, method) a call: the device time
+    of the kernels whose name holds entry, from torch.profiler's
+    key_averages() over runs calls after the warm-ups; the entry's
+    launches and the other device ops a call.  The trace may miss an
+    event at its edge (19 of 20 seen), so ms is the mean of the launches
+    it holds times the launches a call.  Where the profiler shows no
+    device time at all, ms is CUDA events around runs back-to-back calls
+    over runs."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = total = 0.0
+    seen = other = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t = max(e.device_time_total, e.self_device_time_total)
+        total += t
+        if entry in e.key:
+            us += t
+            seen += e.count
+        else:
+            other += e.count
+    if total > 0:
+        per_call = round(seen / runs)
+        ms = us / seen * per_call / 1e3 if seen else 0.0
+        return ms, per_call, round(other / runs), "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(runs):
+        fn()
+    z.record()
+    z.synchronize()
+    return a.elapsed_time(z) / runs, None, None, "events"
 
 
 def sass_counts(build, src: str) -> dict[str, dict[str, int]]:
@@ -91,12 +162,16 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default=",".join(SOURCES))
     ap.add_argument("--lanes", default="",
-                    help="the chain kernels at these lane counts (x 128) "
-                         "instead of the default shapes")
+                    help="the per-signature kernels at these lane counts "
+                         "(x 128) instead of the default shapes")
     ap.add_argument("--sass", action="store_true",
                     help="print each kernel's static SASS opcode counts")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
+    unknown = set(kernels) - set(SOURCES)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}; choose from "
+                 f"{','.join(SOURCES)}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_time: no CUDA device", file=sys.stderr)
@@ -110,6 +185,7 @@ def main() -> int:
     from firedancer_tpu_torch.ops import ed25519 as ed
     from firedancer_tpu_torch.ops import msm as ms
     from firedancer_tpu_torch.ops import reduce_recode as rr
+    from firedancer_tpu_torch.ops import rlc_recode as rl
     from firedancer_tpu_torch.ops import scalar25519 as sc
     from firedancer_tpu_torch.ops import sha512_kernel as sk
     from firedancer_tpu_torch.ops import verify_tail as vt
@@ -128,7 +204,16 @@ def main() -> int:
                       f"{sum(ops.values())} {json.dumps(ops)}")
 
     dev = torch.device("cuda", 0)
-    times = {}
+    times, dev_times, launches, others, methods = {}, {}, {}, {}, set()
+
+    def timed(key: str, kernel: str, fn, call: bool = True):
+        if call:
+            times[key] = cuda_ms(torch, fn)
+        d, k, o, how = device_ms(torch, fn, ENTRIES[kernel],
+                                 *(() if call else (1, 1)))
+        dev_times[key], launches[key], others[key] = d, k, o
+        methods.add(how)
+
     if "msm" in kernels:
         rng = np.random.default_rng(5)
         for n in (4096, 32768):
@@ -139,39 +224,74 @@ def main() -> int:
                 win = torch.from_numpy(rng.integers(0, 16, (nwin, n),
                                                     np.uint8)).to(dev)
                 for sel in ms.SELECTS:
-                    times[f"msm {n} {sel} nwin {nwin}"] = cuda_ms(
-                        torch, lambda: ms.msm_lanes(win, pts, M, nwin, sel))
+                    timed(f"msm {n} {sel} nwin {nwin}", "msm",
+                          lambda: ms.msm_lanes(win, pts, M, nwin, sel))
     shapes = ([(int(n), 128) for n in args.lanes.split(",")] if args.lanes
               else [(4096, 128), (32768, 128), (4096, 1232)])
+    wide_only = {"verify_tail", "sha512"}
     for n, ml in shapes:
-        if "verify_tail" not in kernels and (
-                ml != 128 or not {"dsm_tail_q", "dsm_base"} & set(kernels)):
+        if ml != 128 and not wide_only & set(kernels):
             continue
-        msgs, lens, sigs, pubs = V.make_example_batch(n, ml, True, n + ml,
-                                                      sign_pool=256)
+        # chip_smoke's serving buckets: 64-byte messages at 128, lengths
+        # uniform in [0, ml] otherwise
+        lens = (None if ml == 128 else
+                np.random.default_rng(n + ml).integers(0, ml + 1, n))
+        msgs, lens, sigs, pubs = V.make_example_batch(
+            n, ml, True, n + ml, sign_pool=256, lens=lens)
         blob = torch.from_numpy(V.pack_blob(msgs, lens, sigs, pubs)).to(dev)
         m_, r_, s_ = blob[:, :ml], blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64]
         a_, ln_ = blob[:, ml + 64:ml + 96], blob[:, ml + 96:]
+        if "sha512" in kernels:
+            timed(f"sha512 {n}x{ml}", "sha512",
+                  lambda: sk.sha512_ram(m_, r_, a_, ln_))
         digest = sk.sha512_ram(m_, r_, a_, ln_)
         if "verify_tail" in kernels:
-            times[f"verify_tail {n}x{ml}"] = cuda_ms(
-                torch, lambda: vt.verify_tail(a_, s_, digest, r_))
+            timed(f"verify_tail {n}x{ml}", "verify_tail",
+                  lambda: vt.verify_tail(a_, s_, digest, r_))
         if ml != 128:
+            continue
+        if "decompress" in kernels:
+            timed(f"decompress {n}", "decompress", lambda: dc.decompress(a_))
+            if hasattr(dc, "decompress_pair"):
+                timed(f"decompress pair {n}", "decompress",
+                      lambda: dc.decompress_pair(a_, r_))
+            else:
+                timed(f"decompress pair {n}", "decompress",
+                      lambda: (dc.decompress(a_), dc.decompress(r_)))
+            if n == shapes[0][0]:
+                z = torch.from_numpy(np.random.default_rng(n).integers(
+                    0, 256, (n, 16), np.uint8)).to(dev)
+                sg = blob[:, ml:ml + 64]
+                timed(f"verify_batch_rlc {n}", "decompress",
+                      lambda: ed.verify_batch_rlc(
+                          m_, sk.lens_from_bytes(ln_), sg, a_, z),
+                      call=False)
+        if "reduce_recode" in kernels:
+            timed(f"reduce_recode {n}x{ml}", "reduce_recode",
+                  lambda: rr.reduce_recode(s_, digest))
+        if "rlc_recode" in kernels:
+            z = torch.from_numpy(np.random.default_rng(n).integers(
+                0, 256, (n, 16), np.uint8)).to(dev)
+            timed(f"rlc_recode {n}x{ml}", "rlc_recode",
+                  lambda: rl.rlc_recode(s_, digest, z))
+        if not {"dsm_tail_q", "dsm_base"} & set(kernels):
             continue
         _, a_pt = ed._decompress_checked(a_)
         if "dsm_tail_q" in kernels:
             _, wins = rr.reduce_recode(s_, digest)
             y_r = ed._parse_r_bytes(r_)[0]
-            times[f"dsm_tail_q {n}x{ml}"] = cuda_ms(
-                torch, lambda: dsm.dsm_tail_q(wins, a_pt, y_r))
+            timed(f"dsm_tail_q {n}x{ml}", "dsm_tail_q",
+                  lambda: dsm.dsm_tail_q(wins, a_pt, y_r))
         if "dsm_base" in kernels:
             s_win = sc.scalar_windows(s_)
             k_win = sc.limbs_to_windows(sc.reduce_512(digest))
             neg_a = cv.neg(a_pt)
-            times[f"dsm_base {n}x{ml}"] = cuda_ms(
-                torch, lambda: dsm.double_scalar_mul_base(s_win, k_win,
-                                                          neg_a))
-    print(json.dumps({"label": args.label, "card": card, "ms": times}))
+            timed(f"dsm_base {n}x{ml}", "dsm_base",
+                  lambda: dsm.double_scalar_mul_base(s_win, k_win, neg_a))
+    print(json.dumps({"label": args.label, "card": card, "ms": times,
+                      "device_ms": dev_times, "launches": launches,
+                      "other_device_ops": others,
+                      "device_method": sorted(methods)}))
     return 0
 
 

@@ -59,6 +59,26 @@ def test_sha512_kernel_matches_plain_and_hashlib(cuda, n, ml):
             bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :k])).digest()
 
 
+@pytest.mark.parametrize("n", [1, 33, 4097])
+def test_sha512_kernel_on_unaligned_rows(cuda, n):
+    """A packed blob of ml 127 (rows 227 bytes apart, R at column 127):
+    the kernel stages by byte loads, and still equals hashlib."""
+    ml = 127
+    rng = np.random.default_rng(n + ml)
+    lens = rng.integers(0, ml + 1, n).astype(np.int32)
+    msgs = rng.integers(0, 256, (n, ml), np.uint8)
+    sigs = rng.integers(0, 256, (n, 64), np.uint8)
+    pubs = rng.integers(0, 256, (n, 32), np.uint8)
+    blob = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs)).to(cuda)
+    m, r, _, a, ln = _cols(blob, ml)
+    assert m.stride(0) % 4 and r.data_ptr() % 4
+    got = sk.sha512_ram(m, r, a, ln).cpu()
+    for i in range(n):
+        assert bytes(got[i].tolist()) == hashlib.sha512(
+            bytes(sigs[i, :32]) + bytes(pubs[i]) + bytes(msgs[i, :lens[i]])
+        ).digest()
+
+
 # lane counts of the four-rank chain kernels (verify_tail, dsm_tail_q,
 # double_scalar_mul_base):
 # blocks of 8 lanes, so 1 and 7 give a partial block alone, 4095 and 4097
@@ -106,9 +126,31 @@ def test_decompress_kernel_matches_plain(cuda, n):
     before = dc.decompress.launches
     ok_k, sm_k, p_k = dc.decompress(b.to(cuda))
     assert dc.decompress.launches == before + 1
+    assert ok_k.dtype == sm_k.dtype == torch.bool
+    assert all(t.is_contiguous() and t.shape == (fe.NLIMB, n) for t in p_k)
     ok_p, sm_p, p_p = dc.decompress_plain(b)
     assert torch.equal(ok_k.cpu(), ok_p) and torch.equal(sm_k.cpu(), sm_p)
     assert _canon_equal(p_k, p_p)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 32768])
+def test_decompress_pair_kernel_matches_plain(cuda, n):
+    """One launch over the keys and R values of n signatures (adversarial
+    encodings, repeated), read as row views of one packed buffer: each
+    half equals its own decompress_plain call."""
+    _, _, sigs, pubs, _ = tv.make_adversarial_batch(528, 16)
+    reps = -(-n // len(pubs))
+    rows = np.concatenate([np.tile(pubs, (reps, 1))[:n],
+                           np.tile(sigs, (reps, 1))[:n]], axis=1)
+    buf = torch.from_numpy(rows)
+    a, r = buf[:, :32], buf[:, 32:64]
+    before = dc.decompress.launches
+    got = dc.decompress_pair(a.to(cuda), r.to(cuda))
+    assert dc.decompress.launches == before + 1
+    for (ok_k, sm_k, p_k), b in zip(got, (a, r)):
+        ok_p, sm_p, p_p = dc.decompress_plain(b)
+        assert torch.equal(ok_k.cpu(), ok_p) and torch.equal(sm_k.cpu(), sm_p)
+        assert _canon_equal(p_k, p_p)
 
 
 @pytest.mark.parametrize("select", ms.SELECTS)

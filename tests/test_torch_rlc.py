@@ -118,6 +118,43 @@ def test_decompress_plain_matches_pallas_interpret():
     assert pt.Z.tolist() == fe.ones(len(b), "cpu").tolist()
 
 
+def test_decompress_pair_plain_matches_two_calls_and_jax():
+    """decompress_pair's plain version (the RLC check's A and R, one
+    launch on the card) on the keys and R values of adversarial lanes
+    and random strings, read as row views of one buffer: each half equals
+    its own decompress_plain call, and jitted JAX curve25519.decompress
+    with is_small_order_affine (ok, small, and canonical X, Y, T where the
+    point exists); the wrapper takes it for CPU tensors, launching
+    nothing."""
+    from firedancer_tpu.ops import curve25519 as jcv
+    import jax
+    _, _, sigs, pubs, _ = tv.make_adversarial_batch(22, 16)
+    rng = np.random.default_rng(44)
+    rows = np.concatenate([np.concatenate([pubs, sigs], axis=1),
+                           rng.integers(0, 256, (6, 96), np.uint8)])
+    buf = torch.from_numpy(rows)
+    a, r = buf[:, :32], buf[:, 32:64]
+    before = dc.decompress.launches
+    got = dc.decompress_pair(a, r)
+    assert dc.decompress.launches == before
+    jdec = jax.jit(lambda b: (lambda ok, p: (ok, jcv.is_small_order_affine(p),
+                                             p))(*jcv.decompress(b)))
+    for (ok, small, pt), b in zip(got, (a, r)):
+        ok_1, small_1, pt_1 = dc.decompress_plain(b)
+        assert torch.equal(ok, ok_1) and torch.equal(small, small_1)
+        assert all(torch.equal(u, v) for u, v in zip(pt, pt_1))
+        ok_j, small_j, jpt = jdec(jnp.asarray(b.numpy()))
+        assert ok.tolist() == np.asarray(ok_j).tolist()
+        assert small.tolist() == np.asarray(small_j).tolist()
+        mask = ok.numpy()
+        for name in ("X", "Y", "T"):
+            want = interop.field_to_ints(np.asarray(getattr(jpt, name)))
+            have = interop.field_to_ints(getattr(pt, name))
+            assert [g for g, o in zip(have, mask) if o] == [
+                w for w, o in zip(want, mask) if o], name
+    assert got[0][0].any() and not got[0][0].all() and got[1][1].any()
+
+
 def test_decompress_wrapper_takes_the_plain_version_on_cpu():
     b = torch.zeros((3, 32), dtype=torch.uint8)
     before = dc.decompress.launches
