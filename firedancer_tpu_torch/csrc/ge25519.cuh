@@ -150,9 +150,11 @@ FD_FN void ge_load(ge &p, const int64_t *x, const int64_t *y,
 // negated when its parity differs from the sign bit.  Returns whether the
 // square root exists; x is unspecified where it does not.  small: x = 0,
 // or canonical y in {0, y8_0, y8_1} (the affine points of order <= 8).
-GE_FN bool ge_frombytes(fe &x, fe &y, bool &small, const uint8_t *b,
-                        const fe &d, const fe &sqrt_m1, const fe &y8_0,
-                        const fe &y8_1) {
+// The decompress kernel inlines the body (ge_frombytes_inl); the verify
+// tail calls it out of line (ge_frombytes).
+FD_FN bool ge_frombytes_inl(fe &x, fe &y, bool &small, const uint8_t *b,
+                            const fe &d, const fe &sqrt_m1, const fe &y8_0,
+                            const fe &y8_1) {
   fe yy, u, v, one, yc, zero;
   fe_set(one, 1);
   fe_frombytes(y, b);
@@ -167,4 +169,10 @@ GE_FN bool ge_frombytes(fe &x, fe &y, bool &small, const uint8_t *b,
   small = fe_iszero(x) || fe_eq_canon(yc, zero) || fe_eq_canon(yc, y8_0) ||
           fe_eq_canon(yc, y8_1);
   return ok;
+}
+
+GE_FN bool ge_frombytes(fe &x, fe &y, bool &small, const uint8_t *b,
+                        const fe &d, const fe &sqrt_m1, const fe &y8_0,
+                        const fe &y8_1) {
+  return ge_frombytes_inl(x, y, small, b, d, sqrt_m1, y8_0, y8_1);
 }

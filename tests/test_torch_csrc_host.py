@@ -2,7 +2,7 @@
 plain torch versions.
 
 Each kernel in csrc/ keeps its per-lane body (sha512_lane and the
-schedule words of a staged block, vt_lane4, dc2_lane, msm_point and
+schedule words of a staged block, vt_lane4, dc_lane, msm_point and
 msm_tree_step, sc_reduce_recode, dsm_tail_q_lane4, dsm_base_lane4,
 rlc_lane, and sc_mul_mod_l under the last) in functions that also
 compile as plain C++ outside nvcc.  This test builds them with the host
@@ -10,13 +10,12 @@ C++ compiler into a small harness and runs the same lanes through them
 and through the plain torch versions, so the kernels' arithmetic is
 checked on a machine with no GPU.  Where a kernel runs a lane on several
 threads (msm's points, the four ranks of the chain in vt_lane4,
-dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate, and
-decompress's two ranks, each making half the columns of every product),
-the harness runs those threads in lockstep and passes what the warp's
-shuffles would through arrays; each point step of the four-rank chain
-and each two-rank field function is also held alone against its
-one-thread or plain counterpart.  The launch, the grid and the memory
-layout are not checked here: chip_smoke.py checks those on the card.
+dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate), the
+harness runs those threads in lockstep and passes what the warp's
+shuffles would through arrays; each point step of the four-rank chain is
+also held alone against its plain function.  The launch, the grid and
+the memory layout are not checked here: chip_smoke.py checks those on
+the card.
 """
 
 import hashlib
@@ -80,43 +79,21 @@ int main() {
         fwrite(words, 8, 16, stdout);
       }
     }
-  } else if (mode == 'd') {     // consts, then 32-byte encodings; the
-    dc_consts c;                // lane's two ranks in lockstep, each rank's
-    rd(&c, sizeof c);           // ok, small, X, Y, T
+  } else if (mode == 'd') {     // consts, then 32-byte encodings
+    dc_consts c;
+    rd(&c, sizeof c);
     std::vector<uint8_t> in(n * 32);
     rd(in.data(), in.size());
     for (int i = 0; i < n; i++) {
-      fe x[2], y[2], t[2];
-      bool ok[2], small[2];
-      dc2_lane(c, &in[i * 32], ok, small, x, y, t, 0, 0);
-      for (int q = 0; q < 2; q++) {
-        const uint8_t o = ok[q], sm = small[q];
-        fwrite(&o, 1, 1, stdout);
-        fwrite(&sm, 1, 1, stdout);
-        fwrite(x[q].v, 4, 10, stdout);
-        fwrite(y[q].v, 4, 10, stdout);
-        fwrite(t[q].v, 4, 10, stdout);
-      }
-    }
-  } else if (mode == 'f') {     // (f, g) pairs; op ml: 0 mul, 1 sqr of f,
-    for (int i = 0; i < n; i++) {   // 2 pow22523 of f: the one-thread
-      fe f[2], g[2], r[2], one;     // limbs, then each rank's
-      rd(&f[0], sizeof(fe));
-      rd(&g[0], sizeof(fe));
-      f[1] = f[0];
-      g[1] = g[0];
-      if (ml == 0) {
-        fe_mul(one, f[0], g[0]);
-        fe2_mul(r, f, g, 0, 0);
-      } else if (ml == 1) {
-        fe_sqr(one, f[0]);
-        fe2_sqr(r, f, 0, 0);
-      } else {
-        fe_pow22523(one, f[0]);
-        fe2_pow22523(r, f, 0, 0);
-      }
-      fwrite(&one, sizeof(fe), 1, stdout);
-      fwrite(r, sizeof(fe), 2, stdout);
+      fe x, y, t;
+      bool small;
+      const uint8_t ok = dc_lane(c, &in[i * 32], small, x, y, t);
+      const uint8_t sm = small;
+      fwrite(&ok, 1, 1, stdout);
+      fwrite(&sm, 1, 1, stdout);
+      fwrite(x.v, 4, 10, stdout);
+      fwrite(y.v, 4, 10, stdout);
+      fwrite(t.v, 4, 10, stdout);
     }
   } else if (mode == 'm') {     // select, m, nwin, 2d, then per lane its
     int sel, m, nwin;           // m points and its windows (w * m + j)
@@ -331,16 +308,12 @@ def _encodings() -> np.ndarray:
                            rng.integers(0, 256, (14, 32), np.uint8)])
 
 
-@pytest.mark.parametrize("rank", [0, 1], ids=["rank0", "rank1"])
-def test_decompress_lane_matches_plain(harness, rank):
-    """The decompress lane on its two ranks, run in lockstep: each rank's
-    ok and small bits and X, Y, T limbs equal the plain version's, on
-    every encoding, those without a point included."""
+def test_decompress_lane_matches_plain(harness):
     b = _encodings()
     n = len(b)
     consts = dc.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
     rec = np.frombuffer(harness(b"d", n, 0, consts.tobytes() + b.tobytes()),
-                        np.uint8).reshape(n, 2, 122)[:, rank]
+                        np.uint8).reshape(n, 122)
     x, y, t = _planes(rec[:, 2:].copy().view(np.uint32), 3)
     ok_p, small_p, pt = dc.decompress_plain(torch.from_numpy(b))
     assert rec[:, 0].astype(bool).tolist() == ok_p.tolist()
@@ -349,46 +322,6 @@ def test_decompress_lane_matches_plain(harness, rank):
     # every lane, those without a point included: the same steps
     for got, want in ((x, pt.X), (y, pt.Y), (t, pt.T)):
         assert fe.to_ints(got) == fe.to_ints(want)
-
-
-def _field_edges() -> np.ndarray:
-    """(k, 10) uint32 limbs: 0, 1, p - 1, every limb at its bound (even
-    limbs 2^26 - 1, odd 2^25 + 2^15 - 1: the tight limbs fe25519.cuh takes),
-    each limb alone at its bound, then random tight limbs."""
-    top = np.array([(1 << 26) - 1 if i % 2 == 0 else (1 << 25) + (1 << 15) - 1
-                    for i in range(10)], np.uint32)
-    rows = [np.zeros(10, np.uint32), np.eye(1, 10, 0, np.uint32)[0],
-            np.array(fe.int_to_limbs(fe.P - 1), np.uint32), top]
-    rows += [np.where(np.arange(10) == i, top, 0).astype(np.uint32)
-             for i in range(10)]
-    rng = np.random.default_rng(35)
-    rand = np.stack([rng.integers(0, top.astype(np.int64) + 1)
-                     for _ in range(18)]).astype(np.uint32)
-    return np.concatenate([np.stack(rows), rand])
-
-
-@pytest.mark.parametrize("op", ["mul", "sqr", "pow22523"])
-def test_two_rank_field_ops_match_one_thread(harness, op):
-    """fe2_mul, fe2_sqr and fe2_pow22523 (csrc/fe25519_x2.cuh), the two
-    ranks in lockstep, each swapping its five column sums with the other:
-    both ranks' limbs equal the one-thread fe_mul, fe_sqr and
-    fe_pow22523 limbs exactly, on the edge elements against each other
-    (every pair) and on random tight elements."""
-    e = _field_edges()
-    f, g = (np.repeat(e, len(e), 0), np.tile(e, (len(e), 1)))
-    n = len(f)
-    payload = np.concatenate([f, g], axis=1).tobytes()
-    kind = ["mul", "sqr", "pow22523"].index(op)
-    rec = np.frombuffer(harness(b"f", n, kind, payload),
-                        np.uint32).reshape(n, 3, 10)
-    assert (rec[:, 1] == rec[:, 0]).all() and (rec[:, 2] == rec[:, 0]).all()
-    got = fe.to_ints(torch.from_numpy(rec[:, 0].T.astype(np.int64)))
-    fi = fe.to_ints(torch.from_numpy(f.T.astype(np.int64)))
-    gi = fe.to_ints(torch.from_numpy(g.T.astype(np.int64)))
-    want = {"mul": [a * b % fe.P for a, b in zip(fi, gi)],
-            "sqr": [a * a % fe.P for a in fi],
-            "pow22523": [pow(a, 2**252 - 3, fe.P) for a in fi]}[op]
-    assert [v % fe.P for v in got] == want
 
 
 def test_sha512_block_words_match_padding(harness):

@@ -119,10 +119,14 @@ def _canon_equal(got, want) -> bool:
                for k, p in zip(got, want))
 
 
-@pytest.mark.parametrize("n", [1, 63, 1055])
+@pytest.mark.parametrize("n", [1, 63, 1055, 70001])
 def test_decompress_kernel_matches_plain(cuda, n):
+    """The adversarial encodings, repeated to n lanes: 70001 lanes are
+    more than one wave of the card's resident threads, so a thread takes
+    two lanes."""
     _, _, sigs, pubs, _ = tv.make_adversarial_batch(528, 16)
-    b = torch.from_numpy(np.concatenate([pubs, sigs[:, :32]])[:n])
+    enc = np.concatenate([pubs, sigs[:, :32]])
+    b = torch.from_numpy(np.tile(enc, (-(-n // len(enc)), 1))[:n])
     before = dc.decompress.launches
     ok_k, sm_k, p_k = dc.decompress(b.to(cuda))
     assert dc.decompress.launches == before + 1
