@@ -1054,14 +1054,15 @@ def main() -> int:
                  f"ops busy {busy:.4f} ms of {wall:.4f} ms wall")
     zb = torch.from_numpy(np.random.default_rng(12).integers(
         0, 256, (4096, 16), np.uint8)).to(dev)
+    # three calls: a trace can miss the event at its edge
     _, dec_calls, _, _ = device_ms(
         torch, lambda: ed.verify_batch_rlc(*rlc_dev[(4096, 128)], zb,
-                                           m=MSM_M), "decompress_kernel", 1, 1)
+                                           m=MSM_M), "decompress_kernel", 3, 1)
     if dec_calls != 1:
-        raise AssertionError(f"one RLC call made {dec_calls} decompress "
+        raise AssertionError(f"an RLC call made {dec_calls} decompress "
                              f"launches under torch.profiler")
     note("verify_batch_rlc 4096x128 under torch.profiler: 1 decompress "
-         "launch (A and R)")
+         "launch a call (A and R)")
     for batch, bml, sel in rlc_runs:
         ver, arrs = rlc_vers[(batch, bml, sel)], clean[(batch, bml)]
         t_e2e = wall_ms(lambda: np.asarray(ver(*arrs)))

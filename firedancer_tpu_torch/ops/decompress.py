@@ -43,7 +43,7 @@ def decompress_pair_plain(a, r):
 @functools.lru_cache(maxsize=None)
 def kernel_consts(device) -> torch.Tensor:
     """The kernel's int32 (4, 10) constants: d, sqrt(-1) and the two
-    order-8 y values (csrc/fe25519_x2.cuh)."""
+    order-8 y values (csrc/decompress.cu)."""
     rows = [cv.D, cv.SQRT_M1, cv.ORDER8_Y0, cv.ORDER8_Y1]
     return torch.tensor([fe.int_to_limbs(v) for v in rows],
                         dtype=torch.int32, device=device)
@@ -58,11 +58,13 @@ def _fn():
     return fn
 
 
-def _launch(views):
-    """One launch over the views' rows: (bits (k, 2, n) bool, points (k,
-    4, 10, n) int64) for k = len(views) views of n rows each."""
+def _launch(*named):
+    """One launch over the rows of k = 1 or 2 (name, view) pairs of n rows
+    each: a (ok, small, Point) triple a view, from bits (k, 2, n) bool
+    and points (k, 4, 10, n) int64."""
+    views = [b for _, b in named]
     n, dev = views[0].shape[0], views[0].device
-    for name, b in zip("ab", views):
+    for name, b in named:
         _rows(b, 32, name)
         if b.device != dev or b.shape[0] != n:
             raise ValueError(f"{name}: device or row count differs")
@@ -88,13 +90,13 @@ def _launch(views):
 def decompress(b):
     if b.device.type == "cpu":
         return decompress_plain(b)
-    return _launch((b,))[0]
+    return _launch(("b", b))[0]
 
 
 def decompress_pair(a, r):
     if a.device.type == "cpu":
         return decompress_pair_plain(a, r)
-    return _launch((a, r))
+    return _launch(("a", a), ("r", r))
 
 
 decompress.launches = 0
