@@ -13,7 +13,7 @@
 // 64-bit operations (each two or three 32-bit instructions on this card)
 // against 128 bytes read, so at full memory rate the ALUs are the limit.
 // A lane's rounds are one dependent chain, so a batch of a few thousand
-// lanes (about one warp a scheduler) waits on each warp's own issue.
+// lanes (about one warp a scheduler) waits on each warp's own chain.
 // What the design does about it: words are native uint64 (the TPU split
 // each into hi/lo uint32 planes), the 16-word schedule is a ring in
 // registers, K sits in constant memory (every thread reads the same round
