@@ -55,14 +55,20 @@ MUL_OPS, SQR_OPS = 100, 55
 # + 1728 M, as in the fused tail; then dsm_tail_q's y-compare (1 M) or
 # double_scalar_mul_base's identity add (a Niels add, 8 M).
 DSM_SQR, DSM_MUL = 1024, 72 + 1728
-# 32-bit operations of the scalar lanes (csrc/sc25519.cuh), counted from
-# the code with each int64 step (multiply-adds included) taken as two:
-# reduce_512 495 multiply-adds of the fold ladder and 1,582 carry, fold
-# and conditional-subtract steps; S < L about 200; one mul_mod_l 440
-# multiply-adds and 1,603 steps; a 64-window signed recode 512 32-bit
-# operations, a window's extraction 3.
-RR_OPS = 2 * (495 + 1582 + 200) + 2 * 512
-RLC_OPS = 2 * (495 + 1582 + 200 + 2 * (440 + 1603)) + 3 * (64 + 32)
+# The least 32-bit work of the scalar lanes, a lower bound for any
+# implementation, counted in radix 2^32 (not from the kernels' own
+# code): a 32 x 32 -> 64 word product 2 operations, one carry step a
+# word of each intermediate result, one operation an output value (a
+# window byte, a limb of z s).  The digest mod L by three folds of 2^252
+# = -C mod L (C < 2^125, 4 words): 9 x 4, 5 x 4 and 1 x 4 word products,
+# carries of 13, 9 and 8 words and a conditional subtraction of 8 words.
+# A product mod L of 8 by 4 words (S or k by z): 8 x 4, 5 x 4 and 1 x 4
+# word products, carries of 12, 9 and 8 words, a subtraction of 8.  S <
+# L: a subtraction of 8 words.
+SC_REDUCE_OPS = 2 * (9 * 4 + 5 * 4 + 1 * 4) + (13 + 9 + 8) + 8
+SC_MUL_OPS = 2 * (8 * 4 + 5 * 4 + 1 * 4) + (12 + 9 + 8) + 8
+RR_OPS = SC_REDUCE_OPS + 8 + 4 * 64
+RLC_OPS = SC_REDUCE_OPS + 8 + 2 * SC_MUL_OPS + 64 + 32 + 22
 # Field products of one verify-tail lane (csrc/verify_tail.cu), counted
 # from the code: decompression with its square-root chain (pow22523: 251
 # squarings, 11 products) 257 S + 18 M; the [0..8](-A) table 72 M; the
