@@ -1,50 +1,87 @@
-// S canonicity, the digest mod L and the signed recode of S and k: one
-// thread per signature.
+// S canonicity, the digest mod L and the signed recode of S and k: two
+// threads a signature.
 //
 // Replaces firedancer_tpu/ops/curve_pallas.py::reduce_recode
 // (_reduce_recode_kernel), the first kernel of the split strict layout.
-// Per lane: sc_reduce_recode (sc25519.cuh), the same code the fused tail
-// runs.  Reads s (32 B) and the digest (64 B) through their row strides;
-// writes ok_s (uint8, n) and the four uint8 planes smag, ssgn, kmag, ksgn
-// as one (4, 64, n) array: window w of lane j at w * n + j, low window
-// first, so the threads of a warp write neighbouring bytes.
+// Per lane what sc_reduce_recode (sc25519.cuh) computes for the fused
+// tail: S < L, k = digest mod L, and the signed windows of S (its bytes as
+// they are) and of k, recoded by masks.  Reads s (32 B) and the digest
+// (64 B) through their row strides; writes ok_s (n) and the four uint8
+// planes smag, ssgn, kmag, ksgn as one (4, 64, n) array: window w of lane
+// j at w * n + j, low window first.
 //
-// What bounds it: operations.  A lane does the 44 -> 23 limb fold ladder
-// (495 products of 12-bit limbs), some 1,300 further int64 carry and
-// compare steps, and two 64-window recodes, against 96 bytes read and
-// 257 written.  What the design does about it: the limbs stay in the
-// thread (registers and a few hundred bytes of local memory), and blocks
-// of RR_THREADS spread a batch of a few thousand lanes over all SMs.
+// What bounds it: bytes.  A lane reads 96 bytes and writes 257; the least
+// arithmetic for the function (the digest's three folds in 32-bit words,
+// about 60 word products and their carries, S < L, and one operation for
+// each of the 256 window bytes) is some 400 32-bit operations, under a
+// fifth of the bytes' time at the card's int32 rate.  What the design
+// does about it: the rows are staged through shared memory by coalesced
+// word loads, and the windows leave through shared memory too, a plane's
+// 32-lane row as two 16-byte stores (writing each byte from registers
+// took twice the instructions: an address, a shift and a store a byte).
+// A lane is split over two warps, with nothing to exchange: role 0
+// reduces the digest and recodes k, role 1 tests and recodes S.  So a
+// batch of 4,096 lanes runs 256 warps, two an SM, and each lane's chain
+// is shorter.
 
 #include "sc25519.cuh"
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-#define RR_THREADS 64
+#define RR_LANES 32       // a block: one warp, 32 lanes of one role
 
-__global__ void __launch_bounds__(RR_THREADS)
+// Block 2 b + r runs role r of lanes 32 b .. 32 b + 31.  aligned: bit 0
+// s, bit 1 the digest (the view's base and row stride are multiples of
+// 4).
+__global__ void __launch_bounds__(RR_LANES)
     reduce_recode_kernel(const uint8_t *s, long long s_stride,
                          const uint8_t *digest, long long digest_stride,
-                         int n, uint8_t *ok, uint8_t *wins) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  uint8_t w[4][64];
-  ok[lane] = sc_reduce_recode(s + lane * s_stride,
-                              digest + lane * digest_stride, w[0], w[1],
-                              w[2], w[3]);
-  for (int p = 0; p < 4; p++)
-    for (int i = 0; i < 64; i++)
-      wins[((long long)p * 64 + i) * n + lane] = w[p][i];
+                         int n, int aligned, uint8_t *ok, uint8_t *wins) {
+  __shared__ uint32_t sm_x[RR_LANES * 17];
+  __shared__ __align__(16) uint8_t tile[2][64 * RR_LANES];
+  const int t = threadIdx.x, role = blockIdx.x & 1;
+  const long long base = (long long)(blockIdx.x >> 1) * RR_LANES;
+  const long long lane = base + t;
+  const long long plane = 64 * (long long)n;
+  uint32_t v[16];
+  if (role == 0) {
+    sc_load_rows<16>(v, digest, digest_stride, base, n, aligned & 2);
+    sc_store_rows<16>(sm_x, v);
+  } else {
+    sc_load_rows<8>(v, s, s_stride, base, n, aligned & 1);
+    sc_store_rows<8>(sm_x, v);
+  }
+  __syncwarp();
+  uint32_t x[8];
+  if (role == 0) {
+    uint32_t dw[16], k[10];
+#pragma unroll
+    for (int c = 0; c < 16; c++) dw[c] = sm_x[t * 17 + c];
+    sc_reduce512(k, dw);
+    sc_limbs_to_words(x, k);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; c++) x[c] = sm_x[t * 9 + c];
+    if (lane < n) ok[lane] = sc_is_canonical(x);
+  }
+  sc_signed_recode(x, [&](int q, uint32_t me, uint32_t mo, uint32_t se,
+                          uint32_t so) {
+    sc_put_tile(tile[0], q, me, mo);
+    sc_put_tile(tile[1], q, se, so);
+  });
+  uint8_t *out = wins + (role == 0 ? 2 : 0) * plane;
+  sc_tile_out(out, tile[0], n, base);
+  sc_tile_out(out + plane, tile[1], n, base);
 }
 
 extern "C" int fd_reduce_recode(const uint8_t *s, long long s_stride,
                                 const uint8_t *digest,
-                                long long digest_stride, int n, uint8_t *ok,
-                                uint8_t *wins, void *stream) {
-  const int blocks = (n + RR_THREADS - 1) / RR_THREADS;
-  reduce_recode_kernel<<<blocks, RR_THREADS, 0, (cudaStream_t)stream>>>(
-      s, s_stride, digest, digest_stride, n, ok, wins);
+                                long long digest_stride, int n, int aligned,
+                                uint8_t *ok, uint8_t *wins, void *stream) {
+  const int groups = (n + RR_LANES - 1) / RR_LANES;
+  reduce_recode_kernel<<<2 * groups, RR_LANES, 0, (cudaStream_t)stream>>>(
+      s, s_stride, digest, digest_stride, n, aligned, ok, wins);
   return (int)cudaGetLastError();
 }
 #endif

@@ -18,7 +18,7 @@ import torch
 
 from ..kernels import build
 from . import scalar25519 as sc
-from .sha512_kernel import _rows
+from .sha512_kernel import _aligned_bits, _rows
 
 
 def reduce_recode_plain(s, digest):
@@ -34,7 +34,7 @@ def reduce_recode_plain(s, digest):
 def _fn():
     fn = build.load("reduce_recode").fd_reduce_recode
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, ll, p, ll, i, p, p, p]
+    fn.argtypes = [p, ll, p, ll, i, i, p, p, p]
     fn.restype = i
     return fn
 
@@ -52,7 +52,8 @@ def reduce_recode(s, digest):
     if n:
         with torch.cuda.device(dev):
             rc = _fn()(s.data_ptr(), s.stride(0), digest.data_ptr(),
-                       digest.stride(0), n, ok.data_ptr(), wins.data_ptr(),
+                       digest.stride(0), n, _aligned_bits(s, digest),
+                       ok.data_ptr(), wins.data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(

@@ -18,7 +18,7 @@ import torch
 
 from ..kernels import build
 from . import scalar25519 as sc
-from .sha512_kernel import _rows
+from .sha512_kernel import _aligned_bits, _rows
 
 
 def rlc_recode_plain(s, digest, z):
@@ -37,7 +37,7 @@ def rlc_recode_plain(s, digest, z):
 def _fn():
     fn = build.load("rlc_recode").fd_rlc_recode
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, ll, p, ll, p, ll, i, p, p, p, p, p]
+    fn.argtypes = [p, ll, p, ll, p, ll, i, i, p, p, p, p, p]
     fn.restype = i
     return fn
 
@@ -58,8 +58,9 @@ def rlc_recode(s, digest, z):
         with torch.cuda.device(dev):
             rc = _fn()(s.data_ptr(), s.stride(0), digest.data_ptr(),
                        digest.stride(0), z.data_ptr(), z.stride(0), n,
-                       ok.data_ptr(), w_win.data_ptr(), z_win.data_ptr(),
-                       zs.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                       _aligned_bits(s, digest, z), ok.data_ptr(),
+                       w_win.data_ptr(), z_win.data_ptr(), zs.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(
                 f"rlc_recode kernel launch failed: CUDA error {rc}")

@@ -49,6 +49,13 @@ def _rows(t, width: int | None, name: str):
         raise ValueError(f"{name}: need width {width}, got {t.shape[1]}")
 
 
+def _aligned_bits(*views) -> int:
+    """Bit i set where view i's base and row stride are multiples of 4
+    (a kernel then reads its rows by words)."""
+    return sum(1 << i for i, t in enumerate(views)
+               if t.data_ptr() % 4 == 0 and t.stride(0) % 4 == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("sha512").fd_sha512_ram

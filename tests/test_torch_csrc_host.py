@@ -121,13 +121,30 @@ int main() {
       }
       fwrite(&part[0], sizeof(ge), 1, stdout);
     }
-  } else if (mode == 'q') {     // (a 22, b 11) int64 limbs -> a b mod L
+  } else if (mode == 'q') {     // (a 10, z 5) 28-bit limbs -> a z mod L
     for (int i = 0; i < n; i++) {
-      int64_t a[22], b[11], out[22];
+      uint32_t a[10], z[5], out[10];
       rd(a, sizeof a);
-      rd(b, sizeof b);
-      sc_mul_mod_l(out, a, b);
+      rd(z, sizeof z);
+      sc_mul_mod_l(out, a, z);
       fwrite(out, sizeof out, 1, stdout);
+    }
+  } else if (mode == 'k') {     // 64-byte digests -> digest mod L (10
+    for (int i = 0; i < n; i++) {   // 28-bit limbs)
+      uint8_t in[64];
+      uint32_t w[16], out[10];
+      rd(in, sizeof in);
+      sc_load_words<16>(w, in);
+      sc_reduce512(out, w);
+      fwrite(out, sizeof out, 1, stdout);
+    }
+  } else if (mode == 'x') {     // 64 digits 0..15 -> mag, sgn (the mask
+    for (int i = 0; i < n; i++) {   // recode)
+      uint8_t nib[64], mag[64], sgn[64];
+      rd(nib, sizeof nib);
+      sc_signed_windows(mag, sgn, nib);
+      fwrite(mag, 1, 64, stdout);
+      fwrite(sgn, 1, 64, stdout);
     }
   } else if (mode == 'r') {     // (s, digest) -> ok_s, smag ssgn kmag ksgn
     for (int i = 0; i < n; i++) {
@@ -396,15 +413,19 @@ def test_msm_lane_matches_plain(harness, select, m):
 _L = 2**252 + 27742317777372353535851937790883648493
 
 
-def _int_limbs(v: int, n: int) -> list[int]:
-    return [(v >> (12 * i)) & 0xFFF for i in range(n)]
+def _int_limbs(v: int, n: int, bits: int = 12) -> list[int]:
+    return [(v >> (bits * i)) & ((1 << bits) - 1) for i in range(n)]
+
+
+def _limbs_int(row, bits: int = 28) -> int:
+    return sum(int(v) << (bits * i) for i, v in enumerate(row))
 
 
 def test_mul_mod_l_lane_matches_ints_and_plain(harness):
-    """sc_mul_mod_l, the 22 x 11-limb product mod L of rlc_recode, on
-    the edges (a = 0, 1, L - 1, L, 2^256 - 1 and the 22-limb maximum
-    2^264 - 1; z = 0, 1, 2^127 and 2^128 - 1) and random values: equal to
-    Python ints and to scalar25519.mul_mod_l."""
+    """sc_mul_mod_l, the 10 x 5-limb product mod L of rlc_recode (28-bit
+    limbs), on the edges (a = 0, 1, L - 1, L, 2^256 - 1 and the widest a
+    it takes, 2^264 - 1; z = 0, 1, 2^127 and 2^128 - 1) and random values:
+    equal to Python ints and to scalar25519.mul_mod_l."""
     from firedancer_tpu_torch.ops import scalar25519 as sc
     rng = np.random.default_rng(24)
     a_vals = [0, 1, _L - 1, _L, 2**256 - 1, 2**264 - 1]
@@ -412,17 +433,90 @@ def test_mul_mod_l_lane_matches_ints_and_plain(harness):
     pairs = [(a, z) for a in a_vals for z in z_vals] + [
         (int.from_bytes(rng.bytes(32), "little"),
          int.from_bytes(rng.bytes(16), "little")) for _ in range(16)]
+    payload = b"".join(
+        np.array(_int_limbs(a, 10, 28) + _int_limbs(z, 5, 28),
+                 np.uint32).tobytes() for a, z in pairs)
+    got = np.frombuffer(harness(b"q", len(pairs), 0, payload),
+                        np.uint32).reshape(len(pairs), 10)
+    assert [_limbs_int(row) for row in got] == [a * z % _L for a, z in pairs]
+    assert all(int(row[9]) <= 1 and int(row[:9].max()) < 2**28
+               for row in got)
     a_l = np.array([_int_limbs(a, 22) for a, _ in pairs], np.int64)
     z_l = np.array([_int_limbs(z, 11) for _, z in pairs], np.int64)
-    payload = b"".join(a_l[i].tobytes() + z_l[i].tobytes()
-                       for i in range(len(pairs)))
-    got = np.frombuffer(harness(b"q", len(pairs), 0, payload),
-                        np.int64).reshape(len(pairs), 22)
     plain = sc.mul_mod_l(torch.from_numpy(a_l.T.copy()),
                          torch.from_numpy(z_l.T.copy()))
-    assert got.T.tolist() == plain.tolist()
-    assert [sum(int(v) << (12 * i) for i, v in enumerate(row))
-            for row in got] == [a * z % _L for a, z in pairs]
+    assert [_int_limbs(_limbs_int(row), 22) for row in got] == \
+        plain.T.tolist()
+
+
+def test_reduce512_lane_matches_ints_and_plain(harness):
+    """sc_reduce512, the digest mod L in 28-bit limbs, on 0, L - 1, L,
+    2L, 2^512 - 1, 2^252 k +- 1 and random digests: canonical and equal
+    to Python ints and to scalar25519.reduce_512."""
+    from firedancer_tpu_torch.ops import scalar25519 as sc
+    rng = np.random.default_rng(27)
+    vals = [0, 1, _L - 1, _L, 2 * _L, 2**512 - 1, 2**252 - 1, 2**252,
+            2**385 - 1, 2**511] + [
+        int.from_bytes(rng.bytes(64), "little") for _ in range(24)]
+    d = np.array([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+                  for v in vals])
+    got = np.frombuffer(harness(b"k", len(vals), 0, d.tobytes()),
+                        np.uint32).reshape(len(vals), 10)
+    assert [_limbs_int(row) for row in got] == [v % _L for v in vals]
+    assert all(int(row[9]) <= 1 and int(row[:9].max()) < 2**28
+               for row in got)
+    plain = sc.reduce_512(torch.from_numpy(d))
+    assert [_int_limbs(_limbs_int(row), 22) for row in got] == \
+        plain.T.tolist()
+
+
+def _digit_rows(case: str) -> np.ndarray:
+    """(n, 64) digits 0..15, low window first, for the recode cases."""
+    rng = np.random.default_rng(28)
+    if case == "runs_of_8":     # runs of 8s behind digits that carry or not
+        rows = []
+        for start in (0, 1, 7, 8, 31, 32, 60):
+            for lead in (9, 15, 8, 7, 0):
+                for length in (1, 5, 63 - start):
+                    r = rng.integers(0, 16, 64)
+                    r[start] = lead
+                    r[start + 1:start + 1 + length] = 8
+                    rows.append(r)
+        return np.array(rows, np.uint8)
+    if case == "all_15":
+        return np.array([[15] * 64, [0] + [15] * 63, [15] * 63 + [0]],
+                        np.uint8)
+    if case == "nine_then_eights":
+        return np.array([[9] + [8] * 63, [8] * 64, [9] + [8] * 62 + [7]],
+                        np.uint8)
+    if case == "edges":         # one digit set, the rest 0 or 15
+        rows = []
+        for w in (0, 7, 8, 31, 63):
+            for d in (8, 9, 15):
+                for fill in (0, 15):
+                    r = np.full(64, fill)
+                    r[w] = d
+                    rows.append(r)
+        return np.array(rows, np.uint8)
+    if case == "few_digits":    # digits from {7, 8, 9}: long carry chains
+        return rng.choice(np.array([7, 8, 9], np.uint8), (64, 64))
+    return rng.integers(0, 16, (256, 64)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case", ["runs_of_8", "all_15", "nine_then_eights",
+                                  "edges", "few_digits", "random"])
+def test_signed_recode_by_masks_matches_plain(harness, case):
+    """The mask recode (sc_signed_recode, through sc_signed_windows)
+    against the ripple of scalar25519.signed_windows: magnitudes and
+    signs, the carry out of the top window dropped."""
+    from firedancer_tpu_torch.ops import scalar25519 as sc
+    rows = _digit_rows(case)
+    n = len(rows)
+    rec = np.frombuffer(harness(b"x", n, 0, rows.tobytes()),
+                        np.uint8).reshape(n, 2, 64)
+    mag, sgn = sc.signed_windows(torch.from_numpy(rows.T.astype(np.int64)))
+    assert rec[:, 0].T.tolist() == mag.tolist()
+    assert rec[:, 1].T.tolist() == sgn.tolist()
 
 
 def _scalar_lanes(n: int, seed: int):
