@@ -7,8 +7,8 @@ digest are uint8 row views of any row stride, (n, 32) and (n, 64).  ok_s
 is bool (n,), S < L; the four windows are uint8 (64, n) planes, low
 window first: magnitudes 0..8 and signs 0/1 of S (its bytes as they are,
 the carry out of the top window dropped) and of k.  On a CUDA tensor the
-wrapper launches the kernel or raises; on a CPU tensor it runs the plain
-version.
+wrapper makes one launch, which writes every output, or raises; on a CPU
+tensor it runs the plain version.
 """
 
 import ctypes
@@ -47,7 +47,7 @@ def reduce_recode(s, digest):
         _rows(t, w, name)
         if t.device != dev or t.shape[0] != n:
             raise ValueError(f"{name}: device or row count differs")
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
     wins = torch.empty((4, 64, n), dtype=torch.uint8, device=dev)
     if n:
         with torch.cuda.device(dev):
@@ -59,7 +59,7 @@ def reduce_recode(s, digest):
             raise RuntimeError(
                 f"reduce_recode kernel launch failed: CUDA error {rc}")
         reduce_recode.launches += 1
-    return ok.bool(), tuple(wins.unbind(0))
+    return ok, tuple(wins.unbind(0))
 
 
 reduce_recode.launches = 0

@@ -7,8 +7,8 @@ and z are uint8 row views of any row stride, (n, 32), (n, 64) and
 unsigned 4-bit windows of w = z k mod L for k = digest mod L; z_windows
 uint8 (32, n) those of z; zs int64 (22, n) the canonical 12-bit limbs of
 z s mod L (S as its bytes are), which ed25519._rlc_scalars sums over the
-batch.  On a CUDA tensor the wrapper launches the kernel or raises; on a
-CPU tensor it runs the plain version.
+batch.  On a CUDA tensor the wrapper makes one launch, which writes every
+output, or raises; on a CPU tensor it runs the plain version.
 """
 
 import ctypes
@@ -50,7 +50,7 @@ def rlc_recode(s, digest, z):
         _rows(t, w, name)
         if t.device != dev or t.shape[0] != n:
             raise ValueError(f"{name}: device or row count differs")
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
     w_win = torch.empty((64, n), dtype=torch.uint8, device=dev)
     z_win = torch.empty((32, n), dtype=torch.uint8, device=dev)
     zs = torch.empty((22, n), dtype=torch.int64, device=dev)
@@ -65,7 +65,7 @@ def rlc_recode(s, digest, z):
             raise RuntimeError(
                 f"rlc_recode kernel launch failed: CUDA error {rc}")
         rlc_recode.launches += 1
-    return ok.bool(), w_win, z_win, zs
+    return ok, w_win, z_win, zs
 
 
 rlc_recode.launches = 0
