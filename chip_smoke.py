@@ -472,8 +472,21 @@ def main() -> int:
                     v.to_bytes(32, "little"), np.uint8)
         return torch.from_numpy(rows).to(dev)
 
-    def hold_inputs(blob_np, ml, n, seed):
+    # the scalar kernels' edge rows, written from row edges_at on (as many
+    # as fit): S whose nibbles are all 8 (no carry) and 9, 8, 8, ... (a
+    # carry through all 64 windows); digests 0, m L and m L + L - 1 for m
+    # near 2^259, L - 1 and 2^512 - 1 (k = 0, 0, L - 1, L - 1 and (2^512 -
+    # 1) mod L)
+    s_edges = [bytes([0x88] * 32), bytes([0x89] + [0x88] * 31)]
+    m_l = 2**259 + 12345
+    d_edges = [v.to_bytes(64, "little")
+               for v in (0, m_l * L, m_l * L + L - 1, L - 1, 2**512 - 1)]
+
+    def hold_inputs(blob_np, ml, n, seed, edges_at=len(adv_np[128]) + 3):
         blob = hold_rows(blob_np, ml, n)
+        for i, v in enumerate(s_edges[:max(0, n - edges_at)]):
+            blob[edges_at + i, ml + 32:ml + 64] = torch.tensor(
+                list(v), dtype=torch.uint8)
         m_, r_, s_, a_, ln_ = cols(blob, ml)
         rng = np.random.default_rng(seed)
         z = rng.integers(0, 256, (n, 16), np.uint8)
@@ -485,6 +498,8 @@ def main() -> int:
                             for _ in range(n)], dev)
         a_pt = cv.Point(*(fe.mul(c, lam) for c in a_pt))
         digest = sk.sha512_ram(m_, r_, a_, ln_)
+        for i, v in enumerate(d_edges[:max(0, n - edges_at)]):
+            digest[edges_at + i] = torch.tensor(list(v), dtype=torch.uint8)
         y_r = ed._parse_r_bytes(r_)[0]
         return s_, digest, z_d, a_pt, y_r
 
@@ -516,6 +531,27 @@ def main() -> int:
               f"double_scalar_mul_base and rlc_recode kernels == plain "
               f"(bits, windows, canonical X, Y, Z, T, z s limbs), max "
               f"error {max(new_err.values())}")
+    # the two scalar kernels (blocks of 32 lanes a role) at lane counts
+    # around a block, on the edge rows first
+    scalar_counts = (1, 31, 4095, 4097)
+    blob_np = next(b[2] for b in buckets if b[:2] == (32768, 128))
+    for n in scalar_counts:
+        s_, digest, z_d, _, _ = hold_inputs(blob_np, 128, n, n, edges_at=0)
+        ok_s, wins = rr.reduce_recode(s_, digest)
+        got_rl = rl.rlc_recode(s_, digest, z_d)
+        if not ok_s.dtype == got_rl[0].dtype == torch.bool:
+            raise AssertionError("reduce_recode, rlc_recode: ok_s is not "
+                                 "the bool tensor the kernel writes")
+        new_err["reduce_recode"] = max(new_err["reduce_recode"], hold(
+            "reduce_recode", (ok_s, *wins),
+            (lambda o: (o[0], *o[1]))(rr.reduce_recode_plain(s_, digest))))
+        new_err["rlc_recode"] = max(new_err["rlc_recode"], hold(
+            "rlc_recode", got_rl, rl.rlc_recode_plain(s_, digest, z_d)))
+    print(f"reduce_recode and rlc_recode kernels == plain at "
+          f"{', '.join(map(str, scalar_counts))} lanes (edge rows: S of "
+          f"nibbles 8 and 9, 8, ...; digests = 0, m L, m L + L - 1, L - 1, "
+          f"2^512 - 1 mod L), max error "
+          f"{max(new_err['reduce_recode'], new_err['rlc_recode'])}")
 
     # the three four-rank chain kernels (blocks of 8 lanes) at lane counts
     # that leave a partial block alone (1, 7), a whole one (8) and a

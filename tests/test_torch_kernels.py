@@ -205,13 +205,14 @@ def test_rlc_verifier_on_the_card_matches_host(cuda):
 _L = 2**252 + 27742317777372353535851937790883648493
 
 
-def _scalar_rows(n: int, seed: int, dev):
+def _scalar_rows(n: int, seed: int, dev, stride: int = 120):
     """s (n, 32), digest (n, 64) and z (n, 16) as row views of one
-    (n, 120) buffer on the device (row stride 120), edges first: S = L -
-    1, L and 2^256 - 1, a digest of all 0xff, z = 0 and 2^128 - 1; S
-    non-canonical in half the other lanes."""
+    (n, stride) buffer on the device, edges first: S = L - 1, L and 2^256
+    - 1, a digest of all 0xff, z = 0 and 2^128 - 1; S non-canonical in
+    half the other lanes.  At an odd stride every view after the first
+    starts off a multiple of 4 too."""
     rng = np.random.default_rng(seed)
-    buf = rng.integers(0, 256, (n, 120), np.uint8)
+    buf = rng.integers(0, 256, (n, stride), np.uint8)
     buf[::2, 31] &= 0x0F
     for i, v in enumerate((_L - 1, _L, 2**256 - 1)[:n]):
         buf[i, :32] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
@@ -219,7 +220,8 @@ def _scalar_rows(n: int, seed: int, dev):
     buf[0, 96:112] = 0
     buf[1:2, 96:112] = 0xFF
     t = torch.from_numpy(buf).to(dev)
-    return t[:, :32], t[:, 32:96], t[:, 96:112]
+    off = stride - 120
+    return t[:, :32], t[:, 32 + off:96 + off], t[:, 96 + off:112 + off]
 
 
 def _scaled_points(n: int, dev) -> cv.Point:
@@ -235,9 +237,11 @@ def _scaled_points(n: int, dev) -> cv.Point:
 
 
 _SHAPES = [1, 31, 4096, 4097]
+# the two scalar kernels also at the RLC bucket
+_SCALAR_SHAPES = [*_SHAPES, 32768]
 
 
-@pytest.mark.parametrize("n", _SHAPES)
+@pytest.mark.parametrize("n", _SCALAR_SHAPES)
 def test_reduce_recode_kernel_matches_plain(cuda, n):
     s, digest, _ = _scalar_rows(n, n, cuda)
     assert s.stride(0) == 120
@@ -249,12 +253,28 @@ def test_reduce_recode_kernel_matches_plain(cuda, n):
     assert all(torch.equal(k, p) for k, p in zip(wins_k, wins_p))
 
 
-@pytest.mark.parametrize("n", _SHAPES)
+@pytest.mark.parametrize("n", _SCALAR_SHAPES)
 def test_rlc_recode_kernel_matches_plain(cuda, n):
     s, digest, z = _scalar_rows(n, n + 1, cuda)
     before = rl.rlc_recode.launches
     got = rl.rlc_recode(s, digest, z)
     assert rl.rlc_recode.launches == before + 1
+    want = rl.rlc_recode_plain(s, digest, z)
+    assert all(torch.equal(k, p) for k, p in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [33, 4097])
+def test_scalar_kernels_on_unaligned_rows(cuda, n):
+    """Both scalar kernels on views whose row stride (121) and, for the
+    digest and z, base are not multiples of 4: the rows are read by
+    bytes."""
+    s, digest, z = _scalar_rows(n, n + 2, cuda, stride=121)
+    assert s.stride(0) % 4 and digest.data_ptr() % 4 and z.data_ptr() % 4
+    ok_k, wins_k = rr.reduce_recode(s, digest)
+    ok_p, wins_p = rr.reduce_recode_plain(s, digest)
+    assert torch.equal(ok_k, ok_p)
+    assert all(torch.equal(k, p) for k, p in zip(wins_k, wins_p))
+    got = rl.rlc_recode(s, digest, z)
     want = rl.rlc_recode_plain(s, digest, z)
     assert all(torch.equal(k, p) for k, p in zip(got, want))
 
