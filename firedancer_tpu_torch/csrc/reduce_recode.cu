@@ -13,8 +13,8 @@
 // What bounds it: bytes.  A lane reads 96 bytes and writes 257; the least
 // arithmetic for the function (the digest's three folds in 32-bit words,
 // about 60 word products and their carries, S < L, and one operation for
-// each of the 256 window bytes) is some 400 32-bit operations, under a
-// fifth of the bytes' time at the card's int32 rate.  What the design
+// each of the 256 window bytes) is some 420 32-bit operations, a quarter
+// of the bytes' time at the card's int32 rate.  What the design
 // does about it: the rows are staged through shared memory by coalesced
 // word loads, and the windows leave through shared memory too, a plane's
 // 32-lane row as two 16-byte stores (writing each byte from registers
