@@ -29,6 +29,40 @@
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
+// A warp's 64 window bytes a lane leave through shared memory:
+// rr_put_tile puts window w of the warp's lane t at tile[32 w + t];
+// rr_tile_out then writes row w's 32 bytes to out[w n + base ..], as two
+// 16-byte stores when n is a multiple of 16 (each row then starts on 16
+// bytes), else by bytes, skipping lanes past n.
+__device__ __forceinline__ void rr_put_tile(uint8_t *tile, int q, uint32_t e,
+                                            uint32_t o) {
+  const int t = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    tile[32 * (8 * q + 2 * j) + t] = (uint8_t)(e >> 8 * j);
+    tile[32 * (8 * q + 2 * j + 1) + t] = (uint8_t)(o >> 8 * j);
+  }
+}
+
+__device__ __forceinline__ void rr_tile_out(uint8_t *out, const uint8_t *tile,
+                                            long long n, long long base) {
+  const int t = threadIdx.x & 31;
+  __syncwarp();
+  if (n % 16 == 0) {
+    const uint4 *src = reinterpret_cast<const uint4 *>(tile);
+#pragma unroll
+    for (int it = 0; it < 4; it++) {
+      const int w = 16 * it + t / 2, h = t % 2;
+      if (base + 16 * h < n)
+        *reinterpret_cast<uint4 *>(out + w * n + base + 16 * h) =
+            src[2 * w + h];
+    }
+  } else if (base + t < n) {
+#pragma unroll 8
+    for (int w = 0; w < 64; w++) out[w * n + base + t] = tile[32 * w + t];
+  }
+}
+
 #define RR_LANES 32       // a block: one warp, 32 lanes of one role
 
 // Block 2 b + r runs role r of lanes 32 b .. 32 b + 31.  aligned: bit 0
@@ -67,12 +101,12 @@ __global__ void __launch_bounds__(RR_LANES)
   }
   sc_signed_recode(x, [&](int q, uint32_t me, uint32_t mo, uint32_t se,
                           uint32_t so) {
-    sc_put_tile(tile[0], q, me, mo);
-    sc_put_tile(tile[1], q, se, so);
+    rr_put_tile(tile[0], q, me, mo);
+    rr_put_tile(tile[1], q, se, so);
   });
   uint8_t *out = wins + (role == 0 ? 2 : 0) * plane;
-  sc_tile_out(out, tile[0], n, base);
-  sc_tile_out(out + plane, tile[1], n, base);
+  rr_tile_out(out, tile[0], n, base);
+  rr_tile_out(out + plane, tile[1], n, base);
 }
 
 extern "C" int fd_reduce_recode(const uint8_t *s, long long s_stride,

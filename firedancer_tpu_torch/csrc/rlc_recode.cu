@@ -63,6 +63,17 @@ FD_FN int64_t rlc_limb12(const uint32_t *w, int i) {
   return v & 0xfff;
 }
 
+// Window bytes of word q into uint8 planes: window w of lane j at out[w
+// n + j], so a warp's store is 32 neighbouring bytes.
+FD_FN void rlc_put_plane(uint8_t *out, long long n, long long lane, int q,
+                         uint32_t e, uint32_t o) {
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    out[(8 * q + 2 * j) * n + lane] = (uint8_t)(e >> 8 * j);
+    out[(8 * q + 2 * j + 1) * n + lane] = (uint8_t)(o >> 8 * j);
+  }
+}
+
 // One lane, both roles.  Returns ok_s; writes w's 64 windows, z's 32 and
 // z s's 22 canonical 12-bit limbs.
 FD_FN bool rlc_lane(const uint8_t *s, const uint8_t *digest,
@@ -121,14 +132,14 @@ __global__ void __launch_bounds__(RLC_LANES)
 #pragma unroll
     for (int c = 0; c < 16; c++) dw[c] = sm_x[t * 17 + c];
     rlc_k_side(dw, zw, [&](int q, uint32_t e, uint32_t o) {
-      sc_put_plane(w_out, n, lane, q, e, o);
+      rlc_put_plane(w_out, n, lane, q, e, o);
     });
   } else {
     uint32_t sw[8], r[8];
 #pragma unroll
     for (int c = 0; c < 8; c++) sw[c] = sm_x[t * 9 + c];
     ok[lane] = rlc_s_side(sw, zw, r, [&](int q, uint32_t e, uint32_t o) {
-      sc_put_plane(z_out, n, lane, q, e, o);
+      rlc_put_plane(z_out, n, lane, q, e, o);
     });
 #pragma unroll
     for (int i = 0; i < 22; i++)

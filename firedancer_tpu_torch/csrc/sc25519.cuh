@@ -263,17 +263,6 @@ FD_FN bool sc_reduce_recode(const uint8_t *s, const uint8_t *digest,
   return sc_is_canonical(sw);
 }
 
-// Window bytes of word q into uint8 planes: window w of lane j at out[w
-// n + j], so a warp's store is 32 neighbouring bytes.
-FD_FN void sc_put_plane(uint8_t *out, long long n, long long lane, int q,
-                        uint32_t e, uint32_t o) {
-#pragma unroll
-  for (int j = 0; j < 4; j++) {
-    out[(8 * q + 2 * j) * n + lane] = (uint8_t)(e >> 8 * j);
-    out[(8 * q + 2 * j + 1) * n + lane] = (uint8_t)(o >> 8 * j);
-  }
-}
-
 #if defined(__CUDACC__)
 // Staging a warp's rows through shared memory: rows base .. base + 31 of
 // a view of W-word rows, row i at sm[i (W + 1)] (an odd pitch, so a
@@ -317,40 +306,6 @@ __device__ __forceinline__ void sc_store_rows(uint32_t *sm,
   for (int it = 0; it < W; it++) {
     const int k = 32 * it + t;
     sm[k / W * (W + 1) + k % W] = v[it];
-  }
-}
-
-// A warp's 64 window bytes a lane leave through shared memory:
-// sc_put_tile puts window w of the warp's lane t at tile[32 w + t];
-// sc_tile_out then writes row w's 32 bytes to out[w n + base ..], as two
-// 16-byte stores when n is a multiple of 16 (each row then starts on 16
-// bytes), else by bytes, skipping lanes past n.
-__device__ __forceinline__ void sc_put_tile(uint8_t *tile, int q, uint32_t e,
-                                            uint32_t o) {
-  const int t = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 4; j++) {
-    tile[32 * (8 * q + 2 * j) + t] = (uint8_t)(e >> 8 * j);
-    tile[32 * (8 * q + 2 * j + 1) + t] = (uint8_t)(o >> 8 * j);
-  }
-}
-
-__device__ __forceinline__ void sc_tile_out(uint8_t *out, const uint8_t *tile,
-                                            long long n, long long base) {
-  const int t = threadIdx.x & 31;
-  __syncwarp();
-  if (n % 16 == 0) {
-    const uint4 *src = reinterpret_cast<const uint4 *>(tile);
-#pragma unroll
-    for (int it = 0; it < 4; it++) {
-      const int w = 16 * it + t / 2, h = t % 2;
-      if (base + 16 * h < n)
-        *reinterpret_cast<uint4 *>(out + w * n + base + 16 * h) =
-            src[2 * w + h];
-    }
-  } else if (base + t < n) {
-#pragma unroll 8
-    for (int w = 0; w < 64; w++) out[w * n + base + t] = tile[32 * w + t];
   }
 }
 #endif

@@ -78,8 +78,7 @@ def sha512_ram(msgs, r, a, len4):
     out = torch.empty((n, 64), dtype=torch.uint8, device=msgs.device)
     if n == 0:
         return out
-    aligned = all(t.data_ptr() % 4 == 0 and t.stride(0) % 4 == 0
-                  for t in (msgs, r, a))
+    aligned = _aligned_bits(msgs, r, a) == 0b111
     with torch.cuda.device(msgs.device):
         rc = _fn()(msgs.data_ptr(), msgs.stride(0), r.data_ptr(),
                    r.stride(0), a.data_ptr(), a.stride(0), len4.data_ptr(),
