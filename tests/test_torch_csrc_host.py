@@ -4,8 +4,9 @@ plain torch versions.
 Each kernel in csrc/ keeps its per-lane body (sha512_lane and the
 schedule words of a staged block, vt_lane4, dc_lane, msm_point and
 msm_tree_step, sc_reduce_recode, dsm_tail_q_lane4, dsm_base_lane4,
-rlc_lane, and sc_mul_mod_l under the last) in functions that also
-compile as plain C++ outside nvcc.  This test builds them with the host
+rlc_lane, and the scalar primitives under the last three: sc_mul_mod_l,
+sc_reduce512 and the mask recode) in functions that also compile as
+plain C++ outside nvcc.  This test builds them with the host
 C++ compiler into a small harness and runs the same lanes through them
 and through the plain torch versions, so the kernels' arithmetic is
 checked on a machine with no GPU.  Where a kernel runs a lane on several
