@@ -170,10 +170,15 @@ def main() -> int:
 
     def dev_ms(fn, entry: str) -> float:
         """The kernel entry's device ms a call (torch.profiler over RUNS
-        calls: tools/kernel_time.py device_ms)."""
+        calls: tools/kernel_time.py device_ms); CUDA events around RUNS
+        back-to-back calls where three traces held none of its launches."""
         ms, _, _, how = device_ms(torch, fn, entry, RUNS)
         if how != "profiler":
-            raise AssertionError(f"{entry}: the profiler saw no device time")
+            note(f"{entry}: three profiler traces held none of its launches;"
+                 f" its device ms {ms:.5f} is by CUDA events around {RUNS} "
+                 f"back-to-back calls")
+        if not ms > 0:
+            raise AssertionError(f"{entry}: device time {ms} ms")
         return ms
 
     def wall_ms(fn, runs: int = RUNS) -> float:

@@ -90,40 +90,42 @@ def cuda_ms(torch, fn) -> list[float]:
     return [statistics.median(ts), min(ts), max(ts)]
 
 
-def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3):
+def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3,
+              tries: int = 3):
     """(ms, launches, other device ops, method) a call: the device time
     of the kernels whose name holds entry, from torch.profiler's
     key_averages() over runs calls after the warm-ups; the entry's
     launches and the other device ops a call.  The trace may miss an
     event at its edge (19 of 20 seen), so ms is the mean of the launches
-    it holds times the launches a call.  Where the profiler shows no
-    device time at all, ms is CUDA events around runs back-to-back calls
-    over runs."""
+    it holds times the launches a call.  A trace that holds none of the
+    entry's launches, or no device time at all, is taken again, up to
+    tries traces; after that, ms is CUDA events around runs
+    back-to-back calls over runs, and the counts are None."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = total = 0.0
-    seen = other = 0
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        t = max(e.device_time_total, e.self_device_time_total)
-        total += t
-        if entry in e.key:
-            us += t
-            seen += e.count
-        else:
-            other += e.count
-    if total > 0:
-        per_call = round(seen / runs)
-        ms = us / seen * per_call / 1e3 if seen else 0.0
-        return ms, per_call, round(other / runs), "profiler"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        seen = other = 0
+        for e in prof.key_averages():
+            if not str(e.device_type).endswith("CUDA"):
+                continue
+            t = max(e.device_time_total, e.self_device_time_total)
+            if entry in e.key:
+                us += t
+                seen += e.count
+            else:
+                other += e.count
+        if seen and us > 0:
+            per_call = round(seen / runs)
+            return (us / seen * per_call / 1e3, per_call,
+                    round(other / runs), "profiler")
     a = torch.cuda.Event(enable_timing=True)
     z = torch.cuda.Event(enable_timing=True)
     a.record()
