@@ -14,9 +14,13 @@ both MSM selects, a batch with one forgery through the strict descent,
 and the corpora in rlc mode: through the descent, and each vector that
 passes the prechecks alone among m - 1 valid signatures, its batch bit
 held against the exact batch equation on Python ints (decompress,
-sha512, rlc_recode and msm kernels).  Each
-path runs with the launch counts set to 0 just before it and read just
-after.  Then it times the kernels, their plain versions, the torch
+sha512, rlc_recode and msm kernels).  Then the serving layers (phase
+13): the engine (SigVerifier.make_ingest over pinned rotating blobs)
+against serial dispatch_blob, and the port's VerifyTile at the default
+bucket ladder, wire txns of every outcome and packed-row fills, its
+accepted set against the host verifier's (sha512 and verify_tail
+kernels).  Each path runs with the launch counts set to 0 just before
+it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is the {"kernels": [...]} record; the last line is
@@ -111,6 +115,365 @@ def smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _ctx_class():
+    """A recording in-process ctx for the verify tile: cfg, publish,
+    publish_burst, out_reserve/out_commit over a NumPy buffer, metrics,
+    heartbeat and trace (None)."""
+
+    class Metrics(dict):
+        def set(self, name, val):
+            self[name] = val
+
+        def add(self, name, delta=1):
+            self[name] = self.get(name, 0) + delta
+
+        def hist_store(self, name, histf):
+            self[name] = histf.counts.copy()
+
+    class Ctx:
+        def __init__(self, cfg):
+            self.cfg = cfg
+            self.metrics = Metrics()
+            self.trace = None
+            self.published = []          # (payload, sig) of per-txn frags
+            self.frags = []              # (frag bytes, sig, sz), packed
+            self.out = np.zeros(1 << 21, np.uint8)
+            self.beats = 0
+
+        def publish(self, payload, sig=0):
+            self.published.append((bytes(payload), int(sig)))
+
+        def publish_burst(self, buf, starts, lens, sigs):
+            buf = bytes(buf)
+            for s, n, g in zip(starts, lens, sigs):
+                self.published.append((buf[int(s):int(s) + int(n)], int(g)))
+
+        def out_reserve(self, nbytes):
+            return 0, self.out[:nbytes]
+
+        def out_commit(self, chunk, nbytes, sig=0, sz=0):
+            self.frags.append((self.out[chunk:chunk + nbytes].tobytes(),
+                               int(sig), int(sz)))
+
+        def heartbeat(self):
+            self.beats += 1
+
+    return Ctx
+
+
+def serving_phase(pool, reset_counts, counts, note, device=None,
+                  buckets=None, engine_cfg=(4096, 128), n_batches=16,
+                  n_small=480, n_two=16, n_mid=48, n_mtu=48, fill_rows=2048,
+                  fills=4, fill_valid=256):
+    """Phase 13: the serving engine and the verify pipeline, through the
+    entry points a user calls.  device None is the card; the sizes are
+    the full ones (the engine at the serving VerifierConfig, the tile at
+    the JAX package's default bucket ladder).  Raises on any failed
+    check."""
+    import torch
+
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.disco import pipeline as pl
+    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
+    from firedancer_tpu_torch.models import verifier as V
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    buckets = [list(b) for b in (buckets or pl.DEFAULT_BUCKETS)]
+    cuda = device is None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def host_stats():
+        if not cuda:
+            return {}
+        st = torch.cuda.host_memory_stats()
+        return {k: st.get(k) for k in ("num_host_alloc", "num_host_free",
+                                       "allocations.current")}
+
+    # ---- (a) the engine: make_ingest(nbuf=3, depth=2) over n_batches
+    # batches, a third of them with a quarter of their signatures
+    # corrupted and one adversarial, against serial dispatch_blob
+    t_phase = time.perf_counter()
+    b, ml = engine_cfg
+    sv = V.SigVerifier(V.VerifierConfig(b, ml), device=device)
+    batches = [V.make_example_batch(b, ml, i % 3 != 0, 1300 + i,
+                                    sign_pool=32)
+               for i in range(n_batches - 1)]
+    batches.append(V.make_adversarial_batch(b, ml, seed=1399)[:4])
+    n_invalid = sum(i % 3 == 0 for i in range(n_batches - 1))
+    blobs = [V.pack_blob(*x) for x in batches]
+    serial = [np.asarray(sv.dispatch_blob(x)) for x in blobs]   # warm
+    sync()
+    t0 = time.perf_counter()
+    serial = [np.asarray(sv.dispatch_blob(x)) for x in blobs]
+    t_serial = (time.perf_counter() - t0) * 1e3 / n_batches
+    eng = sv.make_ingest(nbuf=3, depth=2)
+    if cuda and not all(buf.is_pinned() for buf in eng._bufs):
+        raise AssertionError("engine: a rotating blob is not pinned")
+    h0 = host_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    got, pending = [], 0
+    for x in batches:
+        got += eng.submit(*x)
+        pending += not eng._inflight[-1][0].is_ready()
+    got += eng.drain()
+    t_eng = (time.perf_counter() - t0) * 1e3 / n_batches
+    launches = counts()
+    h1 = host_stats()
+    if len(got) != n_batches or any(
+            not np.array_equal(g, s) for g, s in zip(got, serial)):
+        raise AssertionError("engine: bits differ from serial dispatch_blob")
+    if not (launches["sha512_ram"] == launches["verify_tail"]
+            == eng.dispatches == n_batches):
+        raise AssertionError(f"engine: launches {launches} for "
+                             f"{eng.dispatches} dispatches")
+    if not 0 < sum(int(s.sum()) for s in serial) < n_batches * b:
+        raise AssertionError("engine: the batches are not mixed")
+    note(f"engine {b}x{ml}, make_ingest(nbuf=3, depth=2): bits == serial "
+         f"dispatch_blob on all {n_batches} x {b} rows ({n_invalid} batches "
+         f"with corrupted signatures, 1 adversarial); sha512 and "
+         f"verify_tail launches {launches['sha512_ram']} and "
+         f"{launches['verify_tail']} == dispatches; stats {eng.stats()}")
+    if cuda:
+        # what syncs the host to the card inside one dispatch: copies
+        # from pageable host memory wait for the stream before they start
+        from torch.profiler import ProfilerActivity, profile
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            np.asarray(sv.dispatch_blob(eng._bufs[0]))
+        names = [e.name for e in prof.events()]
+        note(f"engine: one dispatch of a pinned blob under torch.profiler: "
+             f"{sum('HtoD' in n for n in names)} host-to-device copies, "
+             f"{sum('Pageable' in n and 'HtoD' in n for n in names)} of "
+             f"them from pageable memory")
+    note(f"engine: {t_eng:.4f} ms a batch wall, serial dispatch_blob "
+         f"{t_serial:.4f} ms; verdict still pending right after its submit "
+         f"in {pending} of {n_batches}; rotating blobs pinned: "
+         f"{all(buf.is_pinned() for buf in eng._bufs)}; pinned host "
+         f"allocator over the run {h0} -> {h1}")
+
+    # ---- (b) the pipeline through the port's VerifyTile at the ladder
+    Ctx = _ctx_class()
+    rng = np.random.default_rng(1310)
+    seeds = [rng.bytes(32) for _ in range(8)]
+    pubs = [ed.keypair_from_seed(s)[0] for s in seeds]
+    program = rng.bytes(32)
+
+    def message(i, nsig, data_len):
+        keys = [(i + j) % len(seeds) for j in range(nsig)]
+        msg = txn_lib.build_unsigned(
+            [pubs[k] for k in keys], rng.bytes(32),
+            [(nsig, bytes(range(nsig)),
+              i.to_bytes(8, "little") + rng.bytes(data_len - 8))],
+            [program])
+        return msg, keys
+
+    def sized(i, payload_len):
+        d = 8
+        for _ in range(3):       # the data's compact-u16 grows a byte
+            msg, keys = message(i, 1, d)
+            d += payload_len - (65 + len(msg))
+        return msg, keys
+
+    specs = [message(i, 1, int(rng.integers(8, 120)))
+             for i in range(n_small)]
+    specs += [message(n_small + i, 2, 16) for i in range(n_two)]
+    specs += [message(2000 + i, 1, int(rng.integers(260, 640)))
+              for i in range(n_mid)]
+    specs += [sized(3000 + i, txn_lib.MTU) for i in range(n_mtu)]
+    specs.append(sized(4000, txn_lib.MTU + 8))          # over the MTU
+    sigs = pool.starmap(ed.sign, [(seeds[k], m) for m, ks in specs
+                                  for k in ks])
+    wires, at = [], 0
+    for m, ks in specs:
+        wires.append(txn_lib.assemble(sigs[at:at + len(ks)], m))
+        at += len(ks)
+    n_distinct = len(wires) - 1
+    mtu_wires = wires[n_small + n_two + n_mid:n_distinct]
+    if len(wires[-1]) <= txn_lib.MTU or any(
+            len(w) != txn_lib.MTU for w in mtu_wires):
+        raise AssertionError("phase 13: the MTU txns are mis-sized")
+
+    def flip(w, at):
+        w = bytearray(w)
+        w[at] ^= 1
+        return bytes(w)
+
+    two = range(n_small, n_small + n_two)
+    stream = list(wires)
+    for i in list(two)[:4]:
+        stream[i] = flip(wires[i], 1 + 64 + 7)       # bad second signature
+    for i in range(0, 64, 8):
+        stream.append(flip(wires[i], 1 + 40))        # tampered, same tag
+    stream.append(b"\x01" + rng.bytes(150))          # parse failure
+    order = rng.permutation(len(stream))
+    stream = [stream[i] for i in order]
+    dups = rng.choice(len(stream), 32, replace=False)
+    for j in sorted(dups, reverse=True):             # 32 later repeats
+        stream.insert(int(rng.integers(j + 1, len(stream) + 1)), stream[j])
+
+    # the host oracle: every signature lane through host_verify_blob
+    lanes, owner = [], []
+    for t_i, w in enumerate(stream):
+        try:
+            t = txn_lib.parse(w)
+        except txn_lib.TxnParseError:
+            continue
+        m = t.message(w)
+        for s, k in zip(t.signatures(w), t.signer_pubkeys(w)):
+            lanes.append((m, s, k))
+            owner.append(t_i)
+    lb = np.zeros((len(lanes), txn_lib.MTU + ed.PACKED_EXTRA), np.uint8)
+    for r, (m, s, k) in enumerate(lanes):
+        lb[r, :len(m)] = np.frombuffer(m, np.uint8)
+        lb[r, txn_lib.MTU:] = np.frombuffer(
+            s + k + np.int32(len(m)).tobytes(), np.uint8)
+    ok = np.concatenate([np.asarray(x, bool) for x in pool.map(
+        ed.host_verify_blob, np.array_split(lb, 64))])
+    lane_ok = {}
+    for t_i, o in zip(owner, ok):
+        lane_ok[t_i] = lane_ok.get(t_i, True) and bool(o)
+    want, seen = set(), set()
+    for t_i, w in enumerate(stream):
+        tag = int.from_bytes(w[1:9], "little")
+        if lane_ok.get(t_i) and tag not in seen:
+            seen.add(tag)
+            want.add(w)
+
+    # packed-row fills of the first bucket: fill_valid distinct signed
+    # rows among rows stamped the way a source tile stamps them (its tag
+    # written over R, so they fail)
+    rml = buckets[0][1]
+    fill_specs = [message(5000 + i, 1, 24) for i in range(fills * fill_valid)]
+    fsigs = pool.starmap(ed.sign, [(seeds[ks[0]], m) for m, ks in fill_specs])
+    fill_blobs = []
+    for f in range(fills):
+        rows = np.zeros((fill_rows, rml + ed.PACKED_EXTRA), np.uint8)
+        tpl_m, tpl_k = fill_specs[0]
+        rows[:, :len(tpl_m)] = np.frombuffer(tpl_m, np.uint8)
+        rows[:, rml:] = np.frombuffer(
+            fsigs[0] + pubs[tpl_k[0]] + np.int32(len(tpl_m)).tobytes(),
+            np.uint8)
+        tags = rng.integers(1, 1 << 63, fill_rows, dtype=np.uint64)
+        rows[:, rml:rml + 8] = tags.view(np.uint8).reshape(-1, 8)
+        rows[:, len(tpl_m) - 8:len(tpl_m)] = np.arange(
+            f * fill_rows, (f + 1) * fill_rows,
+            dtype=np.uint64).view(np.uint8).reshape(-1, 8)
+        for j, r in enumerate(rng.choice(fill_rows, fill_valid,
+                                         replace=False)):
+            m, ks = fill_specs[f * fill_valid + j]
+            rows[r] = 0
+            rows[r, :len(m)] = np.frombuffer(m, np.uint8)
+            rows[r, rml:] = np.frombuffer(
+                fsigs[f * fill_valid + j] + pubs[ks[0]]
+                + np.int32(len(m)).tobytes(), np.uint8)
+        fill_blobs.append(rows)
+    fill_ok = [np.concatenate([np.asarray(x, bool) for x in pool.map(
+        ed.host_verify_blob, np.array_split(rows, 32))])
+        for rows in fill_blobs]
+    want_wires = []
+    for rows, fok in zip(fill_blobs, fill_ok):
+        if int(fok.sum()) != fill_valid:
+            raise AssertionError("phase 13: a stamped row verified")
+        for r in np.flatnonzero(fok):
+            tag = int(rows[r, rml:rml + 8].view(np.uint64)[0])
+            if tag not in seen:
+                seen.add(tag)
+                n = int(rows[r, rml + 96:].view(np.int32)[0])
+                want_wires.append(b"\x01" + rows[r, rml:rml + 64].tobytes()
+                                  + rows[r, :n].tobytes())
+
+    cfg = {"buckets": buckets, "egress_packed": 1}
+    if not cuda:
+        cfg["device"] = device
+    tile, ctx = VerifyTile(), Ctx(cfg)
+    t0 = time.perf_counter()
+    tile.init(ctx)
+    t_boot = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    for lo in range(0, len(stream), 64):
+        part = stream[lo:lo + 64]
+        offs = np.zeros(len(part) + 1, np.int64)
+        np.cumsum([len(w) for w in part], out=offs[1:])
+        metas = np.zeros(len(part), dtype=[("sig", np.uint64)])
+        tile.on_burst(ctx, 0, metas, np.frombuffer(b"".join(part), np.uint8),
+                      offs, len(part))
+        tile.after_credit(ctx)
+    tile._forward(ctx, tile.pipe.flush())
+    sync()
+    t_wire = time.perf_counter() - t0
+    wire_batches = tile.pipe.metrics.batches
+    t0 = time.perf_counter()
+    for rows in fill_blobs:
+        tile._forward_burst(ctx, tile.pipe.submit_packed_rows(rows))
+        tile.after_credit(ctx)
+    tile._forward(ctx, tile.pipe.flush())
+    sync()
+    t_fill = (time.perf_counter() - t0) * 1e3 / fills
+    tile._sync_metrics(ctx)
+    launches = counts()
+    snap = tile.pipe.metrics.snapshot()
+
+    got = [p for p, _ in ctx.published]
+    for p, sig in ctx.published:
+        if sig != int.from_bytes(p[1:9], "little"):
+            raise AssertionError("tile: a published sig is not the low 64 "
+                                 "bits of the txn's first signature")
+    if len(got) != len(set(got)) or set(got) != want:
+        raise AssertionError(
+            f"tile: accepted {len(got)} wire txns, the host oracle "
+            f"{len(want)}; {len(set(got) - want)} extra, "
+            f"{len(want - set(got))} missing")
+    got_wires = []
+    for frag, sig, k in ctx.frags:
+        offs = np.frombuffer(frag[:4 * (k + 1)], np.uint32)
+        body = frag[4 * (k + 1):]
+        ws = [body[a:c] for a, c in zip(offs[:-1], offs[1:])]
+        if sig != int.from_bytes(ws[0][1:9], "little") & (pl.LAT_PRIO_BIT
+                                                           - 1):
+            raise AssertionError("tile: a packed frag's sig is not its "
+                                 "first txn's signature bits")
+        got_wires += ws
+    if got_wires != want_wires:
+        raise AssertionError(f"tile: packed rows accepted {len(got_wires)}, "
+                             f"the host oracle {len(want_wires)}")
+    n_mtu_ok = sum(len(p) == txn_lib.MTU for p in got)
+    if n_mtu_ok != n_mtu:
+        raise AssertionError(f"tile: {n_mtu_ok} of {n_mtu} full-MTU txns "
+                             f"accepted")
+    if not (launches["sha512_ram"] == launches["verify_tail"]
+            == snap["batches"]):
+        raise AssertionError(f"tile: launches {launches} for "
+                             f"{snap['batches']} dispatches")
+    if snap["compile_cnt"]:
+        raise AssertionError(f"tile: compile_cnt {snap['compile_cnt']} "
+                             f"after boot")
+    note(f"tile at buckets {buckets}: {len(stream)} wire frags ({n_distinct} "
+         f"distinct signed txns, {n_mtu} full-MTU, 32 repeats, 8 tampered, "
+         f"4 with a bad second signature, 2 parse failures): accepted "
+         f"{len(got)} == host oracle, {n_mtu_ok} of them full-MTU (the "
+         f"{buckets[-1][0]}x{buckets[-1][1]} bucket); {fills} packed fills "
+         f"of {fill_rows} rows ({fill_valid} valid each): {len(got_wires)} "
+         f"== host oracle; sha512 and verify_tail launches "
+         f"{launches['sha512_ram']} and {launches['verify_tail']} == "
+         f"{snap['batches']} dispatches; compile_cnt {snap['compile_cnt']}")
+    note(f"tile: boot {t_boot:.3f} s (kernel build and warmup of "
+         f"{len(buckets)} shapes); wire txns {len(stream) / t_wire:.1f} "
+         f"txns/s over {wire_batches} dispatches (the scalar Python parse "
+         f"sets it: the native burst parser is not ported); "
+         f"{t_fill:.4f} ms a {fill_rows}-row packed fill wall; pipeline "
+         f"batch_ns p50/p99 {snap['batch_ns_p50']:.0f}/"
+         f"{snap['batch_ns_p99']:.0f}, coalesce_ns p50 "
+         f"{snap['coalesce_ns_p50']:.0f}, e2e_ns p50 {snap['e2e_ns_p50']:.0f},"
+         f" lanes {snap['lanes_filled']} filled of "
+         f"{snap['lanes_dispatched']} dispatched")
+    note(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1144,6 +1507,11 @@ def main() -> int:
                  for sel in ms.SELECTS}
     note(f"32768x128: plain decompress {plain_dec:.4f} ms, plain msm lanes "
          f"nwin 64 {', '.join(f'{k} {v:.4f} ms' for k, v in plain_msm.items())}")
+
+    # ---- phase 13: the serving engine and the verify pipeline on the
+    # card, each with the launch counts set to 0 just before it
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        serving_phase(pool, reset_counts, counts, note)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels

@@ -6,12 +6,18 @@ buckets and gets pass bits back.  In strict mode a batch goes to the card
 as one packed row blob (ed25519 PACKED_EXTRA layout); in rlc mode as the
 four arrays, checked by one random-linear-combination batch equation.
 Either way the verdict comes back as a future that meets the pipeline's
-duck protocol (firedancer_tpu/disco/pipeline.py): is_ready() polls a CUDA
-event, copy_to_host_async() starts the device-to-host copy, and
-np.asarray() waits for the bits.
+duck protocol (disco/pipeline.py): is_ready() polls a CUDA event,
+copy_to_host_async() starts the device-to-host copy, and np.asarray()
+waits for the bits.
+
+The serving engine (make_ingest, PackedIngest on the workload-agnostic
+PackedDispatchEngine) packs batches into rotating pinned host blobs, so
+the host packs batch k+1 while the card uploads and verifies batch k.
 """
 
 import functools
+import time
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -152,6 +158,15 @@ class SigVerifier:
         return Verdict(ed.verify_blob(self._to_device(blob),
                                       tail=self.strict_tail))
 
+    def make_ingest(self, ml: int | None = None, nbuf: int = 2,
+                    depth: int | None = None) -> "PackedIngest":
+        """Rotating-buffer ingest engine over this verifier's packed
+        dispatch (strict mode only, as dispatch_blob)."""
+        if self.mode == "rlc":
+            raise ValueError(
+                f"make_ingest is per-sig-only (mode={self.mode!r})")
+        return PackedIngest(self, ml=ml, nbuf=nbuf, depth=depth)
+
     def _rlc(self, args):
         """verify_batch_rlc over device arrays, with a fresh z."""
         z = self._rng.integers(0, 256, size=(args[2].shape[0], 16),
@@ -238,6 +253,192 @@ class _LazyRlcVerdict:
 
     def any(self):
         return self._materialize().any()
+
+
+@dataclass(frozen=True)
+class WorkloadDesc:
+    """What the rotation core needs to know about a packed workload:
+
+      name              debug label ("verify-packed")
+      rows, row_bytes   rotating-blob geometry
+      true_rows         rows the caller fills; verdicts trim to this
+      dispatch          host blob -> verdict future (upload + compute),
+                        for rotating and caller-owned blobs alike
+      pinned            the blobs live in page-locked host memory (a CUDA
+                        workload), so the upload is an asynchronous copy
+    """
+
+    name: str
+    rows: int
+    row_bytes: int
+    true_rows: int
+    dispatch: object
+    pinned: bool = False
+
+
+class PackedDispatchEngine:
+    """Workload-agnostic upload/compute overlap (the wiredancer async
+    push shape, src/wiredancer/c/wd_f1.h:85-113): `nbuf` rotating host
+    blobs, so batch k+1 packs into a free blob while batch k uploads and
+    computes on the card.  An inflight window (`depth`) applies
+    backpressure: when it is full, a submit harvests (blocks on) the
+    OLDEST verdict before dispatching more.
+
+    No torn buffer: a blob returns to the free ring only when its batch's
+    verdict has materialized on the host.  The upload is a non-blocking
+    copy from pinned memory on the stream that then runs the verify, and
+    the verdict's event follows the verify, so a materialized verdict
+    proves the copy that read the blob is complete.
+
+    Counterpart of firedancer_tpu/models/verifier.py PackedDispatchEngine,
+    with the same counters (stats())."""
+
+    def __init__(self, desc: WorkloadDesc, nbuf: int = 2,
+                 depth: int | None = None):
+        if nbuf < 2:
+            raise ValueError(f"need >= 2 buffers to overlap, got {nbuf}")
+        if depth is None:
+            depth = nbuf - 1
+        if depth < 1:
+            raise ValueError(f"inflight depth must be >= 1, got {depth}")
+        self.desc = desc
+        self.depth = depth
+        self.rows = desc.rows
+        self._bufs = [torch.zeros((desc.rows, desc.row_bytes),
+                                  dtype=torch.uint8, pin_memory=desc.pinned)
+                      for _ in range(nbuf)]
+        self._free = deque(range(nbuf))
+        self._inflight: deque[tuple[object, int | None]] = deque()
+        # dispatches, blocking harvests forced by a full window
+        # (backpressure), the deepest window reached, host pack cost
+        self.dispatches = 0
+        self.backpressure_waits = 0
+        self.max_depth_seen = 0
+        self.pack_ns = 0
+        self.pack_txns = 0
+
+    @property
+    def inflight_depth(self) -> int:
+        return len(self._inflight)
+
+    @property
+    def pack_us_txn(self) -> float:
+        """Mean host-side pack cost per lane (us) across all submits."""
+        return self.pack_ns / max(self.pack_txns, 1) / 1e3
+
+    def stats(self) -> dict:
+        return {
+            "dispatches": self.dispatches,
+            "backpressure_waits": self.backpressure_waits,
+            "max_depth_seen": self.max_depth_seen,
+            "inflight_depth": self.inflight_depth,
+            "pack_us_txn": self.pack_us_txn,
+        }
+
+    def _harvest_oldest(self) -> np.ndarray:
+        ok_dev, bidx = self._inflight.popleft()
+        ok = np.asarray(ok_dev)          # blocks until upload+compute done
+        if bidx is not None:             # caller-owned blobs never pool
+            self._free.append(bidx)
+        tr = self.desc.true_rows
+        return ok[:tr] if len(ok) != tr else ok
+
+    def _enqueue(self, ok_dev, bidx, out: list) -> None:
+        # start the device->host verdict copy now, behind the verify
+        ok_dev.copy_to_host_async()
+        self._inflight.append((ok_dev, bidx))
+        self.dispatches += 1
+        self.max_depth_seen = max(self.max_depth_seen, len(self._inflight))
+        while len(self._inflight) > self.depth:
+            out.append(self._harvest_oldest())
+
+    def submit_packed(self, fill_fn, count: int) -> list[np.ndarray]:
+        """Acquire a free blob (harvesting the oldest verdict first when
+        every blob is pinned), fill it by fill_fn(blob), timed into the
+        pack stats with `count` work items, and dispatch it.  Returns the
+        verdicts the inflight window retired in this call, in dispatch
+        order."""
+        out = []
+        if not self._free:
+            self.backpressure_waits += 1
+            out.append(self._harvest_oldest())
+        bidx = self._free.popleft()
+        buf = self._bufs[bidx]
+        t_pack = time.perf_counter_ns()
+        try:
+            fill_fn(buf)
+        except BaseException:
+            # the blob was never dispatched: back on the free ring, so a
+            # failed pack leaves the engine usable
+            self._free.appendleft(bidx)
+            raise
+        self.pack_ns += time.perf_counter_ns() - t_pack
+        self.pack_txns += count
+        self._enqueue(self.desc.dispatch(buf), bidx, out)
+        return out
+
+    def submit_rows(self, rows) -> list[np.ndarray]:
+        """Dispatch an already packed row blob as it is, with no host
+        repack.  The caller owns `rows` and must not change it until this
+        batch's verdict is harvested; it never enters the free ring."""
+        out = []
+        self._enqueue(self.desc.dispatch(rows), None, out)
+        return out
+
+    def poll(self) -> list[np.ndarray]:
+        """Harvest every verdict that is already on the host, in dispatch
+        order, without blocking (is_ready() is a CUDA event query)."""
+        out = []
+        while self._inflight and self._inflight[0][0].is_ready():
+            out.append(self._harvest_oldest())
+        return out
+
+    def drain(self) -> list[np.ndarray]:
+        """Harvest every outstanding verdict, in dispatch order."""
+        out = []
+        while self._inflight:
+            out.append(self._harvest_oldest())
+        return out
+
+
+class PackedIngest(PackedDispatchEngine):
+    """The sigverify workload on the rotation core: rows are the packed
+    verify layout (msg[ml] | sig | pub | len), dispatch is the verifier's
+    dispatch_blob, the verdict the per-lane bool vector.  On a CUDA
+    verifier the blobs are pinned, and packing writes through their
+    .numpy() views."""
+
+    def __init__(self, verifier: SigVerifier, ml: int | None = None,
+                 nbuf: int = 2, depth: int | None = None):
+        self.verifier = verifier
+        cfg = verifier.cfg
+        self.batch = cfg.batch
+        self.ml = cfg.msg_maxlen if ml is None else ml
+        super().__init__(
+            WorkloadDesc(name="verify-packed", rows=self.batch,
+                         row_bytes=self.ml + ed.PACKED_EXTRA,
+                         true_rows=self.batch,
+                         dispatch=verifier.dispatch_blob,
+                         pinned=verifier.device.type == "cuda"),
+            nbuf=nbuf, depth=depth)
+
+    def _pack_into(self, buf: torch.Tensor, msgs, lens, sigs, pubs):
+        ml = self.ml
+        msgs = np.asarray(msgs)
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        np.concatenate(
+            [msgs[:, :ml], np.asarray(sigs), np.asarray(pubs),
+             lens.view(np.uint8).reshape(len(lens), 4)],
+            axis=1, out=buf.numpy()[:self.batch])
+
+    def submit(self, msgs, lens, sigs, pubs) -> list[np.ndarray]:
+        """Pack one batch into a rotating blob and dispatch it.  Returns
+        the verdicts the inflight window retired in this call (in
+        dispatch order); this batch's own verdict comes from a later
+        submit(), poll() or drain()."""
+        return self.submit_packed(
+            lambda buf: self._pack_into(buf, msgs, lens, sigs, pubs),
+            self.batch)
 
 
 def make_example_batch(batch: int, maxlen: int, valid: bool = True,
