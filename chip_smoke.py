@@ -117,50 +117,48 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _ctx_class():
+class _Metrics(dict):
+    def set(self, name, val):
+        self[name] = val
+
+    def add(self, name, delta=1):
+        self[name] = self.get(name, 0) + delta
+
+    def hist_store(self, name, histf):
+        self[name] = histf.counts.copy()
+
+
+class _RecCtx:
     """A recording in-process ctx for the verify tile: cfg, publish,
     publish_burst, out_reserve/out_commit over a NumPy buffer, metrics,
     heartbeat and trace (None)."""
 
-    class Metrics(dict):
-        def set(self, name, val):
-            self[name] = val
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.metrics = _Metrics()
+        self.trace = None
+        self.published = []          # (payload, sig) of per-txn frags
+        self.frags = []              # (frag bytes, sig, sz), packed
+        self.out = np.zeros(1 << 21, np.uint8)
+        self.beats = 0
 
-        def add(self, name, delta=1):
-            self[name] = self.get(name, 0) + delta
+    def publish(self, payload, sig=0):
+        self.published.append((bytes(payload), int(sig)))
 
-        def hist_store(self, name, histf):
-            self[name] = histf.counts.copy()
+    def publish_burst(self, buf, starts, lens, sigs):
+        buf = bytes(buf)
+        for s, n, g in zip(starts, lens, sigs):
+            self.published.append((buf[int(s):int(s) + int(n)], int(g)))
 
-    class Ctx:
-        def __init__(self, cfg):
-            self.cfg = cfg
-            self.metrics = Metrics()
-            self.trace = None
-            self.published = []          # (payload, sig) of per-txn frags
-            self.frags = []              # (frag bytes, sig, sz), packed
-            self.out = np.zeros(1 << 21, np.uint8)
-            self.beats = 0
+    def out_reserve(self, nbytes):
+        return 0, self.out[:nbytes]
 
-        def publish(self, payload, sig=0):
-            self.published.append((bytes(payload), int(sig)))
+    def out_commit(self, chunk, nbytes, sig=0, sz=0):
+        self.frags.append((self.out[chunk:chunk + nbytes].tobytes(),
+                           int(sig), int(sz)))
 
-        def publish_burst(self, buf, starts, lens, sigs):
-            buf = bytes(buf)
-            for s, n, g in zip(starts, lens, sigs):
-                self.published.append((buf[int(s):int(s) + int(n)], int(g)))
-
-        def out_reserve(self, nbytes):
-            return 0, self.out[:nbytes]
-
-        def out_commit(self, chunk, nbytes, sig=0, sz=0):
-            self.frags.append((self.out[chunk:chunk + nbytes].tobytes(),
-                               int(sig), int(sz)))
-
-        def heartbeat(self):
-            self.beats += 1
-
-    return Ctx
+    def heartbeat(self):
+        self.beats += 1
 
 
 def serving_phase(pool, reset_counts, counts, note, device=None,
@@ -258,7 +256,6 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
          f"allocator over the run {h0} -> {h1}")
 
     # ---- (b) the pipeline through the port's VerifyTile at the ladder
-    Ctx = _ctx_class()
     rng = np.random.default_rng(1310)
     seeds = [rng.bytes(32) for _ in range(8)]
     pubs = [ed.keypair_from_seed(s)[0] for s in seeds]
@@ -391,7 +388,7 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
     cfg = {"buckets": buckets, "egress_packed": 1}
     if not cuda:
         cfg["device"] = device
-    tile, ctx = VerifyTile(), Ctx(cfg)
+    tile, ctx = VerifyTile(), _RecCtx(cfg)
     t0 = time.perf_counter()
     tile.init(ctx)
     t_boot = time.perf_counter() - t0
