@@ -36,6 +36,7 @@ from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import msm as ms
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "firedancer_tpu_torch" / "csrc"
 

@@ -27,6 +27,7 @@ from firedancer_tpu_torch.ops import dsm
 from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import reduce_recode as rr
 from firedancer_tpu_torch.ops import sha512_kernel as sk
+from _torch_threads import one_torch_thread  # noqa: F401
 
 B = 8           # one interpret-mode block
 L = 2**252 + 27742317777372353535851937790883648493

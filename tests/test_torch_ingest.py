@@ -27,6 +27,7 @@ from firedancer_tpu_torch.models.verifier import (
     WorkloadDesc,
     make_example_batch,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 64
 ML = 96

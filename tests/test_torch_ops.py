@@ -33,6 +33,7 @@ from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512 as sh
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P, L = fe.P, sc.L
 

@@ -25,6 +25,7 @@ from firedancer_tpu_torch.ballet import txn as txn_lib
 from firedancer_tpu_torch.disco import pipeline as pipe
 from firedancer_tpu_torch.models.verifier import SigVerifier, VerifierConfig
 from firedancer_tpu_torch.ops import ed25519 as ed
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 16
 MAXLEN = 256

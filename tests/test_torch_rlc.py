@@ -24,6 +24,7 @@ from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import msm as ms
 from firedancer_tpu_torch.ops import scalar25519 as sc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 L = sc.L
 

@@ -26,6 +26,7 @@ from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops.msm import SELECTS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH, MAXLEN, M = 16, 64, 4
 

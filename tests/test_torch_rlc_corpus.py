@@ -23,6 +23,7 @@ import torch
 from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import ed25519 as ed
+from _torch_threads import one_torch_thread  # noqa: F401
 
 M, MAXLEN = 4, 64
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

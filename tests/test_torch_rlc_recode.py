@@ -20,6 +20,7 @@ from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import rlc_recode as rl
 from firedancer_tpu_torch.ops import scalar25519 as sc
+from _torch_threads import one_torch_thread  # noqa: F401
 
 L = sc.L
 

@@ -22,6 +22,7 @@ from firedancer_tpu_torch.ops import dsm
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import reduce_recode as rr
 from firedancer_tpu_torch.ops import verify_tail as vt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -25,6 +25,7 @@ from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 BATCH, MAXLEN = 16, 64

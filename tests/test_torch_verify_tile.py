@@ -21,6 +21,7 @@ from firedancer_tpu_torch.disco.verify_tile import (TILES, LadderVerifier,
                                                     VerifyTile)
 from firedancer_tpu_torch.models.verifier import make_example_batch, pack_blob
 from firedancer_tpu_torch.ops import ed25519 as ed
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = {"buckets": [[16, 256]]}
