@@ -29,6 +29,8 @@ then exits non-zero without those lines.  It needs no network and exits
 non-zero where there is no CUDA device or no port package beside it.
 """
 
+import collections
+import dataclasses
 import hashlib
 import json
 import multiprocessing as mp
@@ -108,6 +110,10 @@ G4_YCMP_MUL, G4_YCMP_SHFL = 1, 10
 G4_CLOSE_MUL, G4_CLOSE_SHFL = 2, 40
 RLC_BUCKETS = ((4096, 128), (32768, 128))
 MSM_M = 8
+# phase 13's stall on the card, in clock cycles (torch.cuda._sleep):
+# ~0.1 s on an H100, longer than the host takes to pack and launch a
+# 4096-row dispatch
+STALL_CYCLES = 200_000_000
 
 
 def smi(query: str) -> str:
@@ -161,6 +167,67 @@ class _RecCtx:
         self.beats += 1
 
 
+class _ReleaseGuard:
+    """Holds each return of a rotating blob to its pool against the
+    verdict of the dispatch that read it: that verdict must be ready when
+    the blob goes back.  `waited` counts returns whose verdict was still
+    pending when its harvest began, the returns that put the rule to the
+    test."""
+
+    def __init__(self):
+        self.verdict = None
+        self.returns = 0
+        self.waited = 0
+
+    def harvesting(self, verdict):
+        self.verdict = verdict
+        self.waited += not verdict.is_ready()
+
+    def returned(self):
+        if self.verdict is None or not self.verdict.is_ready():
+            raise AssertionError("a blob went back to its pool before the "
+                                 "verdict of its dispatch was ready")
+        self.verdict = None
+        self.returns += 1
+
+
+class _GuardedFree(collections.deque):
+    """The engine's free ring, its returns held by a _ReleaseGuard."""
+
+    def __init__(self, items, guard):
+        super().__init__(items)
+        self.guard = guard
+
+    def append(self, bidx):
+        self.guard.returned()
+        super().append(bidx)
+
+
+def _guard_engine(eng, guard):
+    harvest = eng._harvest_oldest
+
+    def guarded():
+        guard.harvesting(eng._inflight[0][0])
+        return harvest()
+    eng._harvest_oldest = guarded
+    eng._free = _GuardedFree(eng._free, guard)
+
+
+def _guard_pipeline(pipe, guard):
+    finish = pipe._finish
+
+    def guarded_finish(fl):
+        if fl.buf is not None:
+            guard.harvesting(fl.ok_dev)
+        return finish(fl)
+    pipe._finish = guarded_finish
+    for bk in pipe.buckets + [pipe.lat_bucket] * bool(pipe.lat_bucket):
+        def guarded_release(blob, release=bk.release):
+            guard.returned()
+            release(blob)
+        bk.release = guarded_release
+
+
 def serving_phase(pool, reset_counts, counts, note, device=None,
                   buckets=None, engine_cfg=(4096, 128), n_batches=16,
                   n_small=480, n_two=16, n_mid=48, n_mtu=48, fill_rows=2048,
@@ -211,6 +278,8 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
     eng = sv.make_ingest(nbuf=3, depth=2)
     if cuda and not all(buf.is_pinned() for buf in eng._bufs):
         raise AssertionError("engine: a rotating blob is not pinned")
+    guard = _ReleaseGuard()
+    _guard_engine(eng, guard)
     h0 = host_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -225,6 +294,9 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
     if len(got) != n_batches or any(
             not np.array_equal(g, s) for g, s in zip(got, serial)):
         raise AssertionError("engine: bits differ from serial dispatch_blob")
+    if guard.returns != n_batches:
+        raise AssertionError(f"engine: {guard.returns} blob returns for "
+                             f"{n_batches} dispatches")
     if not (launches["sha512_ram"] == launches["verify_tail"]
             == eng.dispatches == n_batches):
         raise AssertionError(f"engine: launches {launches} for "
@@ -245,15 +317,68 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
                                  ProfilerActivity.CUDA]) as prof:
             np.asarray(sv.dispatch_blob(eng._bufs[0]))
         names = [e.name for e in prof.events()]
+        copies = sorted({n for n in names if "memcpy" in n.lower()})
         note(f"engine: one dispatch of a pinned blob under torch.profiler: "
-             f"{sum('HtoD' in n for n in names)} host-to-device copies, "
-             f"{sum('Pageable' in n and 'HtoD' in n for n in names)} of "
-             f"them from pageable memory")
+             f"{sum('Pageable' in n for n in names)} copies from pageable "
+             f"memory; copy events {copies}")
+        # how far the host runs ahead of the card: a stall on the card
+        # before one dispatch, against when dispatch_blob returns
+        sync()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        torch.cuda._sleep(STALL_CYCLES)
+        e1.record()
+        t0 = time.perf_counter()
+        v = sv.dispatch_blob(eng._bufs[0])
+        t_ret = (time.perf_counter() - t0) * 1e3
+        ready = v.is_ready()
+        np.asarray(v)
+        note(f"engine: the card stalled {e0.elapsed_time(e1):.2f} ms before "
+             f"one dispatch: dispatch_blob returned after {t_ret:.2f} ms, "
+             f"its verdict ready then: {ready}")
     note(f"engine: {t_eng:.4f} ms a batch wall, serial dispatch_blob "
          f"{t_serial:.4f} ms; verdict still pending right after its submit "
-         f"in {pending} of {n_batches}; rotating blobs pinned: "
+         f"in {pending} of {n_batches}; {guard.returns} blob returns, each "
+         f"after its verdict was ready, {guard.waited} of them waited on a "
+         f"pending verdict; rotating blobs pinned: "
          f"{all(buf.is_pinned() for buf in eng._bufs)}; pinned host "
          f"allocator over the run {h0} -> {h1}")
+    if cuda:
+        # the same batches with the card stalled after each dispatch's
+        # kernels, before its verdict's copy: the drain then meets pending
+        # verdicts, and a blob back on its free ring before its verdict
+        # fails the guard
+        stalled = sv.make_ingest(nbuf=3, depth=2)
+        sguard = _ReleaseGuard()
+        _guard_engine(stalled, sguard)
+
+        def stall_dispatch(buf):
+            v = sv.dispatch_blob(buf)
+            torch.cuda._sleep(STALL_CYCLES)
+            return v
+        stalled.desc = dataclasses.replace(stalled.desc,
+                                           dispatch=stall_dispatch)
+        t0 = time.perf_counter()
+        got, spend = [], 0
+        for x in batches:
+            got += stalled.submit(*x)
+            spend += not stalled._inflight[-1][0].is_ready()
+        got += stalled.drain()
+        t_stall = (time.perf_counter() - t0) * 1e3 / n_batches
+        if len(got) != n_batches or any(
+                not np.array_equal(g, s) for g, s in zip(got, serial)):
+            raise AssertionError("engine, card stalled: bits differ from "
+                                 "serial dispatch_blob")
+        if sguard.returns != n_batches or not sguard.waited:
+            raise AssertionError(
+                f"engine, card stalled: {sguard.returns} blob returns, "
+                f"{sguard.waited} waited on a pending verdict")
+        note(f"engine, card stalled {STALL_CYCLES} cycles after each "
+             f"dispatch's kernels: bits == serial dispatch_blob; pending "
+             f"right after submit in {spend} of {n_batches}; "
+             f"{sguard.returns} blob returns, {sguard.waited} waited on a "
+             f"pending verdict; "
+             f"{t_stall:.4f} ms a batch wall; stats {stalled.stats()}")
 
     # ---- (b) the pipeline through the port's VerifyTile at the ladder
     rng = np.random.default_rng(1310)
@@ -392,6 +517,8 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
     t0 = time.perf_counter()
     tile.init(ctx)
     t_boot = time.perf_counter() - t0
+    pguard = _ReleaseGuard()
+    _guard_pipeline(tile.pipe, pguard)
     reset_counts()
     t0 = time.perf_counter()
     for lo in range(0, len(stream), 64):
@@ -451,6 +578,12 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
     if snap["compile_cnt"]:
         raise AssertionError(f"tile: compile_cnt {snap['compile_cnt']} "
                              f"after boot")
+    if pguard.returns != wire_batches:
+        raise AssertionError(f"tile: {pguard.returns} bucket blob returns "
+                             f"for {wire_batches} bucket dispatches")
+    blobs = [x for bk in tile.pipe.buckets for x in [bk.blob, *bk._pool]]
+    if cuda and not all(x.is_pinned() for x in blobs):
+        raise AssertionError("tile: a bucket blob is not pinned")
     note(f"tile at buckets {buckets}: {len(stream)} wire frags ({n_distinct} "
          f"distinct signed txns, {n_mtu} full-MTU, 32 repeats, 8 tampered, "
          f"4 with a bad second signature, 2 parse failures): accepted "
@@ -459,7 +592,11 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
          f"of {fill_rows} rows ({fill_valid} valid each): {len(got_wires)} "
          f"== host oracle; sha512 and verify_tail launches "
          f"{launches['sha512_ram']} and {launches['verify_tail']} == "
-         f"{snap['batches']} dispatches; compile_cnt {snap['compile_cnt']}")
+         f"{snap['batches']} dispatches; compile_cnt {snap['compile_cnt']}; "
+         f"{pguard.returns} bucket blob returns, each after its verdict was "
+         f"ready, {pguard.waited} of them waited on a pending verdict; "
+         f"{len(blobs)} bucket blobs, pinned: "
+         f"{all(x.is_pinned() for x in blobs)}")
     note(f"tile: boot {t_boot:.3f} s (kernel build and warmup of "
          f"{len(buckets)} shapes); wire txns {len(stream) / t_wire:.1f} "
          f"txns/s over {wire_batches} dispatches (the scalar Python parse "

@@ -171,27 +171,23 @@ class _Inflight:
 
 
 class _Bucket:
-    """One (batch, msg_maxlen) shape with its open batch.
+    """One (batch, msg_maxlen) shape with its open batch, laid out as ONE
+    row-interleaved uint8 blob (msgs | sigs | pubs | lens-le32 per row),
+    a torch tensor uploaded in one copy by the verifier's dispatch_blob;
+    arr, msgs, sigs and pubs are NumPy views of it that submit() writes.
+    pinned=True puts the blobs in page-locked host memory, so the upload
+    is an asynchronous copy.
 
-    packed=True lays the bucket out as ONE row-interleaved uint8 blob
-    (msgs | sigs | pubs | lens-le32 per row), a torch tensor uploaded in
-    one copy by the verifier's dispatch_blob; arr, msgs, sigs and pubs
-    are NumPy views of it that submit() writes.  pinned=True puts the
-    blobs in page-locked host memory, so the upload is an asynchronous
-    copy.
+    A bucket rotates over a pool of `n_buffers` blobs: a flushed blob
+    stays pinned under its _Inflight dispatch and returns to the pool
+    only after its verdict materializes in _finish(), never repacked
+    while the device may still read it, while reset() swaps in a free,
+    zeroed blob for the next batch."""
 
-    Packed buckets rotate over a pool of `n_buffers` blobs: a flushed
-    blob stays pinned under its _Inflight dispatch and returns to the
-    pool only after its verdict materializes in _finish(), never
-    repacked while the device may still read it, while reset() swaps in
-    a free, zeroed blob for the next batch."""
-
-    def __init__(self, batch: int, maxlen: int, packed: bool = False,
-                 n_buffers: int = 2, bidx: int = 0, lane: int = 0,
-                 pinned: bool = False):
+    def __init__(self, batch: int, maxlen: int, n_buffers: int = 2,
+                 bidx: int = 0, lane: int = 0, pinned: bool = False):
         self.batch = batch
         self.maxlen = maxlen
-        self.packed = packed
         self.pinned = pinned
         self.n_buffers = max(1, n_buffers)
         self.bidx = bidx            # position in the pipeline's ladder
@@ -200,41 +196,31 @@ class _Bucket:
         self.reset()
 
     def release(self, blob) -> None:
-        """Return a no-longer-inflight packed blob to the rotation."""
-        if self.packed and len(self._pool) < self.n_buffers:
+        """Return a no-longer-inflight blob to the rotation."""
+        if len(self._pool) < self.n_buffers:
             self._pool.append(blob)
 
     def reset(self):
-        if self.packed:
-            ml = self.maxlen
-            if self._pool:
-                self.blob = self._pool.popleft()
-                # zero the reused blob: partial (age-flush) fills must
-                # not see the previous batch's bytes
-                self.blob.zero_()
-            else:
-                self.blob = torch.zeros((self.batch, ml + PACKED_EXTRA),
-                                        dtype=torch.uint8,
-                                        pin_memory=self.pinned)
-            self.arr = self.blob.numpy()
-            self.msgs = self.arr[:, :ml]
-            self.sigs = self.arr[:, ml:ml + 64]
-            self.pubs = self.arr[:, ml + 64:ml + 96]
+        ml = self.maxlen
+        if self._pool:
+            self.blob = self._pool.popleft()
+            # zero the reused blob: partial (age-flush) fills must not
+            # see the previous batch's bytes
+            self.blob.zero_()
         else:
-            self.blob = self.arr = None
-            self.msgs = np.zeros((self.batch, self.maxlen), dtype=np.uint8)
-            self.sigs = np.zeros((self.batch, 64), dtype=np.uint8)
-            self.pubs = np.zeros((self.batch, 32), dtype=np.uint8)
-        self.lens = np.zeros((self.batch,), dtype=np.int32)
+            self.blob = torch.zeros((self.batch, ml + PACKED_EXTRA),
+                                    dtype=torch.uint8, pin_memory=self.pinned)
+        self.arr = self.blob.numpy()
+        self.msgs = self.arr[:, :ml]
+        self.sigs = self.arr[:, ml:ml + 64]
+        self.pubs = self.arr[:, ml + 64:ml + 96]
         self.used = 0
         self.t_first = 0  # ns stamp of the first txn in the open batch
         self.pending: list[_Pending] = []
 
     def set_len(self, lane: int, n: int):
-        self.lens[lane] = n
-        if self.packed:
-            self.arr[lane, self.maxlen + 96:self.maxlen + 100] = (
-                np.array([n], np.int32).view(np.uint8))
+        self.arr[lane, self.maxlen + 96:self.maxlen + 100] = (
+            np.array([n], np.int32).view(np.uint8))
 
 
 class VerifyPipeline:
@@ -243,12 +229,11 @@ class VerifyPipeline:
     Single-bucket form:  VerifyPipeline(fn, batch=B, msg_maxlen=L)
     Multi-bucket form:   VerifyPipeline(fn, buckets=DEFAULT_BUCKETS)
 
-    verify_fn(msgs, lens, sigs, pubs) returns per-lane pass bits (or a
-    future of them with is_ready / copy_to_host_async / np.asarray).
-    When it also has dispatch_blob and a strict .mode (the port's
-    SigVerifier, or the verify tile's per-shape ladder), buckets are
-    packed blobs dispatched in one upload; when its .device is a CUDA
-    device they are pinned.  tcache_depth: the dedup window in distinct
+    verify_fn is a strict verifier with dispatch_blob (the port's
+    SigVerifier, covering the largest bucket): each bucket is a packed
+    blob dispatched in one upload, pinned when verify_fn.device is a CUDA
+    device, and the verdict is a future with is_ready /
+    copy_to_host_async / np.asarray.  tcache_depth: the dedup window in distinct
     signatures.  max_inflight > 0 runs the async data plane (filled
     batches dispatch without waiting; harvest() retires them); 0 returns
     each batch's verdicts from the submit that fills it.  lat_shapes
@@ -259,11 +244,9 @@ class VerifyPipeline:
 
     def __init__(self, verify_fn, batch: int | None = None,
                  msg_maxlen: int | None = None, tcache_depth: int = 1 << 16,
-                 buckets=None, max_inflight: int = 0,
-                 packed_rows: bool | None = None, tracer=None,
+                 buckets=None, max_inflight: int = 0, tracer=None,
                  n_buffers: int = 2, heartbeat_cb=None, lat_shapes=None,
                  deadline_us: int = 2000, lat_max_inflight: int = 2,
-                 lat_maxlen: int | None = None,
                  lat_spill_age_factor: float = 4.0,
                  egress_packed: bool = False):
         if tracer is not None:
@@ -274,18 +257,15 @@ class VerifyPipeline:
             if batch is None or msg_maxlen is None:
                 raise ValueError("need either (batch, msg_maxlen) or buckets")
             buckets = ((batch, msg_maxlen),)
+        if (not hasattr(verify_fn, "dispatch_blob")
+                or getattr(verify_fn, "mode", "strict") != "strict"):
+            raise ValueError("the pipeline dispatches packed blobs: it "
+                             "needs a strict verifier with dispatch_blob")
         self.verify_fn = verify_fn
-        if packed_rows is None:
-            packed_rows = (hasattr(verify_fn, "dispatch_blob")
-                           and getattr(verify_fn, "mode", "strict")
-                           == "strict")
-        self.packed_rows = packed_rows
         dev = getattr(verify_fn, "device", None)
-        pinned = bool(packed_rows and isinstance(dev, torch.device)
-                      and dev.type == "cuda")
+        pinned = isinstance(dev, torch.device) and dev.type == "cuda"
         self.buckets = [
-            _Bucket(b, m, packed=packed_rows, n_buffers=n_buffers, bidx=i,
-                    pinned=pinned)
+            _Bucket(b, m, n_buffers=n_buffers, bidx=i, pinned=pinned)
             for i, (b, m) in enumerate(sorted(buckets, key=lambda t: t[1]))
         ]
         self.tcache = TCache(tcache_depth)
@@ -314,10 +294,8 @@ class VerifyPipeline:
             float(lat_spill_age_factor) * self.deadline_us * 1_000)
         self.lat_inflight: deque[_Inflight] = deque()
         if self.lat_shapes:
-            ml = (min(m for _, m in buckets) if lat_maxlen is None
-                  else int(lat_maxlen))
             self.lat_bucket = _Bucket(
-                self.lat_shapes[-1], ml, packed=packed_rows,
+                self.lat_shapes[-1], min(m for _, m in buckets),
                 n_buffers=n_buffers, bidx=len(self.buckets), lane=1,
                 pinned=pinned)
         else:
@@ -482,9 +460,6 @@ class VerifyPipeline:
         low-latency lane: the dispatch takes the closest-fit ladder shape
         >= n, and an overloaded lane spills the frag to the throughput
         path (lat_spill += n)."""
-        if not hasattr(self.verify_fn, "dispatch_blob"):
-            raise ValueError("submit_packed_rows needs a packed verifier "
-                             "(dispatch_blob)")
         nrows = rows.shape[0]
         ml = rows.shape[1] - PACKED_EXTRA
         n = nrows if n is None else min(int(n), nrows)
@@ -610,12 +585,8 @@ class VerifyPipeline:
         self.metrics.last_fill_pct = 100 * bk.used // nrows
         shape = (nrows, bk.maxlen)
         first_dispatch = shape not in self._seen_shapes
-        if bk.packed and hasattr(self.verify_fn, "dispatch_blob"):
-            blob = bk.blob if nrows == bk.batch else bk.blob[:nrows]
-            ok_dev = self.verify_fn.dispatch_blob(blob, maxlen=bk.maxlen)
-        else:
-            ok_dev = self.verify_fn(bk.msgs[:nrows], bk.lens[:nrows],
-                                    bk.sigs[:nrows], bk.pubs[:nrows])
+        blob = bk.blob if nrows == bk.batch else bk.blob[:nrows]
+        ok_dev = self.verify_fn.dispatch_blob(blob, maxlen=bk.maxlen)
         if first_dispatch:
             self._seen_shapes.add(shape)
             self.metrics.compile_cnt += 1
@@ -623,11 +594,10 @@ class VerifyPipeline:
         start_async = getattr(ok_dev, "copy_to_host_async", None)
         if start_async is not None:
             start_async()
-        # the packed blob stays pinned under this dispatch; reset() below
-        # rotates a FREE pool blob in, so the next batch packs while this
-        # one uploads and verifies
-        fl = _Inflight(ok_dev, bk.pending, t0,
-                       buf=bk.blob if bk.packed else None, owner=bk,
+        # the blob stays pinned under this dispatch; reset() below rotates
+        # a FREE pool blob in, so the next batch packs while this one
+        # uploads and verifies
+        fl = _Inflight(ok_dev, bk.pending, t0, buf=bk.blob, owner=bk,
                        lane=bk.lane, t_first=bk.t_first)
         bk.reset()
         if self.max_inflight <= 0:

@@ -5,9 +5,11 @@ own tile kind (TILES).  A tile is a class with the mux callbacks; its ctx
 gives cfg, publish, publish_burst, out_reserve/out_commit, metrics,
 heartbeat and trace.
 
-Boot builds the CUDA kernels and dispatches one zero blob through every
-bucket and latency-lane shape before the pipeline exists, so nothing is
-built on the hot path (the JAX tile loads AOT executables or compiles
+One SigVerifier sized to the largest batch and message length serves
+every bucket and latency-lane shape: its dispatch_blob takes any blob no
+larger than that.  Boot builds the CUDA kernels and dispatches one zero
+blob through every shape before the pipeline exists, so nothing is built
+on the hot path (the JAX tile loads AOT executables or compiles
 instead).  The tile does not wrap its verifier in a host fallback: a
 device, build or launch failure surfaces as an exception.
 """
@@ -18,7 +20,6 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..kernels import build
 from ..models.verifier import SigVerifier, VerifierConfig
 from ..ops.ed25519 import PACKED_EXTRA
@@ -29,37 +30,6 @@ from .pipeline import (DEFAULT_LAT_SHAPES, LAT_PRIO_BIT, PackedVerdicts,
 # settings of the JAX tile that the port takes no notice of yet: the
 # native host path, GuardedVerifier's supervision and the XLA trace dir
 _IGNORED = ("native_hostpath", "supervision", "jax_trace_dir")
-
-
-class LadderVerifier:
-    """The pipeline-facing verifier of a bucket ladder: one SigVerifier
-    per (batch, msg_maxlen) shape, since a SigVerifier refuses a blob
-    larger than its bucket.  It carries the surface the pipeline reads
-    (dispatch_blob, __call__, .mode, .device), the counterpart of the
-    JAX tile's _Fn.  A shape off the ladder raises."""
-
-    mode = "strict"
-
-    def __init__(self, shapes, device=None):
-        self.device = resolve_device(device)
-        self._by_shape = {(int(b), int(ml)): SigVerifier(
-            VerifierConfig(int(b), int(ml)), device=self.device)
-            for b, ml in shapes}
-
-    def _verifier(self, rows: int, ml: int) -> SigVerifier:
-        sv = self._by_shape.get((rows, ml))
-        if sv is None:
-            raise ValueError(f"shape ({rows}, {ml}) is not on the verify "
-                             f"ladder {sorted(self._by_shape)}")
-        return sv
-
-    def dispatch_blob(self, blob, maxlen: int | None = None):
-        ml = blob.shape[1] - PACKED_EXTRA
-        return self._verifier(blob.shape[0], ml).dispatch_blob(blob, maxlen)
-
-    def __call__(self, msgs, lens, sigs, pubs):
-        return self._verifier(msgs.shape[0], msgs.shape[1])(
-            msgs, lens, sigs, pubs)
 
 
 class VerifyTile:
@@ -118,7 +88,9 @@ class VerifyTile:
         lat_ml = min(int(m) for _, m in buckets)
         lat_warm = [(s, lat_ml) for s in sorted(lat_shapes)]
         warm_shapes = [(int(b), int(ml)) for b, ml in buckets] + lat_warm
-        fn = LadderVerifier(warm_shapes, device=cfg.get("device"))
+        fn = SigVerifier(VerifierConfig(max(b for b, _ in warm_shapes),
+                                        max(ml for _, ml in warm_shapes)),
+                         device=cfg.get("device"))
         self._init_pipeline(ctx, cfg, fn, buckets, warm_shapes, latc,
                             lat_warm)
 

@@ -69,9 +69,9 @@ class Verdict:
 
 
 class SigVerifier:
-    """Per-signature verifier on one device.  One instance per (batch,
-    msg_maxlen) bucket, as in the JAX package; a dispatch may carry fewer
-    rows than the bucket.  device=None means the GPU, and raises when
+    """Per-signature verifier on one device.  cfg bounds a dispatch: a
+    blob may carry fewer rows and shorter messages than cfg, so one
+    instance covers a whole bucket ladder.  device=None means the GPU, and raises when
     there is none; tests pass device="cpu", which runs the kernels' plain
     versions.
 
@@ -259,19 +259,15 @@ class _LazyRlcVerdict:
 class WorkloadDesc:
     """What the rotation core needs to know about a packed workload:
 
-      name              debug label ("verify-packed")
       rows, row_bytes   rotating-blob geometry
-      true_rows         rows the caller fills; verdicts trim to this
       dispatch          host blob -> verdict future (upload + compute),
                         for rotating and caller-owned blobs alike
       pinned            the blobs live in page-locked host memory (a CUDA
                         workload), so the upload is an asynchronous copy
     """
 
-    name: str
     rows: int
     row_bytes: int
-    true_rows: int
     dispatch: object
     pinned: bool = False
 
@@ -340,8 +336,7 @@ class PackedDispatchEngine:
         ok = np.asarray(ok_dev)          # blocks until upload+compute done
         if bidx is not None:             # caller-owned blobs never pool
             self._free.append(bidx)
-        tr = self.desc.true_rows
-        return ok[:tr] if len(ok) != tr else ok
+        return ok
 
     def _enqueue(self, ok_dev, bidx, out: list) -> None:
         # start the device->host verdict copy now, behind the verify
@@ -415,9 +410,8 @@ class PackedIngest(PackedDispatchEngine):
         self.batch = cfg.batch
         self.ml = cfg.msg_maxlen if ml is None else ml
         super().__init__(
-            WorkloadDesc(name="verify-packed", rows=self.batch,
+            WorkloadDesc(rows=self.batch,
                          row_bytes=self.ml + ed.PACKED_EXTRA,
-                         true_rows=self.batch,
                          dispatch=verifier.dispatch_blob,
                          pinned=verifier.device.type == "cuda"),
             nbuf=nbuf, depth=depth)

@@ -76,8 +76,12 @@ def _carry(h: torch.Tensor, passes: int) -> torch.Tensor:
     return h
 
 
+@functools.lru_cache(maxsize=None)
 def const(v: int, device, ndim: int = 2) -> torch.Tensor:
-    """Field constant as a (10, 1, ...) tensor broadcastable over a batch."""
+    """Field constant as a (10, 1, ...) tensor broadcastable over a batch.
+    Cached per device and never written: a copy from pageable host memory
+    waits for the stream, so building it on every call would stall the
+    host inside each dispatch."""
     return torch.tensor(int_to_limbs(v), dtype=torch.int64,
                         device=device).reshape((NLIMB,) + (1,) * (ndim - 1))
 
@@ -240,15 +244,22 @@ def _byte_bits(b: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*b.shape[:-1], -1).movedim(-1, 0)
 
 
+@functools.lru_cache(maxsize=None)
+def _gather_idx(offs, widths, nb: int, device) -> torch.Tensor:
+    """pack_bits' gather index, cached per device as const is."""
+    wmax = max(widths)
+    return torch.tensor([[o + k if k < w and o + k < nb else nb
+                          for k in range(wmax)]
+                         for o, w in zip(offs, widths)], device=device)
+
+
 def pack_bits(bits: torch.Tensor, offs, widths) -> torch.Tensor:
     """(nbits, *batch) bits -> limbs (len(offs), *batch); limb i gathers
     bits offs[i] .. offs[i] + widths[i] (bits past the end read 0)."""
     nb = bits.shape[0]
     wmax = max(widths)
-    idx = [[o + k if k < w and o + k < nb else nb for k in range(wmax)]
-           for o, w in zip(offs, widths)]
     padded = torch.cat([bits, torch.zeros_like(bits[:1])], 0)
-    sel = padded[torch.tensor(idx, device=bits.device)]
+    sel = padded[_gather_idx(tuple(offs), tuple(widths), nb, bits.device)]
     sh = torch.arange(wmax, device=bits.device).reshape(
         (1, wmax) + (1,) * (bits.dim() - 1))
     return (sel << sh).sum(1)

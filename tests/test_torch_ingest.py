@@ -162,7 +162,7 @@ def test_engine_param_validation(verifier):
 def test_bucket_pool_rotation_zeroed():
     """Pipeline-level pool: reset() rotates a FREE blob in (fresh while
     the pool is dry, reused and re-zeroed after release())."""
-    bk = _Bucket(4, 32, packed=True, n_buffers=2)
+    bk = _Bucket(4, 32, n_buffers=2)
     first = bk.blob
     first.fill_(7)
     bk.reset()                    # first still pinned under its dispatch
@@ -181,7 +181,7 @@ def test_bucket_pool_rotation_zeroed():
 def test_pipeline_packed_pool_bounded():
     """The pool never exceeds n_buffers even if more blobs are released
     (age-flush bursts): excess blobs fall to the GC."""
-    bk = _Bucket(4, 32, packed=True, n_buffers=2)
+    bk = _Bucket(4, 32, n_buffers=2)
     blobs = []
     for _ in range(4):
         blobs.append(bk.blob)
@@ -218,8 +218,8 @@ def test_poll_harvests_only_ready_verdicts_and_failed_pack_frees_blob():
         return futs[-1]
 
     eng = PackedDispatchEngine(
-        WorkloadDesc("fake", rows=4, row_bytes=8, true_rows=3,
-                     dispatch=dispatch), nbuf=3, depth=2)
+        WorkloadDesc(rows=4, row_bytes=8, dispatch=dispatch), nbuf=3,
+        depth=2)
     for v in (1, 0):
         eng.submit_packed(lambda b, v=v: b.fill_(v), 4)
     assert eng.poll() == []
@@ -227,7 +227,7 @@ def test_poll_harvests_only_ready_verdicts_and_failed_pack_frees_blob():
     assert eng.poll() == []                  # the oldest is not ready
     futs[0].ready = True
     got = eng.poll()
-    assert [g.tolist() for g in got] == [[True] * 3, [False] * 3]
+    assert [g.tolist() for g in got] == [[True] * 4, [False] * 4]
     assert eng.inflight_depth == 0
     free = len(eng._free)
 
@@ -241,7 +241,7 @@ def test_poll_harvests_only_ready_verdicts_and_failed_pack_frees_blob():
     eng.submit_rows(rows)
     futs[-1].ready = True
     (ok,) = eng.drain()
-    assert ok.tolist() == [True] * 3 and len(eng._free) == free
+    assert ok.tolist() == [True] * 4 and len(eng._free) == free
 
 
 @pytest.fixture(scope="module")

@@ -372,3 +372,15 @@ def test_tracer_refused():
     fn = SigVerifier(VerifierConfig(4, 64), device="cpu")
     with pytest.raises(NotImplementedError, match="trace"):
         pipe.VerifyPipeline(fn, batch=4, msg_maxlen=64, tracer=object())
+
+
+@pytest.mark.parametrize("fn", [
+    SigVerifier(VerifierConfig(16, 64), mode="rlc", device="cpu"),
+    SigVerifier(VerifierConfig(4, 64), device="cpu").__call__,
+], ids=["rlc_verifier", "four_array_callable"])
+def test_non_packed_verifier_refused(fn):
+    """Buckets are packed blobs only: a verifier without a strict
+    dispatch_blob is refused at construction."""
+    with pytest.raises(ValueError, match="strict verifier with "
+                       "dispatch_blob"):
+        pipe.VerifyPipeline(fn, batch=4, msg_maxlen=64)

@@ -17,9 +17,10 @@ from firedancer_tpu.models import verifier as jv
 from firedancer_tpu.ops import ed25519 as jed
 from firedancer_tpu_torch.ballet import txn as txn_lib
 from firedancer_tpu_torch.disco.pipeline import LAT_PRIO_BIT
-from firedancer_tpu_torch.disco.verify_tile import (TILES, LadderVerifier,
-                                                    VerifyTile)
-from firedancer_tpu_torch.models.verifier import make_example_batch, pack_blob
+from firedancer_tpu_torch.disco.verify_tile import TILES, VerifyTile
+from firedancer_tpu_torch.models.verifier import (SigVerifier,
+                                                  make_example_batch,
+                                                  pack_blob)
 from firedancer_tpu_torch.ops import ed25519 as ed
 from _torch_threads import one_torch_thread  # noqa: F401
 
@@ -205,19 +206,24 @@ def test_port_tile_packed_verdict_egress():
     assert [body[a:b] for a, b in zip(offs[:-1], offs[1:])] == want[:16]
 
 
-def test_ladder_verifier_surfaces():
-    """One SigVerifier a ladder shape: the four-array call and the packed
-    blob give the same bits, the host verifier's; a shape off the ladder
-    raises."""
-    lv = LadderVerifier([(4, 64), (2, 128)], device="cpu")
-    args = make_example_batch(4, 64, valid=False, seed=5)
-    blob = pack_blob(*args)
-    bits = np.asarray(lv(*args))
-    assert bits.tolist() == np.asarray(lv.dispatch_blob(blob)).tolist()
-    assert bits.tolist() == jv.host_verify_blob(blob).tolist()
-    assert not bits.all()
-    with pytest.raises(ValueError, match="not on the verify ladder"):
-        lv.dispatch_blob(blob[:3])
+def test_port_tile_one_verifier_covers_the_ladder():
+    """The tile's one SigVerifier is sized to the largest bucket and
+    latency shape; a blob of every ladder shape goes through it with the
+    host verifier's bits, and a blob past the largest raises."""
+    ctx = _port_ctx(buckets=[[4, 64], [2, 128]],
+                    latency={"enabled": 1, "shapes": [2, 8]})
+    tile = VerifyTile()
+    tile.init(ctx)
+    fn = tile.pipe.verify_fn
+    assert isinstance(fn, SigVerifier)
+    assert (fn.cfg.batch, fn.cfg.msg_maxlen) == (8, 128)
+    assert tile.pipe.metrics.compile_cnt == 0
+    for rows, ml in ((4, 64), (2, 128), (2, 64), (8, 64)):
+        blob = pack_blob(*make_example_batch(rows, ml, valid=False, seed=5))
+        bits = np.asarray(fn.dispatch_blob(blob))
+        assert bits.tolist() == jv.host_verify_blob(blob).tolist()
+    with pytest.raises(ValueError, match="exceeds the bucket"):
+        fn.dispatch_blob(pack_blob(*make_example_batch(9, 64, seed=5)))
 
 
 @pytest.mark.parametrize("cfg,match", [
