@@ -233,10 +233,10 @@ class VerifyPipeline:
     SigVerifier, covering the largest bucket): each bucket is a packed
     blob dispatched in one upload, pinned when verify_fn.device is a CUDA
     device, and the verdict is a future with is_ready /
-    copy_to_host_async / np.asarray.  tcache_depth: the dedup window in distinct
-    signatures.  max_inflight > 0 runs the async data plane (filled
-    batches dispatch without waiting; harvest() retires them); 0 returns
-    each batch's verdicts from the submit that fills it.  lat_shapes
+    copy_to_host_async / np.asarray.  tcache_depth: the dedup window in
+    distinct signatures.  max_inflight > 0 runs the async data plane
+    (filled batches dispatch without waiting; harvest() retires them); 0
+    returns each batch's verdicts from the submit that fills it.  lat_shapes
     adds the low-latency lane.  egress_packed makes packed-row harvests
     return one PackedVerdicts per frag.  tracer must be None: trace
     spans come with the port's topology runtime.
