@@ -19,8 +19,14 @@ sha512, rlc_recode and msm kernels).  Then the serving layers (phase
 against serial dispatch_blob, and the port's VerifyTile at the default
 bucket ladder, wire txns of every outcome and packed-row fills, its
 accepted set against the host verifier's (sha512 and verify_tail
-kernels).  Each path runs with the launch counts set to 0 just before
-it and read just after.  Then it times the kernels, their plain versions, the torch
+kernels).  Then the topology runtime (phase 14): the port's Mux runs the
+VerifyTile in process on packed-wire frags with the card stalled after
+each dispatch (each frag's flow credit held until its verdict, the
+drain park and its manifest), then the verify-bench topology (source ->
+verify -> dedup -> sink) in spawned processes on wire txns at the
+default bucket ladder, and the packed-wire firehose over two verify
+tiles on the one card.  Each path runs with the launch counts set to 0
+just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
 second-to-last line is the {"kernels": [...]} record; the last line is
@@ -608,6 +614,475 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
          f" lanes {snap['lanes_filled']} filled of "
          f"{snap['lanes_dispatched']} dispatched")
     note(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+class _StalledVerifier:
+    """The tile's verifier with its verdicts held back after each
+    dispatch: on the card a sleep kernel after the dispatch's kernels,
+    before its verdict's copy (torch.cuda._sleep); on the CPU a verdict
+    that reads as pending for `stall_s`.  dispatches counts the calls."""
+
+    def __init__(self, fn, stall_s=0.1):
+        self.fn = fn
+        self.device = fn.device
+        self.mode = fn.mode
+        self.stall_s = stall_s
+        self.dispatches = 0
+
+    def dispatch_blob(self, blob, maxlen=None):
+        import torch
+        v = self.fn.dispatch_blob(blob, maxlen=maxlen)
+        self.dispatches += 1
+        if self.device.type == "cuda":
+            torch.cuda._sleep(STALL_CYCLES)
+            return v
+        return _TimedVerdict(v, time.monotonic() + self.stall_s)
+
+
+class _TimedVerdict:
+    def __init__(self, v, ready_at):
+        self.v = v
+        self.ready_at = ready_at
+
+    def is_ready(self):
+        return time.monotonic() >= self.ready_at and self.v.is_ready()
+
+    def copy_to_host_async(self):
+        self.v.copy_to_host_async()
+
+    def __array__(self, dtype=None, copy=None):
+        time.sleep(max(0.0, self.ready_at - time.monotonic()))
+        out = np.asarray(self.v)
+        return out if dtype is None else out.astype(dtype)
+
+
+class _UploadCounter:
+    """Wraps a SigVerifier's upload (`_to_device`) to count what each
+    dispatch copies to the card: per call the kind of the source (pinned,
+    pageable or already on the device) and its bytes.  On the card a
+    pageable source is also checked to have been read in full when the
+    upload returns, which the packed-wire tile's seq re-check after the
+    dispatch relies on: it is uploaded from a private copy that is
+    overwritten right after, so a copy still reading it would change the
+    verdict bits, which the phase holds against the host verifier."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.orig = fn._to_device
+        self.calls = []
+        fn._to_device = self
+
+    def __call__(self, x):
+        import torch
+        cuda = self.fn.device.type == "cuda"
+        if isinstance(x, torch.Tensor):
+            kind = ("device" if x.device.type != "cpu" else
+                    "pinned" if cuda and x.is_pinned() else "pageable")
+            self.calls.append((kind, x.numel() * x.element_size()))
+            return self.orig(x)
+        private = np.array(x, copy=True)
+        self.calls.append(("pageable", private.nbytes))
+        out = self.orig(private)
+        if cuda:
+            private.fill(0xFF)
+        return out
+
+    def close(self):
+        del self.fn._to_device
+
+
+def _stream_part(seed: int, keys: int, lo: int, hi: int) -> list:
+    """Txns lo..hi of source_txn_stream(seed, keys), for a pool worker."""
+    from firedancer_tpu_torch.disco.tiles import source_txn_stream
+    return list(source_txn_stream(seed, keys, hi, lo))
+
+
+def _shm_check(need_bytes: int, note):
+    """/dev/shm must hold the workspace: print its size and free space,
+    and raise with both if it cannot."""
+    st = os.statvfs("/dev/shm")
+    size, free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    note(f"/dev/shm: {size / 2**20:.0f} MiB, {free / 2**20:.0f} MiB free; "
+         f"the workspace needs {need_bytes / 2**20:.0f} MiB")
+    if free < need_bytes:
+        raise RuntimeError(f"/dev/shm has {free} bytes free of {size}: "
+                           f"the topology's workspace needs {need_bytes}")
+
+
+def _wait_for(pred, timeout_s, what, run=None):
+    """Poll pred until it holds; with a TopoRun, every poll also checks
+    that no tile failed."""
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if run is not None:
+            bad = run.poll()
+            if bad is not None:
+                raise AssertionError(f"tile {bad} failed while waiting for "
+                                     f"{what}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def topology_phase(pool, reset_counts, counts, note, device=None,
+                   rows=2048, n_valid=256, wire_count=2560,
+                   firehose_count=65536, buckets=None, workdir=None,
+                   flush_age_ns=30_000_000_000):
+    """Phase 14: the port's tango fabric and tile runtime with the port's
+    VerifyTile on the card.  (a) In process: the port Mux runs the tile
+    in a thread on packed-wire frags published by hand, with the card
+    stalled after each dispatch: each frag's credit is held while its
+    verdict is pending, released after, each row's verdict is the host
+    verifier's, and the drain parks with a manifest.  (b) The
+    verify-bench topology in processes on wire frags at the default
+    bucket ladder: one full first bucket, then the partial rest by the
+    age flush.  (c) The packed-wire firehose over two verify tiles
+    on the one card.  device None is the card; the sizes are the full
+    ones.  Raises on any failed check."""
+    import tempfile
+    import threading
+
+    from firedancer_tpu_torch.app import config as app_config
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.disco import pipeline as pl
+    from firedancer_tpu_torch.disco import topo as topo_mod
+    from firedancer_tpu_torch.disco.mux import Mux
+    from firedancer_tpu_torch.disco.run import SupervisionPolicy, TopoRun
+    from firedancer_tpu_torch.disco.tiles import read_capture
+    from firedancer_tpu_torch.disco.topo import InLink, TopoBuilder
+    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.tango.ring import (PACKED_ROW_EXTRA, Cnc,
+                                                 packed_row_ml)
+    cuda = device is None
+    buckets = [list(b) for b in (buckets or pl.DEFAULT_BUCKETS)]
+    tag = f"cs{os.getpid()}"
+    t_phase = time.perf_counter()
+    workdir = Path(workdir or tempfile.mkdtemp(prefix="fdtpu_phase14_"))
+    old_omp = os.environ.get("OMP_NUM_THREADS")
+    # spawned tile processes: one intra-op thread each
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        # ---- (a) in process: credits held across a pending verdict
+        ml = packed_row_ml(256)
+        stride = ml + PACKED_ROW_EXTRA
+        spec = (TopoBuilder(f"{tag}a", wksp_mb=64)
+                .link("src_v", depth=16, mtu=rows * stride)
+                .link("v_s", depth=4096, mtu=1280)
+                .tile("src", "sink", outs=["src_v"])
+                .tile("v", "verify", ins=["src_v"], outs=["v_s"],
+                      device=device, packed_wire=1, buckets=[[rows, ml]],
+                      flush_age_ns=10 ** 12,
+                      supervision={"drain_manifest_dir": str(workdir)})
+                .tile("s", "sink", ins=[InLink("v_s", reliable=False)])
+                .build())
+        _shm_check(spec.wksp_mb << 20, note)
+        rng = np.random.default_rng(1400)
+        seeds = [rng.bytes(32) for _ in range(8)]
+        pubs = [ed.keypair_from_seed(s)[0] for s in seeds]
+        program = rng.bytes(32)
+        msgs = [txn_lib.build_unsigned(
+            [pubs[i % 8]], rng.bytes(32),
+            [(1, b"\x00", i.to_bytes(8, "little"))], [program])
+            for i in range(2 * n_valid)]
+        sigs = pool.starmap(ed.sign, [(seeds[i % 8], m)
+                                      for i, m in enumerate(msgs)])
+        frags = []
+        for f in range(4):
+            blk = np.zeros((rows, stride), np.uint8)
+            tpl = msgs[0]
+            blk[:, :len(tpl)] = np.frombuffer(tpl, np.uint8)
+            blk[:, ml:] = np.frombuffer(
+                sigs[0] + pubs[0] + np.int32(len(tpl)).tobytes(), np.uint8)
+            # stamped the way the source tile stamps its firehose
+            blk[:, ml:ml + 8] = rng.integers(
+                1, 1 << 62, rows, dtype=np.uint64).view(np.uint8).reshape(
+                -1, 8)
+            if f % 2 == 0:
+                at = rng.choice(rows, n_valid, replace=False)
+                for j, r in enumerate(at):
+                    i = (f // 2) * n_valid + j
+                    sig = bytearray(sigs[i])
+                    if j % 16 == 0:
+                        sig[40] ^= 1                  # forged
+                    blk[r] = 0
+                    blk[r, :len(msgs[i])] = np.frombuffer(msgs[i], np.uint8)
+                    blk[r, ml:] = np.frombuffer(
+                        bytes(sig) + pubs[i % 8]
+                        + np.int32(len(msgs[i])).tobytes(), np.uint8)
+            frags.append(blk)
+        host = [np.concatenate([np.asarray(x, bool) for x in pool.map(
+            ed.host_verify_blob, np.array_split(blk, 32))])
+            for blk in frags]
+        want = []
+        for blk, ok in zip(frags, host):
+            for r in np.flatnonzero(ok):
+                n = int(blk[r, ml + 96:].view(np.int32)[0])
+                w = (b"\x01" + blk[r, ml:ml + 64].tobytes()
+                     + blk[r, :n].tobytes())
+                want.append((w, int.from_bytes(w[1:9], "little")))
+        n_pass = n_valid - n_valid // 16
+        if [int(ok.sum()) for ok in host] != [n_pass, 0, n_pass, 0]:
+            raise AssertionError(f"phase 14a: host bits {[int(o.sum()) for o in host]}")
+
+        jt = topo_mod.create(spec)
+        tile, run_err = VerifyTile(), []
+        try:
+            mux = Mux(jt, "v", tile)
+            mux.HOUSE_NS = 1_000_000
+            cnc = jt.cnc["v"]
+
+            def run_mux():
+                try:
+                    mux.run()
+                except BaseException as e:  # re-raised below
+                    run_err.append(e)
+
+            th = threading.Thread(target=run_mux, daemon=True)
+            t0 = time.perf_counter()
+            th.start()
+            _wait_for(lambda: cnc.signal_query() == Cnc.SIGNAL_RUN
+                      or run_err, 300, "the tile's boot")
+            if run_err:
+                raise run_err[0]
+            t_boot_a = time.perf_counter() - t0
+            stalled = _StalledVerifier(tile.pipe.verify_fn)
+            tile.pipe.verify_fn = stalled
+            uploads = _UploadCounter(stalled.fn)
+            lnk, fseq = jt.links["src_v"], jt.fseq[("v", "src_v")]
+            reset_counts()
+            chunk = 0
+            t0 = time.perf_counter()
+            for blk in frags:
+                view = lnk.dcache.write_view(chunk, blk.nbytes)
+                view[:] = blk.ravel()
+                last = lnk.mcache.publish(
+                    sig=int(blk[0, ml:ml + 8].view(np.uint64)[0]),
+                    chunk=chunk, sz=rows)
+                chunk = lnk.dcache.advance(chunk, blk.nbytes)
+            held_max, behind = 0, 0
+            deadline = time.monotonic() + 120
+            while tile.pipe.metrics.batches < 4 or tile.credits_held(0):
+                if run_err:
+                    raise run_err[0]
+                h = tile.credits_held(0)
+                held_max = max(held_max, h)
+                if h and fseq.query() < last + 1:
+                    behind += 1
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 14a: verdicts")
+                time.sleep(0.001)
+            _wait_for(lambda: fseq.query() == last + 1, 10,
+                      "the fseq level with the published seq")
+            t_a = time.perf_counter() - t0
+            launches = counts()
+            uploads.close()
+            if not (held_max > 0 and behind > 0):
+                raise AssertionError(
+                    f"phase 14a: no pending verdict held a credit "
+                    f"(max held {held_max}, fseq behind {behind} polls)")
+            if tile.credits_held(0) != 0:
+                raise AssertionError("phase 14a: credits still held")
+            _wait_for(lambda: jt.metrics["v"].get("batch_cnt") == 4, 10,
+                      "the metrics sync")
+            cnc.signal(Cnc.SIGNAL_DRAIN)
+            _wait_for(lambda: cnc.signal_query() == Cnc.SIGNAL_DRAINED
+                      or run_err, 30, "DRAINED")
+            if run_err:
+                raise run_err[0]
+            man = json.loads((workdir / "v.manifest.json").read_text())
+            if man["cursors"] != {"src_v": last + 1}:
+                raise AssertionError(f"phase 14a: manifest {man}")
+            cnc.signal(Cnc.SIGNAL_HALT)
+            th.join(60)
+            if th.is_alive() or run_err:
+                raise AssertionError(f"phase 14a: the tile did not halt "
+                                     f"cleanly: {run_err}")
+            lnk_out = jt.links["v_s"]
+            got = []
+            for seq in range(lnk_out.mcache.seq0(),
+                             lnk_out.mcache.seq_query()):
+                rc, m = lnk_out.mcache.query(seq)
+                if rc:
+                    raise AssertionError("phase 14a: the verdict link "
+                                         "overran")
+                got.append((lnk_out.dcache.read(int(m["chunk"]),
+                                                int(m["sz"])),
+                            int(m["sig"])))
+            if got != want:
+                raise AssertionError(f"phase 14a: published {len(got)} "
+                                     f"passing rows, the host verifier "
+                                     f"{len(want)}")
+            snap = jt.metrics["v"].snapshot()
+            if (snap["txn_in_cnt"], snap["verify_pass_cnt"],
+                    snap["verify_fail_cnt"], snap["torn_drop_cnt"],
+                    snap["compile_cnt"]) != (4 * rows, len(want),
+                                             4 * rows - len(want), 0, 0):
+                raise AssertionError(f"phase 14a: counters {snap}")
+            if not (launches["sha512_ram"] == launches["verify_tail"]
+                    == stalled.dispatches == 4):
+                raise AssertionError(f"phase 14a: launches {launches} for "
+                                     f"{stalled.dispatches} dispatches")
+            # what each packed frag's dispatch copied to the card: the
+            # dcache rows are pageable shared memory, one upload a frag
+            kinds = [k for k, _ in uploads.calls]
+            if (kinds != ["pageable"] * stalled.dispatches
+                    or {n for _, n in uploads.calls} != {rows * stride}):
+                raise AssertionError(f"phase 14a: uploads {uploads.calls} "
+                                     f"for {stalled.dispatches} dispatches")
+            note(f"phase 14a: port Mux + VerifyTile(packed_wire) in process,"
+                 f" 4 frags of {rows}x{ml} (2 with {n_valid} signed rows, "
+                 f"{n_valid // 16} of them forged; 2 all stamped), the card "
+                 f"stalled {STALL_CYCLES} cycles after each dispatch: "
+                 f"credits_held up to {held_max}, fseq behind the published "
+                 f"seq in {behind} polls while a verdict was pending, then 0 "
+                 f"held and fseq {fseq.query()} == published {last + 1}; "
+                 f"published {len(got)} == host verifier; counters txn_in "
+                 f"{snap['txn_in_cnt']} pass {snap['verify_pass_cnt']} fail "
+                 f"{snap['verify_fail_cnt']} torn {snap['torn_drop_cnt']} "
+                 f"compile {snap['compile_cnt']}; sha512 and verify_tail "
+                 f"launches {launches['sha512_ram']} and "
+                 f"{launches['verify_tail']} == {stalled.dispatches} "
+                 f"dispatches; DRAINED with manifest cursors {man['cursors']};"
+                 f" boot {t_boot_a:.3f} s, 4 frags {t_a:.3f} s")
+            note(f"phase 14a: uploads counted at SigVerifier._to_device: "
+                 f"{kinds.count('pageable')} from pageable memory of "
+                 f"{rows * stride} bytes each, {kinds.count('pinned')} pinned,"
+                 f" for {stalled.dispatches} dispatches"
+                 + ("; each source overwritten as the upload returned, the "
+                    "bits still the host verifier's" if cuda else ""))
+            mux = tile = lnk = fseq = lnk_out = None
+            import gc
+            gc.collect()
+        finally:
+            jt.close()
+            jt.unlink()
+
+        # ---- (b) processes: verify-bench on wire frags at the ladder
+        cfg = app_config.load(environ={})
+        cfg["name"] = f"{tag}b"
+        cfg["tiles"]["verify"]["buckets"] = buckets
+        cfg["tiles"]["verify"]["device"] = device or ""
+        # the source signs each txn on the host (~160-210 txns/s on an
+        # H100 host): an age well past the first bucket's fill lets it
+        # fill and dispatch whole, and the age flush then dispatches the
+        # partial rest
+        cfg["tiles"]["verify"]["flush_age_ns"] = flush_age_ns
+        cfg["supervision"]["drain_timeout_s"] = 120.0
+        cfg["supervision"]["drain_manifest_dir"] = str(workdir / "b")
+        cfg["tiles"]["sink"] = {"capture_path": str(workdir / "sink.cap")}
+        cfg["development"]["source_count"] = wire_count
+        spec = app_config.build_topology(cfg)
+        _shm_check(spec.wksp_mb << 20, note)
+        # the oracle: the source's stream regenerated over the pool while
+        # the topology runs
+        step = -(-wire_count // 16)
+        want_b = pool.starmap_async(_stream_part, [
+            (cfg["development"]["bench_seed"], 4, lo,
+             min(lo + step, wire_count))
+            for lo in range(0, wire_count, step)])
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy.from_cfg(cfg))
+        try:
+            run.wait_ready(timeout=cfg["supervision"]["boot_grace_s"])
+            t_boot_b = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            full = buckets[0][0]
+            _wait_for(lambda: run.metrics("sink")["frag_cnt"] >= full,
+                      600, f"{full} txns at the sink", run)
+            t_full = time.perf_counter() - t0
+            _wait_for(lambda: run.metrics("sink")["frag_cnt"] >= wire_count,
+                      600, f"{wire_count} txns at the sink", run)
+            t_b = time.perf_counter() - t0
+            if run.poll() is not None:
+                raise AssertionError("phase 14b: a tile failed")
+            v, d = run.metrics("verify:0"), run.metrics("dedup")
+            if not run.drain():
+                raise AssertionError("phase 14b: drain() did not drain "
+                                     "every tile")
+        finally:
+            run.close()
+        if set(run.exitcodes.values()) != {0}:
+            raise AssertionError(f"phase 14b: exit codes {run.exitcodes}")
+        got_b = read_capture(str(workdir / "sink.cap"))
+        want_b = [t for part in want_b.get(600) for t in part]
+        if sorted(got_b) != sorted(want_b):
+            raise AssertionError(f"phase 14b: the sink captured "
+                                 f"{len(got_b)} txns, source_txn_stream "
+                                 f"{len(want_b)}")
+        if (v["verify_pass_cnt"], v["verify_fail_cnt"], v["parse_fail_cnt"],
+                v["torn_drop_cnt"], d["uniq_cnt"]) != (
+                    wire_count, 0, 0, 0, wire_count):
+            raise AssertionError(f"phase 14b: verify {v}, dedup {d}")
+        # one full first-bucket dispatch, then the partial rest by age
+        part = wire_count - full
+        if (v["batch_cnt"], v["lanes_filled_cnt"], v["lanes_dispatched_cnt"],
+                v["bucket_fill_pct"]) != (2, wire_count, 2 * full,
+                                          100 * part // full):
+            raise AssertionError(f"phase 14b: not one full bucket and one "
+                                 f"partial: {v}")
+        note(f"phase 14b: verify-bench in processes, {wire_count} wire txns"
+             f" at buckets {buckets}: verify pass {v['verify_pass_cnt']} "
+             f"fail {v['verify_fail_cnt']} parse_fail {v['parse_fail_cnt']} "
+             f"torn {v['torn_drop_cnt']} batches {v['batch_cnt']} (one of "
+             f"{full} rows, full, and one of {part} by the {flush_age_ns} ns "
+             f"age flush) compile {v['compile_cnt']}; dedup uniq "
+             f"{d['uniq_cnt']}; the sink capture == source_txn_stream; "
+             f"poll() None throughout; drain() True; every tile exited 0; "
+             f"boot {t_boot_b:.3f} s; {full / t_full:.1f} wire txns/s at "
+             f"the sink over the first {full} ({t_full:.3f} s; the source "
+             f"signs each txn on the host), all {wire_count} after "
+             f"{t_b:.3f} s with the age wait")
+
+        # ---- (c) processes: the packed-wire firehose, two verify tiles
+        cfg = app_config.load(environ={})
+        cfg["name"] = f"{tag}c"
+        cfg["layout"]["verify_tile_count"] = 2
+        cfg["tiles"]["verify"]["batch"] = rows
+        cfg["tiles"]["verify"]["msg_maxlen"] = 256
+        cfg["tiles"]["verify"]["device"] = device or ""
+        cfg["development"]["packed_wire"] = 1
+        cfg["development"]["source_count"] = firehose_count
+        spec = app_config.build_topology(cfg)
+        _shm_check(spec.wksp_mb << 20, note)
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy.from_cfg(cfg))
+        try:
+            run.wait_ready(timeout=cfg["supervision"]["boot_grace_s"])
+            t_boot_c = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+            def verdicted():
+                return sum(run.metrics(f"verify:{i}")["verify_fail_cnt"]
+                           for i in range(2)) >= firehose_count
+            _wait_for(verdicted, 600, f"{firehose_count} packed rows", run)
+            t_c = time.perf_counter() - t0
+            if run.poll() is not None:
+                raise AssertionError("phase 14c: a tile failed")
+            ms = [run.metrics(f"verify:{i}") for i in range(2)]
+        finally:
+            run.close()
+        if set(run.exitcodes.values()) != {0}:
+            raise AssertionError(f"phase 14c: exit codes {run.exitcodes}")
+        if (sum(m["txn_in_cnt"] for m in ms) != firehose_count
+                or not all(m["txn_in_cnt"] > 0 for m in ms)
+                or any(m["torn_drop_cnt"] for m in ms)
+                or any(m["verify_fail_cnt"] != m["txn_in_cnt"] for m in ms)):
+            raise AssertionError(f"phase 14c: verify tiles {ms}")
+        note(f"phase 14c: packed-wire firehose, 2 verify tiles on one card,"
+             f" {firehose_count} rows in frags of {rows}x{packed_row_ml(256)}:"
+             f" txn_in {[m['txn_in_cnt'] for m in ms]}, batches "
+             f"{[m['batch_cnt'] for m in ms]}, torn "
+             f"{[m['torn_drop_cnt'] for m in ms]}, every stamped row "
+             f"failed; poll() None throughout; every tile exited 0; boot "
+             f"{t_boot_c:.3f} s; "
+             f"{firehose_count / t_c:.1f} rows/s ({t_c:.3f} s)")
+    finally:
+        if old_omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = old_omp
+    note(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1646,6 +2121,10 @@ def main() -> int:
     # card, each with the launch counts set to 0 just before it
     with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
         serving_phase(pool, reset_counts, counts, note)
+        # ---- phase 14: the tango fabric and the tile runtime: the port's
+        # VerifyTile under the port's Mux in process, then the
+        # verify-bench topology in processes, wire and packed-wire
+        topology_phase(pool, reset_counts, counts, note)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels

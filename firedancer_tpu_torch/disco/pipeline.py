@@ -30,6 +30,7 @@ from ..ballet import txn as txn_lib
 from ..ops.ed25519 import PACKED_EXTRA
 from ..tango.tcache import TCache
 from ..utils.hist import Histf
+from . import trace as trace_mod
 
 
 def _is_ready(dev) -> bool:
@@ -238,8 +239,9 @@ class VerifyPipeline:
     (filled batches dispatch without waiting; harvest() retires them); 0
     returns each batch's verdicts from the submit that fills it.  lat_shapes
     adds the low-latency lane.  egress_packed makes packed-row harvests
-    return one PackedVerdicts per frag.  tracer must be None: trace
-    spans come with the port's topology runtime.
+    return one PackedVerdicts per frag.  tracer (a TraceRing, the tile's
+    ctx.trace) records the coalesce, compile, dispatch, device and harvest
+    spans of every batch.
     """
 
     def __init__(self, verify_fn, batch: int | None = None,
@@ -249,10 +251,6 @@ class VerifyPipeline:
                  deadline_us: int = 2000, lat_max_inflight: int = 2,
                  lat_spill_age_factor: float = 4.0,
                  egress_packed: bool = False):
-        if tracer is not None:
-            raise NotImplementedError(
-                "trace spans are not ported yet (firedancer_tpu_torch): "
-                "pass tracer=None")
         if buckets is None:
             if batch is None or msg_maxlen is None:
                 raise ValueError("need either (batch, msg_maxlen) or buckets")
@@ -272,6 +270,7 @@ class VerifyPipeline:
         self.egress_packed = bool(egress_packed)
         self.metrics = VerifyMetrics()
         self.max_inflight = max_inflight
+        self.tracer = tracer
         # bulk batches retired per NON-blocking harvest poll: a bulk
         # finish is host work, and an unbounded drain would hold the
         # deadline lane behind it (the lat lane is never quota'd)
@@ -300,6 +299,13 @@ class VerifyPipeline:
                 pinned=pinned)
         else:
             self.lat_bucket = None
+
+    @property
+    def has_pending(self) -> bool:
+        """True iff some admitted txn has no verdict yet: open in a bucket
+        or in flight on the device."""
+        return (self.has_open or bool(self.inflight)
+                or bool(self.lat_inflight))
 
     @property
     def has_open(self) -> bool:
@@ -488,8 +494,13 @@ class VerifyPipeline:
         ok_dev = self.verify_fn.dispatch_blob(blob, maxlen=ml)
         if first_dispatch:
             self._seen_shapes.add(shape)
+            dt = time.perf_counter_ns() - t0
             self.metrics.compile_cnt += 1
-            self.metrics.compile_ns += time.perf_counter_ns() - t0
+            self.metrics.compile_ns += dt
+            if self.tracer is not None:
+                self.tracer.record(
+                    trace_mod.KIND_COMPILE, t0, dt,
+                    iidx=trace_mod.LANE_LAT if lane else 0)
         if guard is not None:
             # the payload was never copied under the seqlock, so the
             # overrun check comes AFTER the device got its read underway
@@ -577,8 +588,13 @@ class VerifyPipeline:
         if not bk.pending:
             return []
         t0 = time.perf_counter_ns()
+        tr_idx = bk.bidx | (trace_mod.LANE_LAT if bk.lane else 0)
         if bk.t_first:
             self.metrics.coalesce_ns.sample(t0 - bk.t_first)
+            if self.tracer is not None:
+                self.tracer.record(trace_mod.KIND_COALESCE, bk.t_first,
+                                   t0 - bk.t_first, iidx=tr_idx,
+                                   cnt=len(bk.pending))
         nrows = bk.batch if rows is None else min(int(rows), bk.batch)
         self.metrics.lanes_filled += bk.used
         self.metrics.lanes_dispatched += nrows
@@ -589,8 +605,12 @@ class VerifyPipeline:
         ok_dev = self.verify_fn.dispatch_blob(blob, maxlen=bk.maxlen)
         if first_dispatch:
             self._seen_shapes.add(shape)
+            dt = time.perf_counter_ns() - t0
             self.metrics.compile_cnt += 1
-            self.metrics.compile_ns += time.perf_counter_ns() - t0
+            self.metrics.compile_ns += dt
+            if self.tracer is not None:
+                self.tracer.record(trace_mod.KIND_COMPILE, t0, dt,
+                                   iidx=tr_idx)
         start_async = getattr(ok_dev, "copy_to_host_async", None)
         if start_async is not None:
             start_async()
@@ -601,6 +621,10 @@ class VerifyPipeline:
                        lane=bk.lane, t_first=bk.t_first)
         bk.reset()
         if self.max_inflight <= 0:
+            if self.tracer is not None:
+                self.tracer.record(trace_mod.KIND_DISPATCH, t0,
+                                   time.perf_counter_ns() - t0,
+                                   iidx=tr_idx, cnt=len(fl.pending))
             return self._finish(fl)          # synchronous mode
         q = self.lat_inflight if bk.lane else self.inflight
         q.append(fl)
@@ -608,6 +632,13 @@ class VerifyPipeline:
         while len(q) > self.max_inflight:
             # bounded queue: retire the oldest before accepting more
             out += self._finish(q.popleft())
+        if self.tracer is not None:
+            # the dispatch call and the over-budget drain above: a full
+            # inflight queue blocks there, so this span is the
+            # dispatch-queue pressure
+            self.tracer.record(trace_mod.KIND_DISPATCH, t0,
+                               time.perf_counter_ns() - t0, iidx=tr_idx,
+                               cnt=len(fl.pending))
         return out + self.harvest()
 
     def _finish(self, fl: _Inflight) -> list[tuple[bytes, txn_lib.Txn]]:
@@ -635,6 +666,11 @@ class VerifyPipeline:
                 self.metrics.lat_e2e_ns.sample(now - fl.t_first)
         elif fl.t_first:
             self.metrics.e2e_ns.sample(now - fl.t_first)
+        tr_idx = ((fl.owner.bidx if fl.owner is not None else 0)
+                  | (trace_mod.LANE_LAT if fl.lane else 0))
+        if self.tracer is not None:
+            self.tracer.record(trace_mod.KIND_DEVICE, fl.t0, now - fl.t0,
+                               iidx=tr_idx, cnt=len(fl.pending))
         out = []
         for p in fl.pending:
             if isinstance(p, _RowsPending):
@@ -648,6 +684,11 @@ class VerifyPipeline:
                 out.append((p.payload, p.parsed))
             else:
                 self.metrics.verify_fail += 1
+        if self.tracer is not None:
+            # harvest: verdict materialized -> passing txns rebuilt
+            self.tracer.record(trace_mod.KIND_HARVEST, now,
+                               time.perf_counter_ns() - now, iidx=tr_idx,
+                               cnt=len(out))
         return out
 
     def _finish_rows(self, rp: _RowsPending, ok) -> list:

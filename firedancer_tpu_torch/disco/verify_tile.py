@@ -1,9 +1,9 @@
 """The verify tile on the card (src/app/fdctl/run/tiles/fd_verify.c).
 
 Counterpart of firedancer_tpu/disco/tiles.py VerifyTile, as the port's
-own tile kind (TILES).  A tile is a class with the mux callbacks; its ctx
-gives cfg, publish, publish_burst, out_reserve/out_commit, metrics,
-heartbeat and trace.
+own tile kind (TILES).  A tile is a class with the mux callbacks
+(disco/mux.py); its ctx gives cfg, publish, publish_burst,
+out_reserve/out_commit, in_mcache, metrics, heartbeat and trace.
 
 One SigVerifier sized to the largest batch and message length serves
 every bucket and latency-lane shape: its dispatch_blob takes any blob no
@@ -23,13 +23,9 @@ import torch
 from ..kernels import build
 from ..models.verifier import SigVerifier, VerifierConfig
 from ..ops.ed25519 import PACKED_EXTRA
-from ..utils import log
+from . import trace as trace_mod
 from .pipeline import (DEFAULT_LAT_SHAPES, LAT_PRIO_BIT, PackedVerdicts,
                        VerifyPipeline)
-
-# settings of the JAX tile that the port takes no notice of yet: the
-# native host path, GuardedVerifier's supervision and the XLA trace dir
-_IGNORED = ("native_hostpath", "supervision", "jax_trace_dir")
 
 
 class VerifyTile:
@@ -40,11 +36,21 @@ class VerifyTile:
 
     cfg: buckets ([[batch, msg_maxlen], ...], or batch and msg_maxlen),
     round_robin_cnt/idx, flush_age_ns, tcache_depth, max_inflight,
-    n_buffers, burst, egress_packed, latency {enabled, shapes,
-    deadline_us, max_inflight, spill_age_factor}, mode, and device (None
-    is the GPU; "cpu" runs the kernels' plain versions).  dp_shards > 1,
-    mode antipa, aot_dir, aot_require and packed_wire are not ported and
-    raise NotImplementedError."""
+    n_buffers, burst, packed_wire, egress_packed, latency {enabled,
+    shapes, deadline_us, max_inflight, spill_age_factor}, mode, and device
+    (None is the GPU; "cpu" runs the kernels' plain versions).
+    dp_shards > 1, mode antipa, aot_dir, aot_require, native_hostpath and
+    jax_trace_dir are not ported and raise NotImplementedError.
+
+    packed_wire: each in-link frag is meta.sz rows already in the device
+    blob layout in the dcache, at the first bucket's shape.  The rows go
+    to the verifier as a view of the shared memory, with no copy on the
+    host; the frag's flow credit stays held (credits_held) until its
+    verdict is harvested, and its mcache seq is re-checked after the
+    dispatch, so a frag the producer overwrote mid-read is dropped whole
+    (torn_drop_cnt).  dispatch_blob's upload reads the rows from pageable
+    memory, a copy that has finished by the time dispatch_blob returns,
+    so that re-check comes after the read."""
 
     def init(self, ctx):
         cfg = ctx.cfg
@@ -63,10 +69,6 @@ class VerifyTile:
                 raise NotImplementedError(
                     f"{key}: the port has no AOT store; its tile boots by "
                     "building the kernels and warming every shape")
-        if cfg.get("packed_wire"):
-            raise NotImplementedError(
-                "packed_wire: the zero-copy packed rx path comes with the "
-                "port's topology runtime")
         self.verify_mode = str(
             os.environ.get("FDTPU_VERIFY_MODE") or cfg.get("mode", "strict"))
         if self.verify_mode == "antipa":
@@ -76,10 +78,14 @@ class VerifyTile:
         if self.verify_mode != "strict":
             raise ValueError(f"[verify] mode must be strict|antipa, "
                              f"got {self.verify_mode!r}")
-        for key in _IGNORED:
-            if cfg.get(key):
-                log.warning("verify tile: %s is not ported and is ignored",
-                            key)
+        if cfg.get("native_hostpath"):
+            raise NotImplementedError(
+                "native_hostpath: the native host path (hostpath.cpp) is "
+                "not ported; the tile's NumPy path gives the same verdicts")
+        if cfg.get("jax_trace_dir"):
+            raise NotImplementedError(
+                "jax_trace_dir: the port runs no XLA, so it has no XLA "
+                "trace to write")
         latc = cfg.get("latency") or {}
         self._lat_enabled = bool(int(latc.get("enabled", 0)))
         lat_shapes = (tuple(int(s) for s in
@@ -136,21 +142,65 @@ class VerifyTile:
         self._last_submit_ns = 0
         self._synced_batches = -1
         self._burst = cfg.get("burst", True)
-        if self._burst:
+        self._held = {}            # iidx -> frags pinned awaiting verdict
+        if cfg.get("packed_wire"):
+            # zero-copy rx: the mux's on_burst_view path hands this tile
+            # metas and the raw dcache; on_burst hides, so the mux does
+            # not allocate its rx scratch (BURST_RX times a packed link's
+            # mtu, hundreds of KB a frag)
+            self.on_burst = None
+            self.burst_rr = (self.rr_cnt, self.rr_idx)
+            b0, ml0 = buckets[0]
+            self._pw_batch = int(b0)
+            self._pw_stride = int(ml0) + PACKED_EXTRA
+        elif self._burst:
+            self.on_burst_view = None
             self.burst_rr = (self.rr_cnt, self.rr_idx)
         else:
-            self.on_burst = None     # hide the hook from the mux
+            # hide both hooks from the mux
+            self.on_burst = None
+            self.on_burst_view = None
 
     def before_frag(self, ctx, iidx, seq, sig) -> bool:
         return (seq % self.rr_cnt) != self.rr_idx
 
+    def apply_knobs(self, ctx, vals):
+        """Knob pod application (disco/autotune.py KNOBS['verify']).
+        Every target is re-read on its hot path each call, so a new value
+        is live from the next batch on, with no respawn."""
+        if "flush_age_ns" in vals:
+            self.flush_age_ns = max(1, int(vals["flush_age_ns"]))
+        pipe = self.pipe
+        if "max_inflight" in vals:
+            pipe.max_inflight = max(1, int(vals["max_inflight"]))
+        if "lat_max_inflight" in vals:
+            pipe.lat_max_inflight = max(1, int(vals["lat_max_inflight"]))
+        if "deadline_us" in vals:
+            new = max(1, int(vals["deadline_us"]))
+            old = max(1, int(pipe.deadline_us))
+            # the spill age was set as factor * deadline at init; keep
+            # the factor across deadline moves
+            factor = pipe.lat_spill_age_ns / (old * 1000)
+            pipe.deadline_us = new
+            pipe.lat_spill_age_ns = int(factor * new * 1000)
+
     def _forward(self, ctx, passed):
         if self._burst:
             return self._forward_burst(ctx, passed)
+        if not passed:
+            return
+        t0 = time.monotonic_ns()
         for payload, _ in passed:
             # first sig's low 64 bits: signature_off is 1 for every
             # wire-valid txn (1-byte sig count prefix)
             ctx.publish(payload, sig=int.from_bytes(payload[1:9], "little"))
+        self._span_publish(ctx, t0, len(passed))
+
+    @staticmethod
+    def _span_publish(ctx, t0, cnt):
+        if ctx.trace is not None:
+            ctx.trace.record(trace_mod.KIND_PUBLISH, t0,
+                             time.monotonic_ns() - t0, cnt=cnt)
 
     def _forward_burst(self, ctx, passed):
         """One burst publish for all passing txns; a PackedVerdicts entry
@@ -164,6 +214,7 @@ class VerifyTile:
                                if not isinstance(q, PackedVerdicts))]
         if not bufs:
             return
+        t0 = time.monotonic_ns()
         joined = b"".join(bufs)
         lens = np.array([len(b) for b in bufs], np.int32)
         starts = np.zeros(len(bufs), np.int64)
@@ -171,6 +222,7 @@ class VerifyTile:
         sigs = np.array([int.from_bytes(b[1:9], "little") for b in bufs],
                         np.uint64)
         ctx.publish_burst(joined, starts, lens, sigs)
+        self._span_publish(ctx, t0, len(bufs))
 
     def _publish_packed_verdicts(self, ctx, pv):
         """Stamp one harvest's passing wires downstream as one packed
@@ -178,6 +230,7 @@ class VerifyTile:
         back, written straight into the out dcache (out_reserve).
         meta.sz = survivor count k; meta.sig = first survivor's tag, bit
         63 masked so arena frags never alias latency-class admission."""
+        t0 = time.monotonic_ns()
         hdr = 4 * (pv.k + 1)
         nb = hdr + int(pv.offs[pv.k])
         chunk, blk = ctx.out_reserve(nb)
@@ -187,6 +240,7 @@ class VerifyTile:
         blk[hdr:nb] = pv.arena
         sig0 = int(pv.tags[0]) & (LAT_PRIO_BIT - 1)
         ctx.out_commit(chunk, nb, sig=sig0, sz=pv.k)
+        self._span_publish(ctx, t0, pv.k)
 
     def on_frag(self, ctx, iidx, meta, payload):
         # priority admission: the producer's latency-class bit rides the
@@ -233,11 +287,39 @@ class VerifyTile:
         return passed
 
     def credits_held(self, iidx: int) -> int:
-        """Frags consumed but still pinned in the dcache (the device reads
-        them until their verdict lands); the mux subtracts this from the
-        fseq.  Only the packed-wire rx pins frags, and it comes with the
-        port's topology runtime, so this tile holds none."""
-        return 0
+        """Frags consumed but still pinned in the dcache (the pipeline
+        rebuilds passing wires from the rows at harvest); the mux
+        subtracts this from the fseq, so the producer cannot overwrite
+        them before their verdict."""
+        return self._held.get(iidx, 0)
+
+    def on_burst_view(self, ctx, iidx, metas, dcache):
+        """Packed-wire rx: each meta is one packed frag of meta.sz rows in
+        the dcache.  The shm view goes to the pipeline with no payload
+        copy; the frag's credit stays held until its verdict is
+        harvested (release fires once, torn or not), and the mcache seq
+        is re-checked after the dispatch, so a torn read never yields a
+        verdict."""
+        b, stride = self._pw_batch, self._pw_stride
+        mc = ctx.in_mcache(iidx)
+        held = self._held
+        for meta in metas:
+            rows = dcache.rows(int(meta["chunk"]), b, stride)
+            # pin BEFORE submit: sync mode retires (and releases) inside
+            held[iidx] = held.get(iidx, 0) + 1
+
+            def _release(iidx=iidx):
+                held[iidx] -= 1
+
+            lat = bool(self._lat_enabled
+                       and (int(meta["sig"]) & LAT_PRIO_BIT))
+            passed = self.pipe.submit_packed_rows(
+                rows, n=int(meta["sz"]), guard=(mc, int(meta["seq"])),
+                release_cb=_release, lat=lat)
+            if passed:
+                self._forward_burst(ctx, passed)
+        self._last_submit_ns = time.monotonic_ns()
+        self._sync_metrics(ctx)
 
     def after_credit(self, ctx):
         # the low-latency lane's deadline close runs every loop
@@ -290,6 +372,30 @@ class VerifyTile:
         ctx.metrics.hist_store("batch_ns", s.batch_ns)
         ctx.metrics.hist_store("coalesce_ns", s.coalesce_ns)
         ctx.metrics.hist_store("lat_e2e_ns", s.lat_e2e_ns)
+
+    def drain(self, ctx) -> bool:
+        """Drain-protocol hook (the mux polls it under SIGNAL_DRAIN): each
+        poll dispatches every open bucket and the lat accumulator, and
+        harvests finished device batches without blocking, publishing
+        their verdicts.  True once nothing is open or in flight: every
+        admitted txn has its verdict."""
+        pipe = self.pipe
+        if pipe.has_open:
+            self._forward(ctx, pipe.dispatch_open())
+        passed = pipe.harvest()
+        if passed:
+            self._forward(ctx, passed)
+        if pipe.has_pending:
+            return False
+        self._sync_metrics(ctx)
+        return True
+
+    def fini(self, ctx):
+        """At halt: dispatch what is open, wait for every verdict and
+        publish the passing txns.  A device error propagates, so the tile
+        does not exit cleanly over it."""
+        self._forward(ctx, self.pipe.flush())
+        self._sync_metrics(ctx)
 
 
 TILES = {"verify": VerifyTile}

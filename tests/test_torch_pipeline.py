@@ -368,10 +368,41 @@ def test_latency_lane(jfn):
     assert m.lanes_dispatched == BATCH + 4 + 4
 
 
-def test_tracer_refused():
-    fn = SigVerifier(VerifierConfig(4, 64), device="cpu")
-    with pytest.raises(NotImplementedError, match="trace"):
-        pipe.VerifyPipeline(fn, batch=4, msg_maxlen=64, tracer=object())
+def test_tracer_refused(jfn):
+    """The pipeline used to refuse a tracer; it now takes the tile's
+    TraceRing.  Each pipeline over its own package's ring, on the same
+    stream, synchronous and async: the same spans (kind, index, count) in
+    the same order, and has_pending True until the last verdict is
+    harvested."""
+    from firedancer_tpu.disco import trace as jtrace
+    from firedancer_tpu_torch.disco import trace as ptrace
+
+    rng = random.Random(12)
+    txns = [make_signed_txn(rng, 3000 + i) for i in range(BATCH + 5)]
+
+    def drive(p):
+        out = []
+        for t in txns:
+            out += p.submit(t)
+        assert p.has_pending
+        out += p.flush()
+        assert not p.has_pending
+        return out
+
+    for max_inflight in (0, 2):
+        port, ref = _pair(jfn, tcache_depth=64, max_inflight=max_inflight)
+        rings = []
+        for p, mod in ((port, ptrace), (ref, jtrace)):
+            buf = bytearray(mod.footprint(64))
+            p.tracer = mod.TraceRing(buf, 0, create=True, depth=64)
+            rings.append(p.tracer)
+        _same(port, ref, drive)
+        spans = [[(int(r["kind"]), int(r["iidx"]), int(r["cnt"]))
+                  for r in ring.snapshot()[1]] for ring in rings]
+        assert {k for k, _, _ in spans[0]} == {
+            ptrace.KIND_COALESCE, ptrace.KIND_COMPILE, ptrace.KIND_DISPATCH,
+            ptrace.KIND_DEVICE, ptrace.KIND_HARVEST}
+        assert spans[0] == spans[1]
 
 
 @pytest.mark.parametrize("fn", [

@@ -136,15 +136,15 @@ def _burst(frags):
 
 
 def _run(tile, ctx, half_lat=False):
-    """Feed FRAGS as two rx bursts, then drain the pipeline."""
+    """Feed FRAGS as two rx bursts, then halt: fini flushes the pipeline
+    and publishes the verdicts."""
     tile.init(ctx)
     for part in (FRAGS[:13], FRAGS[13:]):
         metas, buf, offs = _burst(part)
         if half_lat:
             metas["sig"][::2] |= np.uint64(LAT_PRIO_BIT)
         tile.on_burst(ctx, 0, metas, buf, offs, len(part))
-    tile._forward(ctx, tile.pipe.flush())
-    tile._sync_metrics(ctx)
+    tile.fini(ctx)
     return ctx
 
 
@@ -177,7 +177,8 @@ def test_port_tile_latency_lane_and_scalar_frags():
     for seq, p in enumerate(FRAGS):
         assert not tile.before_frag(ctx, 0, seq, 0)
         tile.on_frag(ctx, 0, {"sig": 0}, p)
-    tile._forward(ctx, tile.pipe.flush())
+    while not tile.drain(ctx):
+        pass
     assert ctx.published == _expected()
 
 
@@ -196,7 +197,7 @@ def test_port_tile_packed_verdict_egress():
         rows[i, 320:352] = np.frombuffer(_PUBS[0], np.uint8)
         rows[i, 352:] = np.array([len(msg)], np.int32).view(np.uint8)
     tile._forward_burst(ctx, tile.pipe.submit_packed_rows(rows))
-    tile._forward(ctx, tile.pipe.flush())
+    tile.fini(ctx)
     assert ctx.published == []
     ((blob, sig, k),) = ctx.frags
     offs = np.frombuffer(blob[:4 * (k + 1)], np.uint32)
@@ -231,7 +232,8 @@ def test_port_tile_one_verifier_covers_the_ladder():
     ({"mode": "antipa"}, "antipa"),
     ({"aot_require": True}, "aot_require"),
     ({"aot_dir": "store"}, "aot_dir"),
-    ({"packed_wire": 1}, "packed_wire"),
+    ({"native_hostpath": 1}, "native_hostpath"),
+    ({"jax_trace_dir": "trace"}, "jax_trace_dir"),
 ])
 def test_port_tile_refuses_what_is_not_ported(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
