@@ -17,15 +17,18 @@ held against the exact batch equation on Python ints (decompress,
 sha512, rlc_recode and msm kernels).  Then the serving layers (phase
 13): the engine (SigVerifier.make_ingest over pinned rotating blobs)
 against serial dispatch_blob, and the port's VerifyTile at the default
-bucket ladder, wire txns of every outcome and packed-row fills, its
-accepted set against the host verifier's (sha512 and verify_tail
-kernels).  Then the topology runtime (phase 14): the port's Mux runs the
+bucket ladder, wire txns of every outcome through the native burst parse
+and packed-row fills, its accepted set against the host verifier's, once
+with [ingest] native_hostpath 1 (the packed rows through the C host path)
+and once with 0 (the NumPy finish) (sha512 and verify_tail kernels).
+Then the topology runtime (phase 14): the port's Mux runs the
 VerifyTile in process on packed-wire frags with the card stalled after
 each dispatch (each frag's flow credit held until its verdict, the
 drain park and its manifest), then the verify-bench topology (source ->
 verify -> dedup -> sink) in spawned processes on wire txns at the
-default bucket ladder, and the packed-wire firehose over two verify
-tiles on the one card.  Each path runs with the launch counts set to 0
+default bucket ladder, the packed-wire firehose over two verify tiles
+on the one card, and the wire firehose through one verify tile's native
+burst parse for a fixed window.  Each path runs with the launch counts set to 0
 just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
@@ -247,7 +250,6 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
 
     from firedancer_tpu_torch.ballet import txn as txn_lib
     from firedancer_tpu_torch.disco import pipeline as pl
-    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
     from firedancer_tpu_torch.models import verifier as V
     from firedancer_tpu_torch.ops import ed25519 as ed
     buckets = [list(b) for b in (buckets or pl.DEFAULT_BUCKETS)]
@@ -516,50 +518,211 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
                 want_wires.append(b"\x01" + rows[r, rml:rml + 64].tobytes()
                                   + rows[r, :n].tobytes())
 
-    cfg = {"buckets": buckets, "egress_packed": 1}
-    if not cuda:
+    # the txns the burst path reroutes through submit(): those that parse
+    # with a message longer than the first bucket's
+    n_long = 0
+    for w in stream:
+        try:
+            n_long += len(txn_lib.parse(w).message(w)) > buckets[0][1]
+        except txn_lib.TxnParseError:
+            pass
+    n_bursts = -(-len(stream) // 64)
+    # the tile twice: at the default [ingest] native_hostpath 1 (packed
+    # rows through fd_hostpath_*), then at 0 (the NumPy finish); the wire
+    # bursts go through the native burst parser either way
+    runs = {native: _tile_run(native, buckets, device, stream, fill_blobs,
+                              fills, fill_rows, reset_counts, counts, sync)
+            for native in (1, 0)}
+    for native, r in runs.items():
+        got, snap, launches = r["got"], r["snap"], r["launches"]
+        tag_ = f"tile (native_hostpath {native})"
+        if len(got) != len(set(got)) or set(got) != want:
+            raise AssertionError(
+                f"{tag_}: accepted {len(got)} wire txns, the host oracle "
+                f"{len(want)}; {len(set(got) - want)} extra, "
+                f"{len(want - set(got))} missing")
+        if r["got_wires"] != want_wires:
+            raise AssertionError(f"{tag_}: packed rows accepted "
+                                 f"{len(r['got_wires'])}, the host oracle "
+                                 f"{len(want_wires)}")
+        n_mtu_ok = sum(len(p) == txn_lib.MTU for p in got)
+        if n_mtu_ok != n_mtu:
+            raise AssertionError(f"{tag_}: {n_mtu_ok} of {n_mtu} full-MTU "
+                                 f"txns accepted")
+        if not (launches["sha512_ram"] == launches["verify_tail"]
+                == snap["batches"]):
+            raise AssertionError(f"{tag_}: launches {launches} for "
+                                 f"{snap['batches']} dispatches")
+        if snap["compile_cnt"]:
+            raise AssertionError(f"{tag_}: compile_cnt "
+                                 f"{snap['compile_cnt']} after boot")
+        if r["returns"] != r["wire_batches"]:
+            raise AssertionError(f"{tag_}: {r['returns']} bucket blob "
+                                 f"returns for {r['wire_batches']} bucket "
+                                 f"dispatches")
+        if cuda and not r["pinned"]:
+            raise AssertionError(f"{tag_}: a bucket blob is not pinned")
+        # the burst path: one native parse a fill of the first bucket, and
+        # submit() only for the txns rerouted past it; the packed fills
+        # through one fd_hostpath_* call a frag each way, or none at 0
+        if not (0 < r["parses"] <= n_bursts + r["wire_batches"]
+                and r["scalar"] == n_long):
+            raise AssertionError(f"{tag_}: {r['parses']} native parses, "
+                                 f"{r['scalar']} scalar submits")
+        hp_want = ({"fd_hostpath_submit_rows": fills,
+                    "fd_hostpath_finish_rows": fills} if native else {})
+        if r["hp_calls"] != hp_want:
+            raise AssertionError(f"{tag_}: host path calls {r['hp_calls']}")
+        note(f"{tag_} at buckets {buckets}: {len(stream)} wire frags "
+             f"({n_distinct} distinct signed txns, {n_mtu} full-MTU, 32 "
+             f"repeats, 8 tampered, 4 with a bad second signature, 2 parse "
+             f"failures): accepted {len(got)} == host oracle, {n_mtu_ok} of "
+             f"them full-MTU (the {buckets[-1][0]}x{buckets[-1][1]} "
+             f"bucket), {r['parses']} native burst parses, {r['scalar']} "
+             f"txns rerouted through submit(); {fills} packed fills of "
+             f"{fill_rows} rows ({fill_valid} valid each): "
+             f"{len(r['got_wires'])} == host oracle, host path calls "
+             f"{r['hp_calls'] or 'none (NumPy finish)'}; sha512 and "
+             f"verify_tail launches {launches['sha512_ram']} and "
+             f"{launches['verify_tail']} == {snap['batches']} dispatches; "
+             f"compile_cnt {snap['compile_cnt']}; {r['returns']} bucket "
+             f"blob returns, each after its verdict was ready, "
+             f"{r['waited']} of them waited on a pending verdict; "
+             f"{r['n_blobs']} bucket blobs, pinned: {r['pinned']}")
+        note(f"{tag_}: boot {r['t_boot']:.3f} s (kernel build and warmup "
+             f"of {len(buckets)} shapes); wire txns "
+             f"{len(stream) / r['t_wire']:.1f} txns/s over "
+             f"{r['wire_batches']} dispatches ({r['t_wire'] * 1e3:.1f} ms: "
+             f"{r['t_parse'] * 1e3:.1f} ms in {r['parses']} native burst "
+             f"parses, {r['t_dispatch'] * 1e3:.1f} ms in dispatch_blob, "
+             f"{r['t_finish'] * 1e3:.1f} ms in the harvests (the wait for "
+             f"a verdict included), the rest host glue; "
+             f"{r['t_scalar'] * 1e3:.1f} ms in the {r['scalar']} rerouted "
+             f"submit()s, what they dispatched and harvested included; "
+             f"{r['t_flush'] * 1e3:.1f} ms in the last flush and its "
+             f"verdicts); {r['t_fill']:.4f} ms a {fill_rows}-row packed "
+             f"fill wall, of it {r['rows_finish_ms']:.4f} ms the finish "
+             f"(verdict masking, tcache inserts, wire arena); pipeline "
+             f"batch_ns p50/p99 "
+             f"{snap['batch_ns_p50']:.0f}/{snap['batch_ns_p99']:.0f}, "
+             f"coalesce_ns p50 {snap['coalesce_ns_p50']:.0f}, e2e_ns p50 "
+             f"{snap['e2e_ns_p50']:.0f}, lanes {snap['lanes_filled']} "
+             f"filled of {snap['lanes_dispatched']} dispatched")
+    if (runs[1]["got"] != runs[0]["got"]
+            or runs[1]["got_wires"] != runs[0]["got_wires"]):
+        raise AssertionError("tile: native_hostpath 1 and 0 accepted "
+                             "different txns")
+    note("tile: native_hostpath 1 and 0 accepted the same wire txns in the "
+         "same order and the same packed-row wires")
+    note(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+class _CountingLib:
+    """The host library with its fd_hostpath_* calls counted."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.calls = collections.Counter()
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.startswith("fd_hostpath_"):
+            return fn
+
+        def counted(*args):
+            self.calls[name] += 1
+            return fn(*args)
+        return counted
+
+
+def _tile_run(native, buckets, device, stream, fill_blobs, fills, fill_rows,
+              reset_counts, counts, sync):
+    """Phase 13b once: the port's VerifyTile at `buckets` with
+    [ingest] native_hostpath = native, the wire stream as rx bursts of 64
+    frags, then the packed-row fills.  Returns what was published, the
+    counts and the times; the checks are the caller's."""
+    from firedancer_tpu_torch.disco import pipeline as pl
+    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
+    cfg = {"buckets": buckets, "egress_packed": 1, "native_hostpath": native}
+    if device is not None:
         cfg["device"] = device
     tile, ctx = VerifyTile(), _RecCtx(cfg)
     t0 = time.perf_counter()
     tile.init(ctx)
     t_boot = time.perf_counter() - t0
+    pipe = tile.pipe
     pguard = _ReleaseGuard()
-    _guard_pipeline(tile.pipe, pguard)
-    reset_counts()
-    t0 = time.perf_counter()
-    for lo in range(0, len(stream), 64):
-        part = stream[lo:lo + 64]
-        offs = np.zeros(len(part) + 1, np.int64)
-        np.cumsum([len(w) for w in part], out=offs[1:])
-        metas = np.zeros(len(part), dtype=[("sig", np.uint64)])
-        tile.on_burst(ctx, 0, metas, np.frombuffer(b"".join(part), np.uint8),
-                      offs, len(part))
-        tile.after_credit(ctx)
-    tile._forward(ctx, tile.pipe.flush())
-    sync()
-    t_wire = time.perf_counter() - t0
-    wire_batches = tile.pipe.metrics.batches
-    t0 = time.perf_counter()
-    for rows in fill_blobs:
-        tile._forward_burst(ctx, tile.pipe.submit_packed_rows(rows))
-        tile.after_credit(ctx)
-    tile._forward(ctx, tile.pipe.flush())
-    sync()
-    t_fill = (time.perf_counter() - t0) * 1e3 / fills
+    _guard_pipeline(pipe, pguard)
+    hp = None
+    if pipe._hp is not None:
+        hp = pipe._hp = _CountingLib(pipe._hp)
+    # the burst path's native parses, its rerouted scalar submits, the
+    # dispatches and the harvests, counted and timed on this pipeline
+    # alone (the dispatches and harvests inside a rerouted submit too)
+    t_in = dict.fromkeys(("parse", "scalar", "dispatch", "finish",
+                          "rows_finish"), 0.0)
+    n_in = dict.fromkeys(t_in, 0)
+    parse, submit = pl.tn.parse_packed_bucket, pipe.submit
+    fn, finish = pipe.verify_fn, pipe._finish
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                t_in[key] += time.perf_counter() - t
+                n_in[key] += 1
+        return call
+
+    pl.tn.parse_packed_bucket = timed("parse", parse)
+    pipe.submit = timed("scalar", submit)
+    fn.dispatch_blob = timed("dispatch", fn.dispatch_blob)
+    pipe._finish = timed("finish", finish)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        for lo in range(0, len(stream), 64):
+            part = stream[lo:lo + 64]
+            offs = np.zeros(len(part) + 1, np.int64)
+            np.cumsum([len(w) for w in part], out=offs[1:])
+            metas = np.zeros(len(part), dtype=[("sig", np.uint64)])
+            tile.on_burst(ctx, 0, metas,
+                          np.frombuffer(b"".join(part), np.uint8), offs,
+                          len(part))
+            tile.after_credit(ctx)
+        t1 = time.perf_counter()
+        tile._forward(ctx, pipe.flush())
+        sync()
+        t_wire = time.perf_counter() - t0
+        t_flush = time.perf_counter() - t1
+    finally:
+        pl.tn.parse_packed_bucket = parse
+        del pipe.submit, fn.dispatch_blob
+        pipe._finish = finish
+    wire_batches = pipe.metrics.batches
+    # the packed fills: a frag's finish (_finish_rows, once its verdict
+    # is on the host), which native_hostpath moves between C and NumPy
+    finish_rows = pipe._finish_rows
+    pipe._finish_rows = timed("rows_finish", finish_rows)
+    try:
+        t0 = time.perf_counter()
+        for rows in fill_blobs:
+            tile._forward_burst(ctx, pipe.submit_packed_rows(rows))
+            tile.after_credit(ctx)
+        tile._forward(ctx, pipe.flush())
+        sync()
+        t_fill = (time.perf_counter() - t0) * 1e3 / fills
+    finally:
+        del pipe._finish_rows
     tile._sync_metrics(ctx)
     launches = counts()
-    snap = tile.pipe.metrics.snapshot()
-
+    snap = pipe.metrics.snapshot()
     got = [p for p, _ in ctx.published]
     for p, sig in ctx.published:
         if sig != int.from_bytes(p[1:9], "little"):
             raise AssertionError("tile: a published sig is not the low 64 "
                                  "bits of the txn's first signature")
-    if len(got) != len(set(got)) or set(got) != want:
-        raise AssertionError(
-            f"tile: accepted {len(got)} wire txns, the host oracle "
-            f"{len(want)}; {len(set(got) - want)} extra, "
-            f"{len(want - set(got))} missing")
     got_wires = []
     for frag, sig, k in ctx.frags:
         offs = np.frombuffer(frag[:4 * (k + 1)], np.uint32)
@@ -570,50 +733,19 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
             raise AssertionError("tile: a packed frag's sig is not its "
                                  "first txn's signature bits")
         got_wires += ws
-    if got_wires != want_wires:
-        raise AssertionError(f"tile: packed rows accepted {len(got_wires)}, "
-                             f"the host oracle {len(want_wires)}")
-    n_mtu_ok = sum(len(p) == txn_lib.MTU for p in got)
-    if n_mtu_ok != n_mtu:
-        raise AssertionError(f"tile: {n_mtu_ok} of {n_mtu} full-MTU txns "
-                             f"accepted")
-    if not (launches["sha512_ram"] == launches["verify_tail"]
-            == snap["batches"]):
-        raise AssertionError(f"tile: launches {launches} for "
-                             f"{snap['batches']} dispatches")
-    if snap["compile_cnt"]:
-        raise AssertionError(f"tile: compile_cnt {snap['compile_cnt']} "
-                             f"after boot")
-    if pguard.returns != wire_batches:
-        raise AssertionError(f"tile: {pguard.returns} bucket blob returns "
-                             f"for {wire_batches} bucket dispatches")
-    blobs = [x for bk in tile.pipe.buckets for x in [bk.blob, *bk._pool]]
-    if cuda and not all(x.is_pinned() for x in blobs):
-        raise AssertionError("tile: a bucket blob is not pinned")
-    note(f"tile at buckets {buckets}: {len(stream)} wire frags ({n_distinct} "
-         f"distinct signed txns, {n_mtu} full-MTU, 32 repeats, 8 tampered, "
-         f"4 with a bad second signature, 2 parse failures): accepted "
-         f"{len(got)} == host oracle, {n_mtu_ok} of them full-MTU (the "
-         f"{buckets[-1][0]}x{buckets[-1][1]} bucket); {fills} packed fills "
-         f"of {fill_rows} rows ({fill_valid} valid each): {len(got_wires)} "
-         f"== host oracle; sha512 and verify_tail launches "
-         f"{launches['sha512_ram']} and {launches['verify_tail']} == "
-         f"{snap['batches']} dispatches; compile_cnt {snap['compile_cnt']}; "
-         f"{pguard.returns} bucket blob returns, each after its verdict was "
-         f"ready, {pguard.waited} of them waited on a pending verdict; "
-         f"{len(blobs)} bucket blobs, pinned: "
-         f"{all(x.is_pinned() for x in blobs)}")
-    note(f"tile: boot {t_boot:.3f} s (kernel build and warmup of "
-         f"{len(buckets)} shapes); wire txns {len(stream) / t_wire:.1f} "
-         f"txns/s over {wire_batches} dispatches (the scalar Python parse "
-         f"sets it: the native burst parser is not ported); "
-         f"{t_fill:.4f} ms a {fill_rows}-row packed fill wall; pipeline "
-         f"batch_ns p50/p99 {snap['batch_ns_p50']:.0f}/"
-         f"{snap['batch_ns_p99']:.0f}, coalesce_ns p50 "
-         f"{snap['coalesce_ns_p50']:.0f}, e2e_ns p50 {snap['e2e_ns_p50']:.0f},"
-         f" lanes {snap['lanes_filled']} filled of "
-         f"{snap['lanes_dispatched']} dispatched")
-    note(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    blobs = [x for bk in pipe.buckets for x in [bk.blob, *bk._pool]]
+    return {"got": got, "got_wires": got_wires, "snap": snap,
+            "launches": launches, "t_boot": t_boot, "t_wire": t_wire,
+            "t_flush": t_flush, "t_parse": t_in["parse"],
+            "t_scalar": t_in["scalar"], "t_dispatch": t_in["dispatch"],
+            "t_finish": t_in["finish"], "parses": n_in["parse"],
+            "rows_finish_ms": t_in["rows_finish"] * 1e3 / fills,
+            "scalar": n_in["scalar"], "t_fill": t_fill,
+            "wire_batches": wire_batches, "returns": pguard.returns,
+            "waited": pguard.waited,
+            "hp_calls": dict(hp.calls) if hp is not None else {},
+            "n_blobs": len(blobs),
+            "pinned": all(x.is_pinned() for x in blobs)}
 
 
 class _StalledVerifier:
@@ -727,7 +859,8 @@ def _wait_for(pred, timeout_s, what, run=None):
 def topology_phase(pool, reset_counts, counts, note, device=None,
                    rows=2048, n_valid=256, wire_count=2560,
                    firehose_count=65536, buckets=None, workdir=None,
-                   flush_age_ns=30_000_000_000):
+                   flush_age_ns=30_000_000_000, wire_window_s=15.0,
+                   burst_n=512):
     """Phase 14: the port's tango fabric and tile runtime with the port's
     VerifyTile on the card.  (a) In process: the port Mux runs the tile
     in a thread on packed-wire frags published by hand, with the card
@@ -737,8 +870,11 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
     verify-bench topology in processes on wire frags at the default
     bucket ladder: one full first bucket, then the partial rest by the
     age flush.  (c) The packed-wire firehose over two verify tiles
-    on the one card.  device None is the card; the sizes are the full
-    ones.  Raises on any failed check."""
+    on the one card.  (d) The wire firehose: verify-bench with one verify
+    tile at the default ladder and config (the native burst parse), the
+    source stamping `burst_n` txns a loop for `wire_window_s`, then a
+    drain.  device None is the card; the sizes are the full ones.  Raises
+    on any failed check."""
     import tempfile
     import threading
 
@@ -1077,6 +1213,76 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
              f"failed; poll() None throughout; every tile exited 0; boot "
              f"{t_boot_c:.3f} s; "
              f"{firehose_count / t_c:.1f} rows/s ({t_c:.3f} s)")
+
+        # ---- (d) processes: the wire firehose through the native burst
+        # parse, one verify tile at the default ladder and config
+        cfg = app_config.load(environ={})
+        cfg["name"] = f"{tag}d"
+        cfg["tiles"]["verify"]["buckets"] = buckets
+        cfg["tiles"]["verify"]["device"] = device or ""
+        cfg["supervision"]["drain_timeout_s"] = 120.0
+        cfg["development"]["source_burst_n"] = burst_n
+        spec = app_config.build_topology(cfg)
+        (vcfg,) = [t.cfg for t in spec.tiles if t.kind == "verify"]
+        if vcfg["native_hostpath"] != 1:
+            raise AssertionError(f"phase 14d: verify cfg {vcfg}")
+        _shm_check(spec.wksp_mb << 20, note)
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy.from_cfg(cfg))
+        try:
+            run.wait_ready(timeout=cfg["supervision"]["boot_grace_s"])
+            t_boot_d = time.perf_counter() - t0
+            # the window opens at the verify tile's first dispatch, so the
+            # boot and the first fill are not in it
+            _wait_for(lambda: run.metrics("verify:0")["batch_cnt"] > 0,
+                      120, "the first dispatch", run)
+            v0 = run.metrics("verify:0")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < wire_window_s:
+                if run.poll() is not None:
+                    raise AssertionError("phase 14d: a tile failed")
+                time.sleep(0.05)
+            v1 = run.metrics("verify:0")
+            t_d = time.perf_counter() - t0
+            if run.poll() is not None:
+                raise AssertionError("phase 14d: a tile failed")
+            if not run.drain():
+                raise AssertionError("phase 14d: drain() did not drain "
+                                     "every tile")
+            src, v = run.metrics("source"), run.metrics("verify:0")
+            d, sink = run.metrics("dedup"), run.metrics("sink")
+        finally:
+            run.close()
+        if set(run.exitcodes.values()) != {0}:
+            raise AssertionError(f"phase 14d: exit codes {run.exitcodes}")
+        # stamping writes each txn's tag over R: every signature fails
+        if not (v["txn_in_cnt"] == src["txn_gen_cnt"] > 0
+                and v["verify_fail_cnt"] == v["txn_in_cnt"]
+                and v["verify_pass_cnt"] == 0
+                and v["parse_fail_cnt"] == v["torn_drop_cnt"] == 0
+                and v.get("in_ovrn_cnt", 0) == 0
+                and v["compile_cnt"] == 0
+                and d.get("uniq_cnt", 0) == 0
+                and sink.get("frag_cnt", 0) == 0):
+            raise AssertionError(f"phase 14d: source {src}, verify {v}, "
+                                 f"dedup {d}, sink {sink}")
+        n_d = v1["txn_in_cnt"] - v0["txn_in_cnt"]
+        b_d = v1["batch_cnt"] - v0["batch_cnt"]
+        fill = (v1["lanes_filled_cnt"] - v0["lanes_filled_cnt"]) / max(
+            1, v1["lanes_dispatched_cnt"] - v0["lanes_dispatched_cnt"])
+        note(f"phase 14d: wire firehose, verify-bench with one verify tile "
+             f"at buckets {buckets}, native_hostpath {vcfg['native_hostpath']}"
+             f", the source stamping {burst_n} txns a loop: "
+             f"{n_d / t_d:.1f} wire txns/s at the verify tile over "
+             f"{t_d:.3f} s ({n_d} txns, {b_d} dispatches, "
+             f"{n_d / max(1, b_d):.1f} txns and {100 * fill:.1f}% of the "
+             f"lanes a dispatch); after drain(): txn_gen {src['txn_gen_cnt']}"
+             f" == txn_in {v['txn_in_cnt']} == verify_fail "
+             f"{v['verify_fail_cnt']}, parse_fail {v['parse_fail_cnt']}, torn "
+             f"{v['torn_drop_cnt']}, overrun {v.get('in_ovrn_cnt', 0)}, "
+             f"batches {v['batch_cnt']}, compile {v['compile_cnt']}; the "
+             f"sink captured nothing; every tile exited 0; boot "
+             f"{t_boot_d:.3f} s")
     finally:
         if old_omp is None:
             os.environ.pop("OMP_NUM_THREADS", None)

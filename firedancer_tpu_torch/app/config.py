@@ -31,6 +31,10 @@ mode = "strict"             # strict (antipa: not ported).
                             # Env: FDTPU_VERIFY_MODE
 
 [ingest]
+native_hostpath = 1         # 1: one-pass C submit/harvest (hostpath.cpp) on
+                            # packed dcache row views; 0 = NumPy finish,
+                            # bit-identical verdicts.
+                            # Env: FDTPU_INGEST_NATIVE_HOSTPATH
 egress_packed = 0           # 1: verify tiles publish ONE packed arena frag
                             # per harvest (u32 offs[k+1] | wires) instead of
                             # k per-txn frags; the dedup tile unpacks it.
@@ -145,7 +149,6 @@ _NOT_PORTED = {
                     "backoff_max_s": _RESPAWN, "backoff_jitter": _RESPAWN,
                     "device_fail_threshold": _GUARD, "device_retry": _GUARD,
                     "device_deadline_s": _GUARD, "device_reprobe_s": _GUARD},
-    "ingest": {"native_hostpath": "the native host path (hostpath.cpp)"},
 }
 
 
@@ -222,6 +225,7 @@ def _topo_verify_bench(cfg: dict) -> TopoSpec:
     vcfg["mode"] = str(cfg.get("verify", {}).get("mode", "strict"))
     packed = int(dev.get("packed_wire", 0))
     ing = dict(cfg.get("ingest") or {})
+    vcfg["native_hostpath"] = int(ing.get("native_hostpath", 1))
     egress_packed = bool(int(ing.get("egress_packed", 0))) and bool(packed)
     if egress_packed:
         vcfg["egress_packed"] = 1

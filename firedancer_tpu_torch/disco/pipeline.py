@@ -12,13 +12,18 @@ msg_maxlen) buckets, each txn routed to the smallest bucket that fits
 its message, so full-MTU txns (1232 B, src/ballet/txn/fd_txn.h:92-103)
 go to a narrow full-width bucket instead of being dropped.
 
-The port runs one host path: the scalar Python parse, the Python
-TCache and the NumPy packed-row finish.  The JAX package's native burst
-parser, native tcache and one-pass C finish, and its GuardedVerifier
-(host fallback on a device failure), come in later slices; nothing here
-falls back from the device to the host.
+The host path is native, as the JAX package's default is: the dedup
+window is a NativeTCache, submit_burst parses, dedups and fills a bucket
+in one C call a fill (native/txnparse.cpp), and packed-row frags go
+through one C call a frag at submit and one at harvest
+(native/hostpath.cpp).  native_hostpath=False moves the packed-row
+submit and finish onto NumPy over the same tcache, with bit-identical
+output; nothing falls back to a Python tcache or parser when the host
+library fails to build, and nothing falls back from the device to the
+host (the JAX package's GuardedVerifier comes in a later slice).
 """
 
+import ctypes
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -26,9 +31,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import native
 from ..ballet import txn as txn_lib
+from ..ballet import txn_native as tn
 from ..ops.ed25519 import PACKED_EXTRA
-from ..tango.tcache import TCache
+from ..tango.tcache import NativeTCache
 from ..utils.hist import Histf
 from . import trace as trace_mod
 
@@ -124,6 +131,23 @@ class _Pending:
 
 
 @dataclass
+class _BurstPending:
+    """A burst's accepted txns as one pending record (submit_burst), kept
+    in NumPy so the harvest is vectorized too.  The native parser gives a
+    burst's txns CONTIGUOUS lanes.  The payload bytes are ONE copied
+    region (the rx scratch is reused by the next poll) with each txn's
+    (start, len) into it; bytes objects are made only for passing txns at
+    harvest."""
+
+    buf: bytes              # copy of this round's payload region
+    start: object           # (k,) int64 payload start per accepted txn
+    plen: object            # (k,) int32 payload length per accepted txn
+    lane0: object           # (k,) int32 first lane per txn
+    nsig: object            # (k,) int32 sig lanes per txn
+    tag: object             # (k,) uint64 dedup tags
+
+
+@dataclass
 class _RowsPending:
     """A packed-wire frag verified without a copy (submit_packed_rows):
     the caller keeps `rows` unchanged until the verdict materializes, so
@@ -175,7 +199,9 @@ class _Bucket:
     """One (batch, msg_maxlen) shape with its open batch, laid out as ONE
     row-interleaved uint8 blob (msgs | sigs | pubs | lens-le32 per row),
     a torch tensor uploaded in one copy by the verifier's dispatch_blob;
-    arr, msgs, sigs and pubs are NumPy views of it that submit() writes.
+    arr, msgs, sigs and pubs are NumPy views of it that submit() and the
+    native burst fill write in place.  lens is the host-side (batch,)
+    int32 copy of the length column, which the burst fill writes too.
     pinned=True puts the blobs in page-locked host memory, so the upload
     is an asynchronous copy.
 
@@ -194,6 +220,7 @@ class _Bucket:
         self.bidx = bidx            # position in the pipeline's ladder
         self.lane = lane            # 0 = throughput, 1 = low-latency
         self._pool: deque = deque()
+        self.lens = np.zeros(batch, np.int32)
         self.reset()
 
     def release(self, blob) -> None:
@@ -212,6 +239,7 @@ class _Bucket:
             self.blob = torch.zeros((self.batch, ml + PACKED_EXTRA),
                                     dtype=torch.uint8, pin_memory=self.pinned)
         self.arr = self.blob.numpy()
+        self.lens.fill(0)
         self.msgs = self.arr[:, :ml]
         self.sigs = self.arr[:, ml:ml + 64]
         self.pubs = self.arr[:, ml + 64:ml + 96]
@@ -220,8 +248,9 @@ class _Bucket:
         self.pending: list[_Pending] = []
 
     def set_len(self, lane: int, n: int):
+        self.lens[lane] = n
         self.arr[lane, self.maxlen + 96:self.maxlen + 100] = (
-            np.array([n], np.int32).view(np.uint8))
+            self.lens[lane:lane + 1].view(np.uint8))
 
 
 class VerifyPipeline:
@@ -235,7 +264,9 @@ class VerifyPipeline:
     blob dispatched in one upload, pinned when verify_fn.device is a CUDA
     device, and the verdict is a future with is_ready /
     copy_to_host_async / np.asarray.  tcache_depth: the dedup window in
-    distinct signatures.  max_inflight > 0 runs the async data plane
+    distinct signatures, held in a NativeTCache.  native_hostpath runs the
+    packed-row submit and finish as one C call a frag; False runs them in
+    NumPy, bit-identical.  max_inflight > 0 runs the async data plane
     (filled batches dispatch without waiting; harvest() retires them); 0
     returns each batch's verdicts from the submit that fills it.  lat_shapes
     adds the low-latency lane.  egress_packed makes packed-row harvests
@@ -250,6 +281,7 @@ class VerifyPipeline:
                  n_buffers: int = 2, heartbeat_cb=None, lat_shapes=None,
                  deadline_us: int = 2000, lat_max_inflight: int = 2,
                  lat_spill_age_factor: float = 4.0,
+                 native_hostpath: bool = True,
                  egress_packed: bool = False):
         if buckets is None:
             if batch is None or msg_maxlen is None:
@@ -266,7 +298,16 @@ class VerifyPipeline:
             _Bucket(b, m, n_buffers=n_buffers, bidx=i, pinned=pinned)
             for i, (b, m) in enumerate(sorted(buckets, key=lambda t: t[1]))
         ]
-        self.tcache = TCache(tcache_depth)
+        # the burst parser queries the window inline from C; a host
+        # library that fails to build raises here
+        self.tcache = NativeTCache(tcache_depth)
+        self._hp = native.lib() if native_hostpath else None
+        # the native finish's scratch, grown to the worst case n*(65+ml)
+        # once a shape and reused after
+        self._hp_arena = np.empty(0, np.uint8)
+        self._hp_offs = np.empty(1, np.int64)
+        self._hp_tags = np.empty(0, np.uint64)
+        self._hp_cnt = np.zeros(3, np.int64)
         self.egress_packed = bool(egress_packed)
         self.metrics = VerifyMetrics()
         self.max_inflight = max_inflight
@@ -438,17 +479,76 @@ class VerifyPipeline:
         return out
 
     def submit_burst(self, payloads=None, packed=None) -> list:
-        """Feed many serialized txns: a list of payloads, or packed=(buf,
-        offs), a flat buffer with int64 offsets (n+1) such as a ring's rx
-        scratch.  Each txn goes through submit(), as the JAX package does
-        without its native burst parser (not ported yet)."""
-        if packed is not None:
-            buf, offs = packed
-            payloads = [bytes(buf[offs[i]:offs[i + 1]])
-                        for i in range(len(offs) - 1)]
+        """Feed many serialized txns with ONE native parse, dedup query and
+        bucket fill a fill of the first bucket (native/txnparse.cpp).
+
+        Input: payloads (list[bytes]), or packed=(buf, offs), a flat
+        buffer with int64 offsets (n+1) such as a ring's rx scratch, read
+        in place.  Returns the verified txns flushed by this call as
+        (payload, None): the burst path builds no Txn descriptor.
+
+        Bursts fill the PRIMARY bucket (the first of the ladder); a txn
+        whose message is longer reroutes through submit() and the ladder.
+        A txn whose lanes do not fit what is left flushes the bucket and
+        is parsed again into the empty one."""
+        if packed is None:
+            packed = tn.pack_payloads(payloads)
+        buf, offs = packed
+        handle = self.tcache.handle
+
         out = []
-        for p in payloads:
-            out += self.submit(p)
+        bk = self.buckets[0]
+        idx = 0
+        n = len(offs) - 1
+        while idx < n:
+            r = tn.parse_packed_bucket(buf, offs[idx:], bk.arr, bk.maxlen,
+                                       bk.lens, bk.used, handle)
+            errs = r.err
+            too_long = np.nonzero(errs == tn.ERR_TOO_LONG)[0]
+            reroute = len(self.buckets) > 1
+            self.metrics.txns_in += r.consumed - (
+                len(too_long) if reroute else 0)
+            self.metrics.parse_fail += int((errs == tn.ERR_PARSE).sum())
+            self.metrics.dedup_drop += int((errs == tn.ERR_DUP).sum())
+            self.metrics.sig_overflow_drop += int(
+                (errs == tn.ERR_SIG_CAP).sum())
+            if reroute:
+                for i in too_long:
+                    j = idx + int(i)
+                    out += self.submit(bytes(buf[offs[j]:offs[j + 1]]))
+            else:
+                self.metrics.too_long_drop += len(too_long)
+            acc = np.nonzero(errs == tn.OK)[0]
+            if len(acc):
+                # one copy of this round's region; accepted txns address
+                # into it by (start, len), made bytes only if they pass
+                base = int(offs[idx])
+                region = bytes(
+                    memoryview(buf)[base:int(offs[idx + r.consumed])])
+                starts = (offs[idx:][acc] - base).astype(np.int64)
+                plens = (offs[idx:][acc + 1] - offs[idx:][acc]).astype(
+                    np.int32)
+                if not bk.t_first:
+                    bk.t_first = time.perf_counter_ns()
+                bk.pending.append(_BurstPending(
+                    region, starts, plens,
+                    r.lane0[acc], r.nsig[acc], r.tag[acc]))
+                bk.used += r.lanes_used
+            pre_used = bk.used
+            idx += r.consumed
+            if idx >= n:
+                break
+            # the parser stopped early: the next txn needs more lanes than
+            # are left, so flush and parse it again into the empty bucket
+            out += self._flush_bucket(bk)
+            if r.consumed == 0 and pre_used == 0:
+                # not even an empty bucket holds it (ERR_SIG_CAP already
+                # drops a txn wider than the bucket)
+                self.metrics.txns_in += 1
+                self.metrics.sig_overflow_drop += 1
+                idx += 1
+        if bk.used == bk.batch:
+            out += self._flush_bucket(bk)
         return out
 
     def submit_packed_rows(self, rows, n: int | None = None, guard=None,
@@ -471,10 +571,26 @@ class VerifyPipeline:
         n = nrows if n is None else min(int(n), nrows)
         # dedup tags = low 64 bits of the signature (row[ml:ml+8]), query
         # only here: tags insert at harvest iff verify passes
-        tag = np.ascontiguousarray(rows[:n, ml:ml + 8]).view(
-            np.uint64).ravel()
-        dup = self.tcache.query_batch(tag)
-        ndup = int(dup.sum())
+        if self._hp is not None:
+            # strided gather and batched query in one C call, straight off
+            # the row view
+            if not (isinstance(rows, np.ndarray) and rows.dtype == np.uint8
+                    and rows.strides[1] == 1):
+                raise ValueError("the native host path takes uint8 NumPy "
+                                 "rows with unit column stride")
+            tag = np.empty(n, np.uint64)
+            dup8 = np.empty(n, np.uint8)
+            ndup = int(self._hp.fd_hostpath_submit_rows(
+                ctypes.c_void_p(rows.ctypes.data), int(rows.strides[0]), n,
+                ml, ctypes.c_void_p(self.tcache.handle),
+                ctypes.c_void_p(tag.ctypes.data),
+                ctypes.c_void_p(dup8.ctypes.data)))
+            dup = dup8.view(bool)
+        else:
+            tag = np.ascontiguousarray(rows[:n, ml:ml + 8]).view(
+                np.uint64).ravel()
+            dup = self.tcache.query_batch(tag)
+            ndup = int(dup.sum())
 
         lane = 0
         nd = nrows                       # dispatched row count
@@ -675,6 +791,8 @@ class VerifyPipeline:
         for p in fl.pending:
             if isinstance(p, _RowsPending):
                 out += self._finish_rows(p, ok)
+            elif isinstance(p, _BurstPending):
+                out += self._finish_burst(p, ok)
             elif all(ok[lane] for lane in p.lanes):
                 if self.tcache.insert(p.tag):
                     # same tag verified twice inside one open batch window
@@ -695,10 +813,14 @@ class VerifyPipeline:
         """Harvest one packed-wire frag: verdicts are per row (one sig a
         row on this path); passing payloads are rebuilt in the single-sig
         wire form (0x01 | sig | msg) from the rows, then release_cb
-        fires.  Egress is a [(bytes, None)] list, or with egress_packed
-        one PackedVerdicts."""
+        fires.  The native host path does it in one C call
+        (fd_hostpath_finish_rows), the NumPy finish is its plain version.
+        Egress is a [(bytes, None)] list, or with egress_packed one
+        PackedVerdicts."""
         try:
-            pv = self._np_finish(rp, np.asarray(ok[:rp.n]))
+            okv = np.asarray(ok[:rp.n])
+            pv = (self._hp_finish(rp, okv) if self._hp is not None
+                  else self._np_finish(rp, okv))
             if pv is None:
                 return []
             if self.egress_packed:
@@ -708,14 +830,60 @@ class VerifyPipeline:
             if rp.release_cb is not None:
                 rp.release_cb()
 
+    def _hp_finish(self, rp: _RowsPending, okv) -> "PackedVerdicts | None":
+        """One-pass C finish: masks, inserts, and builds the wires of one
+        frag into the grow-only scratch arena (worst case n*(65+ml)
+        bytes, allocated once a shape)."""
+        n, ml = rp.n, rp.ml
+        ok8 = np.ascontiguousarray(okv, dtype=np.uint8)
+        dup8 = rp.dup.view(np.uint8)
+        cap = n * (65 + ml)
+        if self._hp_arena.nbytes < cap:
+            self._hp_arena = np.empty(cap, np.uint8)
+        if len(self._hp_offs) < n + 1:
+            self._hp_offs = np.empty(n + 1, np.int64)
+            self._hp_tags = np.empty(n, np.uint64)
+        while True:
+            rc = self._hp.fd_hostpath_finish_rows(
+                ctypes.c_void_p(rp.rows.ctypes.data),
+                int(rp.rows.strides[0]), n, ml,
+                ctypes.c_void_p(ok8.ctypes.data),
+                ctypes.c_void_p(rp.tag.ctypes.data),
+                ctypes.c_void_p(dup8.ctypes.data),
+                ctypes.c_void_p(self.tcache.handle),
+                ctypes.c_void_p(self._hp_arena.ctypes.data),
+                int(self._hp_arena.nbytes),
+                ctypes.c_void_p(self._hp_offs.ctypes.data),
+                ctypes.c_void_p(self._hp_tags.ctypes.data),
+                ctypes.c_void_p(self._hp_cnt.ctypes.data))
+            if rc >= 0:
+                break
+            # arena too small (the worst-case sizing above rules it out
+            # unless the scratch was swapped): the call touched NOTHING,
+            # so grow and retry for the same result
+            self._hp_arena = np.empty(-int(rc), np.uint8)
+        k = int(rc)
+        self.metrics.verify_fail += int(self._hp_cnt[0])
+        self.metrics.dedup_drop += int(self._hp_cnt[1])
+        self.metrics.verify_pass += k
+        if k == 0:
+            return None
+        nb = int(self._hp_offs[k])
+        # copied out of the scratch: a PackedVerdicts outlives the next
+        # frag's finish (a harvest retires several)
+        return PackedVerdicts(self._hp_arena[:nb].copy(),
+                              self._hp_offs[:k + 1].copy(),
+                              self._hp_tags[:k].copy(), k)
+
     # the ragged wire build stages at most this many payload bytes (plus
     # the same-shape bool mask) at once, so one long row does not inflate
     # the harvest footprint to k * Lmax
     _NP_PAD_CAP = 1 << 18
 
     def _np_finish(self, rp: _RowsPending, okv) -> "PackedVerdicts | None":
-        """Verdict masking, tcache inserts with exact FD_TCACHE_INSERT
-        semantics, and the wire arena, by vectorized column copies."""
+        """The plain version of _hp_finish: the same verdict masking,
+        tcache inserts with exact FD_TCACHE_INSERT semantics, and wire
+        arena, by vectorized column copies."""
         ml = rp.ml
         okv = okv.astype(bool)
         live = rp.tag != 0
@@ -726,8 +894,7 @@ class VerifyPipeline:
             return None
         # insert tags only now (verify passed), across frags and within
         # this one
-        dup2 = np.array([self.tcache.insert(int(t))
-                         for t in rp.tag[pass_idx]], dtype=bool)
+        dup2 = self.tcache.insert_batch_dedup(rp.tag[pass_idx])
         self.metrics.dedup_drop += int(dup2.sum())
         self.metrics.verify_pass += int((~dup2).sum())
         rows = rp.rows
@@ -768,3 +935,26 @@ class VerifyPipeline:
                     o = int(offs[c0 + j])
                     arena[o:o + 65 + int(lc[j])] = wires[j, :65 + int(lc[j])]
         return PackedVerdicts(arena, offs, rp.tag[keep].copy(), k)
+
+    def _finish_burst(self, bp: _BurstPending, ok) -> list:
+        """Vectorized harvest of one burst record: a txn's verdict is the
+        minimum over its (contiguous) lanes, then one batched tcache
+        insert with exact FD_TCACHE_INSERT dup semantics."""
+        k = len(bp.lane0)
+        if k == 0:
+            return []
+        start = int(bp.lane0[0])
+        end = int(bp.lane0[-1] + bp.nsig[-1])
+        seg = np.asarray(ok[start:end], dtype=np.uint8)
+        acc = np.minimum.reduceat(seg, bp.lane0 - start).astype(bool)
+        pass_idx = np.nonzero(acc)[0]
+        self.metrics.verify_fail += k - len(pass_idx)
+        if len(pass_idx) == 0:
+            return []
+        dup = self.tcache.insert_batch_dedup(bp.tag[pass_idx])
+        self.metrics.dedup_drop += int(dup.sum())
+        self.metrics.verify_pass += int((~dup).sum())
+        buf = bp.buf
+        return [(buf[int(bp.start[i]):int(bp.start[i]) + int(bp.plen[i])],
+                 None)
+                for i, d in zip(pass_idx, dup) if not d]

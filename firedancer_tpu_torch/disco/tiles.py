@@ -22,7 +22,7 @@ import time
 import numpy as np
 
 from ..ballet import txn as txn_lib
-from ..tango.tcache import TCache
+from ..tango.tcache import NativeTCache
 from .pipeline import LAT_PRIO_BIT
 from .verify_tile import VerifyTile
 
@@ -230,7 +230,7 @@ class SourceTile:
 class DedupTile:
     """Cross-verify-tile dedup on the signature tag
     (ref: src/app/fdctl/run/tiles/fd_dedup.c, tango tcache), over the
-    port's TCache.
+    port's NativeTCache.
 
     cfg: tcache_depth, packed_egress (the upstream verify tiles ship one
     packed arena frag per harvest).  shard_bits > 0 (the fleet's sharded
@@ -246,7 +246,7 @@ class DedupTile:
             raise NotImplementedError(
                 "DedupTile preload_tags_path: the fleet's restart preload "
                 "is not ported")
-        self.tcache = TCache(ctx.cfg.get("tcache_depth", 1 << 20))
+        self.tcache = NativeTCache(ctx.cfg.get("tcache_depth", 1 << 20))
         # packed verdict egress consumer: on_burst_view unpacks the one
         # arena frag a harvest ships.  Hidden unless configured, so
         # per-txn links keep the rx-scratch burst path; when configured,
@@ -256,10 +256,6 @@ class DedupTile:
             self.on_burst = None
         else:
             self.on_burst_view = None
-
-    def _insert(self, tags) -> np.ndarray:
-        """Dup mask over tags, inserting each (FD_TCACHE_INSERT order)."""
-        return np.array([self.tcache.insert(int(t)) for t in tags], bool)
 
     def on_frag(self, ctx, iidx, meta, payload):
         tag = int(meta["sig"])
@@ -273,7 +269,7 @@ class DedupTile:
         """Burst path: one pass over the tcache decides all verdicts,
         survivors forward in one burst publish."""
         tags = metas["sig"].astype(np.uint64)
-        dup = self._insert(tags)
+        dup = self.tcache.insert_batch_dedup(tags)
         ndup = int(dup.sum())
         if ndup:
             ctx.metrics.add("dup_drop_cnt", ndup)
@@ -315,7 +311,7 @@ class DedupTile:
             lens = (offs[1:] - offs[:k]).astype(np.int32)
             idx = starts[:, None] + np.arange(1, 9)
             tags = np.ascontiguousarray(frag[idx]).view(np.uint64).ravel()
-            dup = self._insert(tags)
+            dup = self.tcache.insert_batch_dedup(tags)
             ndup = int(dup.sum())
             if ndup:
                 ctx.metrics.add("dup_drop_cnt", ndup)

@@ -36,11 +36,14 @@ class VerifyTile:
 
     cfg: buckets ([[batch, msg_maxlen], ...], or batch and msg_maxlen),
     round_robin_cnt/idx, flush_age_ns, tcache_depth, max_inflight,
-    n_buffers, burst, packed_wire, egress_packed, latency {enabled,
+    n_buffers, burst, packed_wire, egress_packed, native_hostpath (the
+    packed rows' one-pass C submit and finish, default 1; 0 runs them in
+    NumPy), latency {enabled,
     shapes, deadline_us, max_inflight, spill_age_factor}, mode, and device
-    (None is the GPU; "cpu" runs the kernels' plain versions).
-    dp_shards > 1, mode antipa, aot_dir, aot_require, native_hostpath and
-    jax_trace_dir are not ported and raise NotImplementedError.
+    (None is the GPU; "cpu" runs the kernels' plain versions).  Wire
+    bursts go through the native burst parser either way.  dp_shards > 1,
+    mode antipa, aot_dir, aot_require and jax_trace_dir are not ported and
+    raise NotImplementedError.
 
     packed_wire: each in-link frag is meta.sz rows already in the device
     blob layout in the dcache, at the first bucket's shape.  The rows go
@@ -78,10 +81,6 @@ class VerifyTile:
         if self.verify_mode != "strict":
             raise ValueError(f"[verify] mode must be strict|antipa, "
                              f"got {self.verify_mode!r}")
-        if cfg.get("native_hostpath"):
-            raise NotImplementedError(
-                "native_hostpath: the native host path (hostpath.cpp) is "
-                "not ported; the tile's NumPy path gives the same verdicts")
         if cfg.get("jax_trace_dir"):
             raise NotImplementedError(
                 "jax_trace_dir: the port runs no XLA, so it has no XLA "
@@ -137,6 +136,7 @@ class VerifyTile:
             deadline_us=int(latc.get("deadline_us", 2000)),
             lat_max_inflight=int(latc.get("max_inflight", 2)),
             lat_spill_age_factor=float(latc.get("spill_age_factor", 4.0)),
+            native_hostpath=bool(cfg.get("native_hostpath", 1)),
             egress_packed=bool(cfg.get("egress_packed", 0)))
         self.pipe.mark_warm(warm_shapes)
         self._last_submit_ns = 0

@@ -1,11 +1,14 @@
-"""The port's host library (tango.cpp), built with g++ at first use.
+"""The port's host library, built with g++ at first use from three
+sources: tango.cpp (the rings), txnparse.cpp (the burst txn parser and
+the native tcache) and hostpath.cpp (the packed rows' one-pass submit and
+finish, which resolves the tcache's symbols at link time).
 
 The library goes to ``firedancer_tpu_torch/_build/host-<hash>/``, keyed by
-a hash of the source and the flags, so a changed source rebuilds and an
+a hash of every source and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Every tile process loads it at boot, and
 several may build it at the same moment: each compiles to a file of its
 own pid and renames it into place.  A failed build raises; there is no
-pure-Python ring to fall back to.
+pure-Python ring, parser or tcache to fall back to.
 """
 
 import ctypes
@@ -15,8 +18,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "tango.cpp"
-BUILD = Path(__file__).resolve().parent.parent / "_build"
+_DIR = Path(__file__).resolve().parent
+SOURCES = tuple(_DIR / n for n in ("tango.cpp", "txnparse.cpp",
+                                    "hostpath.cpp"))
+BUILD = _DIR.parent / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden")
 
 _lock = threading.Lock()
@@ -25,8 +30,10 @@ _lib = None
 
 def _so_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD / f"host-{h.hexdigest()[:16]}" / "libfdtpu_tango.so"
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD / f"host-{h.hexdigest()[:16]}" / "libfdtpu_host.so"
 
 
 def build() -> str:
@@ -36,10 +43,12 @@ def build() -> str:
         return str(so)
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC)],
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp),
+                           *map(str, SOURCES)],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"g++ failed on {SRC.name}:\n{proc.stderr}")
+        names = ", ".join(s.name for s in SOURCES)
+        raise RuntimeError(f"g++ failed on {names}:\n{proc.stderr}")
     os.replace(tmp, so)
     return str(so)
 
@@ -56,6 +65,7 @@ def lib() -> ctypes.CDLL:
 
 def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
     u64, u32, i32 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int
+    i64 = ctypes.c_int64
     p = ctypes.c_void_p
     sig = {
         "fd_mcache_align": (u64, []),
@@ -87,6 +97,20 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
                                    p, p, ctypes.c_int64, p, p, p, p]),
         "fd_ring_tx_burst": (u64, [p, p, u64, u64, u64, p, p, p, p,
                                    i32, u32, u32, p]),
+        "fd_tcache_new": (p, [u64]),
+        "fd_tcache_delete": (None, [p]),
+        "fd_tcache_query": (i32, [p, u64]),
+        "fd_tcache_insert": (None, [p, u64]),
+        "fd_tcache_insert_batch": (None, [p, p, i32]),
+        "fd_tcache_insert_batch_dedup": (None, [p, p, i32, p]),
+        "fd_tcache_query_batch": (None, [p, p, i32, p]),
+        "fd_hostpath_submit_rows": (i64, [p, i64, i32, i32, p, p, p]),
+        "fd_hostpath_finish_rows": (i64, [p, i64, i32, i32, p, p, p, p, p,
+                                          i64, p, p, p]),
+        "fd_txn_parse_batch": (i32, [p, p, i32, p, i32, i32, i32,
+                                     p, p, p, p, p, p, p, p, p]),
+        "fd_txn_parse_batch_packed": (i32, [p, p, i32, p, i32, i32, i32,
+                                            p, i64, p, p, p, p, p, p]),
     }
     for name, (res, args) in sig.items():
         fn = getattr(L, name)

@@ -457,6 +457,100 @@ def test_published_sigs_equal_the_jax_tile():
     assert len(outs[0]) == 34
 
 
+class _HostFn:
+    """The JAX package's host verifier behind the four-array surface the
+    JAX tile's pipeline calls (no dispatch_blob: four-array buckets,
+    which NumPy 2 accepts), in place of its jitted verify graph: the tile
+    boots without an XLA compile."""
+
+    mode = "strict"
+
+    def __call__(self, msgs, lens, sigs, pubs):
+        import jax.numpy as jnp
+
+        from firedancer_tpu.models.verifier import host_verify_arrays
+        return jnp.asarray(host_verify_arrays(msgs, lens, sigs, pubs))
+
+
+def test_default_config_tile_equals_the_jax_tile(monkeypatch):
+    """The port's VerifyTile under the port's Mux and the JAX package's
+    under the JAX Mux, each with its own package's default verify-bench
+    tile cfg (native_hostpath 1: the native burst parse and tcache), on
+    the same wire frags: the same published (payload, sig) frags in the
+    same order, equal to the host verifier's, and the same counters.
+    The JAX tile verifies on the host (_HostFn), so it boots at once."""
+    from firedancer_tpu.app import config as jconfig
+    from firedancer_tpu.disco import topo as jtopo
+    from firedancer_tpu.disco.mux import Mux as JMux
+    from firedancer_tpu.disco.tiles import VerifyTile as JVerifyTile
+    from firedancer_tpu_torch.app import config as pconfig
+    from firedancer_tpu_torch.tango.tcache import NativeTCache
+
+    monkeypatch.setattr(JVerifyTile, "_make_single_chip_fn",
+                        lambda self, cfg, buckets, lat_warm=(): _HostFn())
+    rng = np.random.default_rng(91)
+    stream = _wire_stream(rng, 40, 6) + [b"\x01garbage" * 20]
+    stream.insert(5, stream[9])
+    stream.insert(30, stream[2])
+    outs, counters = [], []
+    for pkg_topo, cm, mux_cls, vt in (
+            (topo_mod, pconfig, Mux, VerifyTile()),
+            (jtopo, jconfig, JMux, JVerifyTile())):
+        (vcfg,) = [t.cfg for t in cm.build_topology(
+            cm.load(environ={})).tiles if t.kind == "verify"]
+        assert vcfg["native_hostpath"] == 1
+        if pkg_topo is topo_mod:
+            vcfg = {**vcfg, "device": "cpu"}
+        spec = (pkg_topo.TopoBuilder(f"tmd{len(outs)}{os.getpid()}",
+                                     wksp_mb=16)
+                .link("src_v", depth=256, mtu=1280)
+                .link("v_s", depth=512, mtu=1280)
+                .tile("src", "sink", outs=["src_v"])
+                .tile("v", "verify", ins=["src_v"], outs=["v_s"], **vcfg)
+                .tile("s", "sink", ins=[pkg_topo.InLink("v_s",
+                                                        reliable=False)])
+                .build())
+        jt = pkg_topo.create(spec)
+        try:
+            m = mux_cls(jt, "v", vt)
+            th = threading.Thread(target=m.run, daemon=True)
+            th.start()
+            _wait(lambda: jt.cnc["v"].signal_query() == Cnc.SIGNAL_RUN,
+                  timeout=120, what="RUN")
+            if pkg_topo is topo_mod:
+                assert isinstance(vt.pipe.tcache, NativeTCache)
+                assert vt.pipe._hp is not None
+            lnk = jt.links["src_v"]
+            chunk = 0
+            for w in stream:
+                nxt = lnk.dcache.write(chunk, w)
+                lnk.mcache.publish(int.from_bytes(w[1:9], "little")
+                                   & ((1 << 63) - 1), chunk, len(w))
+                chunk = nxt
+            _wait(lambda: vt.pipe.metrics.txns_in == len(stream)
+                  and not vt.pipe.has_pending, timeout=120, what="verdicts")
+            jt.cnc["v"].signal(Cnc.SIGNAL_HALT)
+            th.join(60)
+            assert not th.is_alive()
+            outs.append(_published(jt, "v_s"))
+            s = vt.pipe.metrics.snapshot()
+            counters.append((s["txns_in"], s["parse_fail"],
+                             s["too_long_drop"], s["verify_pass"],
+                             s["verify_fail"] + s["dedup_drop"]))
+            m = lnk = None
+            import gc
+            gc.collect()
+        finally:
+            jt.close()
+            jt.unlink()
+    want = [(w, int.from_bytes(w[1:9], "little")) for w in stream[:-1]
+            if _host_ok(w)]
+    want = [x for i, x in enumerate(want) if x not in want[:i]]
+    assert outs[0] == outs[1] == want
+    assert len(want) == 34
+    assert counters[0] == counters[1] == (len(stream), 1, 0, 34, 8)
+
+
 # -- the drain protocol (the cases of tests/test_supervision.py) ----------
 
 

@@ -59,8 +59,9 @@ def test_verify_bench_spec_equals_the_jax_package(packed, nverify):
     assert _shape(ps) == _shape(js)
     for pt, jt in zip(ps.tiles, js.tiles):
         # the port's verify cfg adds `device` (None: the GPU) and lacks
-        # the keys whose code it does not have (config._NOT_PORTED)
-        want = {k: v for k, v in jt.cfg.items() if k != "native_hostpath"}
+        # the keys whose code it does not have (config._NOT_PORTED); it
+        # carries [ingest] native_hostpath as the JAX package's does
+        want = dict(jt.cfg)
         if "supervision" in want:
             want["supervision"] = {
                 k: v for k, v in want["supervision"].items()
@@ -267,15 +268,25 @@ def test_config_layers_and_refusals(tmp_path):
     c["autotune"]["enabled"] = 1
     with pytest.raises(NotImplementedError, match="Autotuner"):
         pconfig.build_topology(c)
-    # the JAX package's keys whose code the port lacks: refused when set,
-    # and never handed to a tile
+    # the JAX package's keys whose code the port lacks: refused when set
     for env, missing in (("FDTPU_SUPERVISION_MAX_RESTARTS", "respawn"),
-                         ("FDTPU_SUPERVISION_DEVICE_RETRY", "GuardedVerifier"),
-                         ("FDTPU_INGEST_NATIVE_HOSTPATH", "hostpath")):
+                         ("FDTPU_SUPERVISION_DEVICE_RETRY", "GuardedVerifier")):
         with pytest.raises(NotImplementedError, match=missing):
             pconfig.load(environ={env: "1"})
         assert pconfig.load(environ={env: "0"})
-    assert not any("native_hostpath" in t.cfg for t in spec.tiles)
+    # [ingest] native_hostpath: on by default, the env overlays it, and
+    # every verify tile gets it, as in the JAX package's topology
+    assert pconfig.load(environ={})["ingest"]["native_hostpath"] == 1
+    assert [t.cfg["native_hostpath"] for t in spec.tiles
+            if t.kind == "verify"] == [1, 1, 1]
+    for val in (0, 1):
+        env = {"FDTPU_INGEST_NATIVE_HOSTPATH": str(val)}
+        c = pconfig.load(environ=env)
+        assert c["ingest"]["native_hostpath"] == val
+        assert c["ingest"] == jconfig.load(environ=env)["ingest"]
+        vt = [t for t in pconfig.build_topology(c).tiles
+              if t.kind == "verify"]
+        assert [t.cfg["native_hostpath"] for t in vt] == [val]
 
 
 def test_port_includes_and_imports_nothing_of_jax():

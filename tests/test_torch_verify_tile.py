@@ -232,12 +232,28 @@ def test_port_tile_one_verifier_covers_the_ladder():
     ({"mode": "antipa"}, "antipa"),
     ({"aot_require": True}, "aot_require"),
     ({"aot_dir": "store"}, "aot_dir"),
-    ({"native_hostpath": 1}, "native_hostpath"),
     ({"jax_trace_dir": "trace"}, "jax_trace_dir"),
 ])
 def test_port_tile_refuses_what_is_not_ported(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
         VerifyTile().init(_port_ctx(**cfg))
+
+
+@pytest.mark.parametrize("cfg_val,native", [
+    (1, True), (0, False), (None, True)])
+def test_port_tile_takes_native_hostpath(cfg_val, native):
+    """native_hostpath, which the tile used to refuse: 1 (the config's
+    default, and the tile's when the cfg lacks it) runs the packed rows'
+    one-pass C submit and finish, 0 their NumPy version.  The tcache is
+    native either way, and both publish what the host verifier
+    accepts."""
+    from firedancer_tpu_torch.tango.tcache import NativeTCache
+    cfg = {} if cfg_val is None else {"native_hostpath": cfg_val}
+    tile = VerifyTile()
+    ctx = _run(tile, _port_ctx(**cfg))
+    assert ctx.published == _expected()
+    assert isinstance(tile.pipe.tcache, NativeTCache)
+    assert (tile.pipe._hp is not None) == native
 
 
 def test_port_tile_defaults_to_the_gpu(monkeypatch):
