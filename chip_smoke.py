@@ -28,7 +28,14 @@ drain park and its manifest), then the verify-bench topology (source ->
 verify -> dedup -> sink) in spawned processes on wire txns at the
 default bucket ladder, the packed-wire firehose over two verify tiles
 on the one card, and the wire firehose through one verify tile's native
-burst parse for a fixed window.  Each path runs with the launch counts set to 0
+burst parse for a fixed window.  Then the leader lane (phase 15): the
+PoH spans kernel (the span engine, the poh_dev tile's window and splice
+geometry, verify_entries) and the mixin-tree kernel against their plain
+versions and the host chain, one lane through a whole slot at the
+Solana clock defaults with its entries re-checked, leader-bench (source
+-> verify -> leader_pack -> poh_dev -> sink) in spawned processes with
+forged txns injected, and the poh_dev tile at the clock defaults under
+the port's Mux.  Each path runs with the launch counts set to 0
 just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
@@ -117,6 +124,96 @@ G4_TAB_MUL, G4_TAB_SHFL = 22, 290
 G4_WIN_SQR, G4_WIN_MUL, G4_WIN_SHFL = 4, 8, 280
 G4_YCMP_MUL, G4_YCMP_SHFL = 1, 10
 G4_CLOSE_MUL, G4_CLOSE_SHFL = 2, 40
+
+
+def _compress_ops(state_var: bool, w_var, wk_table: bool = False):
+    """The least 32-bit operations of one SHA-256 compression on this
+    card, with what is constant folded, as (integer-pipe-only, adds): a
+    rotation is one funnel shift, a shift one, three-input logic (a
+    three-way xor, ch, maj) one LOP3 -- these run only on the integer
+    pipe; a sum of n operands (its constants folded into one immediate)
+    takes n // 2 three-input adds (IADD3), which the integer pipe runs
+    or, as IMAD, the FMA pipe.  A round on variable words is 10 + 4 (two
+    Sigmas of 3 shifts and a LOP3, ch, maj; t1 2 adds, new e 1, new a 1),
+    a schedule word 8 + 2.  state_var: the input state is variable (else
+    the initial H0); w_var: which of the block's 16 message words are
+    variable; wk_table: the whole schedule plus K is one constant table.
+    Byte order conversions at the edges are not counted."""
+    alu = adds = 0
+
+    def rot(x):
+        nonlocal alu
+        alu += x
+        return x
+
+    def lop(*xs):
+        nonlocal alu
+        alu += any(xs)
+        return any(xs)
+
+    def add(*xs):
+        nonlocal adds
+        nv = sum(xs)
+        if nv:
+            adds += (nv + (not all(xs))) // 2
+        return nv > 0
+
+    w = [False] * 16 if wk_table else list(w_var)
+    st = [state_var] * 8
+    a, b, c, d, e, f, g, h = st
+    for t in range(64):
+        if t >= 16 and not wk_table:
+            x15, x2 = w[(t + 1) & 15], w[(t + 14) & 15]
+            w[t & 15] = add(w[t & 15], lop(rot(x15), rot(x15), rot(x15)),
+                            w[(t + 9) & 15], lop(rot(x2), rot(x2), rot(x2)))
+        s1, ch = lop(rot(e), rot(e), rot(e)), lop(e, f, g)
+        s0, maj = lop(rot(a), rot(a), rot(a)), lop(a, b, c)
+        t1 = add(h, s1, ch, False, w[t & 15])
+        a, b, c, d, e, f, g, h = add(t1, s0, maj), a, b, c, add(d, t1), e, f, g
+    for x, y in zip(st, (a, b, c, d, e, f, g, h)):
+        add(x, y)
+    return alu, adds
+
+
+def _ops_sum(*parts):
+    return tuple(map(sum, zip(*parts)))
+
+
+# SHA-256's 32-bit operations by _compress_ops, (integer-pipe-only,
+# adds): a PoH append (a 32-byte message: H0, 8 variable words and the
+# constant tail); a mixin (a 64-byte message, then the constant pad block
+# from one table); a merkle node (0x00 or 0x01 before 64 bytes: 16
+# funnel shifts to align the words, a full block, 1 op for the second
+# block's first word, then that block with 15 constant words).
+SHA256_APPEND_OPS = _compress_ops(False, [True] * 8 + [False] * 8)
+SHA256_MIXIN_OPS = _ops_sum(_compress_ops(False, [True] * 16),
+                            _compress_ops(True, None, wk_table=True))
+SHA256_NODE_OPS = _ops_sum((17, 0), _compress_ops(False, [True] * 16),
+                           _compress_ops(True, [True] + [False] * 15))
+# an SM dispatches one warp instruction a cycle on each of its 4
+# sub-partitions: 128 lanes of any type a cycle, twice INT32_LANES_PER_SM
+DISPATCH_LANES_PER_SM = 128
+
+
+def _sha256_bound_ms(ops, int_ops_per_s) -> float:
+    """The least ms of SHA-256's (integer-pipe-only, adds) operations:
+    each is at least one instruction, at the SMs' dispatch rate.  Not
+    the INT32 rate: the adds may run as IMAD on the FMA pipe beside the
+    integer pipe, and a shift as a multiply."""
+    per_s = int_ops_per_s * DISPATCH_LANES_PER_SM / INT32_LANES_PER_SM
+    return sum(ops) / per_s * 1e3
+
+
+# The critical path of a compression's rounds: a round's new e and new a
+# are each three dependent operations from the last (the Sigma's
+# rotations, their three-way xor, one three-input add; ch, maj and
+# h + K + w off the path), counted at one cycle each at the max SM clock:
+# a lower bound, the card's dependent-issue latency is several cycles.
+SHA256_ROUND_DEPTH = 3
+AGAVE_SLOT_MS = 400.0         # Solana's slot (DEFAULT_MS_PER_SLOT)
+# phase 15: the Solana SDK clock defaults (DEFAULT_HASHES_PER_TICK,
+# DEFAULT_TICKS_PER_SLOT)
+POH_HASHES_PER_TICK, POH_TICKS_PER_SLOT = 12_500, 64
 RLC_BUCKETS = ((4096, 128), (32768, 128))
 MSM_M = 8
 # phase 13's stall on the card, in clock cycles (torch.cuda._sleep):
@@ -1291,6 +1388,617 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
     note(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _host_span_row(row, steps: int, caps) -> bytes:
+    """One span row on the host (hashlib): every step's end state, with
+    the kernel's and the JAX scan's rule, min(n - 1, cap) appends then the
+    last hash; n <= 0 and an inactive step pass through."""
+    h = bytes(row[:32])
+    out = []
+    for s in range(steps):
+        b = 32 + 38 * s
+        n = int.from_bytes(bytes(row[b + 32:b + 36]), "little", signed=True)
+        if row[b + 37] and n > 0:
+            for _ in range(min(n - 1, caps[s])):
+                h = hashlib.sha256(h).digest()
+            h = hashlib.sha256(h + bytes(row[b:b + 32]) if row[b + 36]
+                               else h).digest()
+        out.append(h)
+    return b"".join(out)
+
+
+def _fake_txns(rng, w: int) -> list:
+    """w wire-shaped txns: one signature (the merkle leaf) and a body;
+    pack and the mixin read nothing else."""
+    return [b"\x01" + rng.bytes(64) + rng.bytes(24) for _ in range(w)]
+
+
+def _sha256_ops(nums, has) -> tuple:
+    """32-bit operations of a batch of PoH segments, (integer-pipe-only,
+    adds): n - 1 appends and the last hash, a mixin or an append."""
+    nums = np.asarray(nums, np.int64)
+    has = np.asarray(has, bool)
+    live = nums > 0
+    appends = int(np.maximum(nums - 1, 0).sum() + (live & ~has).sum())
+    mixins = int((live & has).sum())
+    return tuple(appends * x + mixins * y
+                 for x, y in zip(SHA256_APPEND_OPS, SHA256_MIXIN_OPS))
+
+
+def _tree_hashes(widths) -> int:
+    """Hashes one merkle tree a width needs under _mixin_roots' rule:
+    the leaves, then ceil(w / 2) nodes a level until one is left."""
+    n = 0
+    for w in widths:
+        n += w
+        while w > 1:
+            w = (w + 1) // 2
+            n += w
+    return n
+
+
+def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
+                 int_ops_per_s, clock_hz, device=None, hpt=12_500, tps=64,
+                 n_src=256, n_foreign=16, n_forged=24, e_mbs=192,
+                 workdir=None):
+    """Phase 15: the leader lane on the card.  (a) The PoH spans kernel
+    against its plain version and the host chain at the span engine's
+    bench shape, at the poh_dev tile's window and splice geometry of the
+    [leader] defaults at every mixin offset, and on rows with n == 0,
+    inactive steps and n past a cap.  (b) At the Solana clock defaults
+    (hpt hashes a tick, tps ticks a slot): one lane extends a chain
+    through a whole slot of 7 mixin entries and one tick entry a tick,
+    and verify_entries re-checks its entries, one of them corrupted.
+    (c) The mixin-tree kernel against its plain version and txn_mixin at
+    widths 1-33 and at the tile's 8 x 31.  (d) leader-bench in spawned
+    processes at the [leader] defaults, with forged txns injected beside
+    the source's.  (e) The poh_dev tile at hpt x tps in process under
+    the port's Mux, fed e_mbs microblocks for one slot.  Each path runs
+    with the launch counts set to 0 just before it.  device None is the
+    card.  Returns the numbers of the kernels record.  Raises on any
+    failed check."""
+    import dataclasses as dc_
+    import tempfile
+    import threading
+
+    import torch
+
+    from firedancer_tpu_torch.app import config as app_config
+    from firedancer_tpu_torch.ballet import entry as entry_lib
+    from firedancer_tpu_torch.ballet import poh as poh_lib
+    from firedancer_tpu_torch.ballet import poh_engine as pe
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.disco import topo as topo_mod
+    from firedancer_tpu_torch.disco.leader_tiles import PohDevTile
+    from firedancer_tpu_torch.disco.mux import Mux
+    from firedancer_tpu_torch.disco.run import SupervisionPolicy, TopoRun
+    from firedancer_tpu_torch.disco.tiles import read_capture
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops import mixin_tree as mt
+    from firedancer_tpu_torch.ops import poh_spans as ps
+    from firedancer_tpu_torch.tango.ring import Cnc, tx_burst
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    tag = f"cs{os.getpid()}"
+    t_phase = time.perf_counter()
+    workdir = Path(workdir or tempfile.mkdtemp(prefix="fdtpu_phase15_"))
+    rng = np.random.default_rng(1500)
+    out = {}
+
+    def hold_poh(blob, steps, caps, what) -> int:
+        """Kernel A vs its plain version on one device blob; both against
+        the host chain row by row.  Returns the max error, 0."""
+        got = ps.poh_spans(blob, steps, caps)
+        want = ps.poh_spans_plain(blob, steps, caps)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 15a {what}: "
+                                 f"{int((got != want).any(1).sum())} lanes "
+                                 f"differ from plain")
+        rows = blob.cpu().numpy()
+        g = got.cpu().numpy()
+        for i in range(len(rows)):
+            if bytes(g[i]) != _host_span_row(rows[i], steps, caps):
+                raise AssertionError(f"phase 15a {what}: lane {i} differs "
+                                     f"from the host chain")
+        return int((got.to(torch.int16) - want).abs().max())
+
+    def engine_run(eng, specs):
+        planes = [eng.split_verdict(v) for v in eng.submit_lanes(specs)]
+        planes += [eng.split_verdict(v) for v in eng.drain()]
+        return planes[-1]
+
+    # ---- (a) kernel A at the bench shape, the tile's geometry and edges
+    def hb(i):
+        return hashlib.sha256(i.to_bytes(8, "little")).digest()
+
+    specs = [(hb(8 + i), [(1, hb(8 + i + 104729)), (63, None)])
+             for i in range(8)]
+    eng = pe.PohEngine(lanes=8, steps=2, max_hashes=64, device=device)
+    eng.warm()
+    reset_counts()
+    planes = engine_run(eng, specs)
+    got = counts()
+    if not np.array_equal(planes, pe.host_spans(specs, 2)):
+        raise AssertionError("phase 15a: the span engine differs from "
+                             "host_spans")
+    if got["poh_spans"] != 1 or got["mixin_tree"] != 0:
+        raise AssertionError(f"phase 15a: launches {got}")
+    bench_blob = np.zeros((8, pe.row_bytes(2)), np.uint8)
+    pe.stamp_lanes(bench_blob, specs)
+    bench_dev = torch.from_numpy(bench_blob).to(dev)
+    err = hold_poh(bench_dev, 2, (64, 64), "8 lanes x 2 steps x 64")
+    plain_ms = cuda_ms(lambda: ps.poh_spans_plain(bench_dev, 2, (64, 64)),
+                       1, 0)
+    bench_ms = cuda_ms(lambda: ps.poh_spans(bench_dev, 2, (64, 64)))
+    note(f"phase 15a: span engine 8 lanes x [(1, mixin), (63, None)] == "
+         f"host_spans, launches {got['poh_spans']}; kernel == plain == host "
+         f"chain; kernel {bench_ms:.5f} ms, plain {plain_ms:.4f} ms a call")
+    # the poh_dev tile at the [leader] defaults: hashes_per_tick 16,
+    # mb_per_tick 8, spec_ticks 4, spec_spans 3
+    d_hpt, mb_cap, K = 16, 8, 4
+    P, tail = d_hpt - mb_cap - 1, mb_cap + 1
+    win_caps = (d_hpt, tail) + (P, tail) * (K - 1)
+    win = pe.PohEngine(lanes=3, steps=2 * K, max_hashes=d_hpt,
+                       step_caps=win_caps, device=device)
+    seng = pe.PohEngine(lanes=1, steps=tail, max_hashes=tail,
+                        step_caps=(1,) * mb_cap + (tail,), device=device)
+    head = rng.bytes(32)
+    wspecs = [(head, [(P, None), (tail, None)] * K),
+              (rng.bytes(32), [(d_hpt, None)]),
+              (rng.bytes(32), [(P + 1, rng.bytes(32))])]
+    if not np.array_equal(engine_run(win, wspecs),
+                          pe.host_spans(wspecs, 2 * K)):
+        raise AssertionError("phase 15a: the window geometry differs from "
+                             "host_spans")
+    wb = np.zeros((3, pe.row_bytes(2 * K)), np.uint8)
+    pe.stamp_lanes(wb, wspecs)
+    err = max(err, hold_poh(torch.from_numpy(wb).to(dev), 2 * K, win_caps,
+                            "window"))
+    for j in range(4):
+        mixes = [rng.bytes(32) for _ in range(j)]
+        sspec = ([(1, m) for m in mixes] + [(0, None)] * (mb_cap - j)
+                 + [(tail - j, None)])
+        mid = rng.bytes(32)
+        if not np.array_equal(engine_run(seng, [(mid, sspec)]),
+                              pe.host_spans([(mid, sspec)], tail)):
+            raise AssertionError(f"phase 15a: the splice at j={j} differs "
+                                 f"from host_spans")
+        sb = np.zeros((1, pe.row_bytes(tail)), np.uint8)
+        pe.stamp_lanes(sb, [(mid, sspec)])
+        err = max(err, hold_poh(torch.from_numpy(sb).to(dev), tail,
+                                (1,) * mb_cap + (tail,), f"splice j={j}"))
+    # n == 0, inactive steps, n past a cap, a negative n
+    steps, caps = 4, (0, 1, 6, 9)
+    edge = np.zeros((40, pe.row_bytes(steps)), np.uint8)
+    edge[:, :32] = rng.integers(0, 256, (40, 32))
+    for s in range(steps):
+        b = 32 + 38 * s
+        edge[:, b:b + 32] = rng.integers(0, 256, (40, 32))
+        n = rng.integers(0, 13, 40).astype("<u4")
+        n[:4] = (0, 1, 2**32 - 3, caps[s] + 5)
+        edge[:, b + 32:b + 36] = n.view(np.uint8).reshape(40, 4)
+        edge[:, b + 36] = rng.integers(0, 2, 40)
+        edge[:, b + 37] = rng.integers(0, 4, 40) > 0
+    err = max(err, hold_poh(torch.from_numpy(edge).to(dev), steps, caps,
+                            "edges"))
+    note(f"phase 15a: the poh_dev window (3 lanes x {2 * K} steps, caps "
+         f"{win_caps}) and splice (j = 0..3 of {mb_cap}) geometry == "
+         f"host_spans; kernel == plain == host chain there and on 40 rows "
+         f"of n == 0, inactive steps, n past the cap; max error {err}")
+    out["poh_err"], out["poh_plain_ms"] = err, plain_ms
+
+    # ---- (b) a whole slot at the Solana clock defaults
+    n_mix = 7
+    n_m = hpt // (n_mix + 1)
+    n_t = hpt - n_mix * n_m
+    mbs = [_fake_txns(rng, int(w))
+           for w in rng.integers(1, 32, tps * n_mix)]
+    reset_counts()
+    mixins = entry_lib.txn_mixins_device(mbs, pad_width=32, device=device)
+    got_b = counts()
+    if got_b["mixin_tree"] != 1:
+        raise AssertionError(f"phase 15b: mixin launches {got_b}")
+    for i, ts in enumerate(mbs):
+        if bytes(mixins[i]) != entry_lib.txn_mixin(ts):
+            raise AssertionError(f"phase 15b: mixin {i} differs from "
+                                 f"txn_mixin")
+    sspec, txns_of = [], []
+    for t in range(tps):
+        for k in range(n_mix):
+            sspec.append((n_m, bytes(mixins[t * n_mix + k])))
+            txns_of.append(mbs[t * n_mix + k])
+        sspec.append((n_t, None))
+        txns_of.append([])
+    steps_b = len(sspec)
+    start = rng.bytes(32)
+    caps_b = tuple(n for n, _ in sspec)
+    cb = np.zeros((1, pe.row_bytes(steps_b)), np.uint8)
+    pe.stamp_lanes(cb, [(start, sspec)])
+    chain_dev = torch.from_numpy(cb).to(dev)
+    reset_counts()
+    ends = ps.poh_spans(chain_dev, steps_b, caps_b).cpu().numpy().reshape(
+        steps_b, 32)
+    got_b = counts()
+    if got_b["poh_spans"] != 1:
+        raise AssertionError(f"phase 15b: launches {got_b}")
+    entries = [entry_lib.Entry(n, bytes(ends[i]), txns_of[i])
+               for i, (n, _) in enumerate(sspec)]
+    t0 = time.perf_counter()
+    if not entry_lib.verify_chain(start, entries):
+        raise AssertionError("phase 15b: the slot's chain does not "
+                             "re-verify on the host")
+    t_host = time.perf_counter() - t0
+    chain_ms = cuda_ms(lambda: ps.poh_spans(chain_dev, steps_b, caps_b),
+                       3, 0)
+    n_hashes = tps * hpt
+    # the re-check of the slot's entries, one corrupted
+    starts = np.stack([np.frombuffer(start, np.uint8)]
+                      + [ends[i] for i in range(steps_b - 1)])
+    nums = np.array(caps_b, np.int32)
+    has = np.array([m is not None for _, m in sspec])
+    mixarr = np.zeros((steps_b, 32), np.uint8)
+    for i, (_, m) in enumerate(sspec):
+        if m is not None:
+            mixarr[i] = np.frombuffer(m, np.uint8)
+    bad = 3 * (n_mix + 1) + 2                  # a mixin entry of tick 3
+    txns_bad = [bytearray(t) for t in txns_of[bad]]
+    txns_bad[0][5] ^= 1
+    mix_bad = mixarr.copy()
+    mix_bad[bad] = np.frombuffer(
+        entry_lib.txn_mixin([bytes(t) for t in txns_bad]), np.uint8)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (starts, nums, mixarr, has, ends)]
+    args_bad = list(args)
+    args_bad[2] = torch.from_numpy(mix_bad).to(dev)
+    reset_counts()
+    re_ok = poh_lib.entry_verify(*args[:4], args[4], hpt).cpu().numpy()
+    re_bad = poh_lib.entry_verify(*args_bad[:4], args_bad[4],
+                                  hpt).cpu().numpy()
+    got_b = counts()
+    bad_entries = list(entries)
+    bad_entries[bad] = entry_lib.Entry(entries[bad].num_hashes,
+                                       entries[bad].hash,
+                                       [bytes(t) for t in txns_bad])
+    if not (re_ok.all() and np.flatnonzero(~re_bad).tolist() == [bad]
+            and not entry_lib.verify_chain(start, bad_entries)
+            and got_b["poh_spans"] == 2):
+        raise AssertionError(f"phase 15b: re-check {int(re_ok.sum())} of "
+                             f"{steps_b} pass; corrupted: fails at "
+                             f"{np.flatnonzero(~re_bad).tolist()}, want "
+                             f"[{bad}]; launches {got_b}")
+    rc_blob = torch.cat([args[0], args[2],
+                         args[1].reshape(-1, 1).view(torch.uint8),
+                         args[3].to(torch.uint8).reshape(-1, 1),
+                         torch.ones_like(args[3], dtype=torch.uint8
+                                         ).reshape(-1, 1)], 1).contiguous()
+    rc_ms = cuda_ms(lambda: ps.poh_spans(rc_blob, 1, (hpt,)))
+    rc_dev = dev_ms(lambda: ps.poh_spans(rc_blob, 1, (hpt,)),
+                    "poh_spans_kernel")
+    ve_ms = cuda_ms(lambda: poh_lib.verify_entries(*args[:4], hpt))
+    rc_ops = _sha256_ops(nums, has)
+    rc_bytes = rc_blob.numel() + steps_b * 32
+    rc_bound = max((rc_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (_sha256_bound_ms(rc_ops, int_ops_per_s), "operations"))
+    # the one-lane chain: its dependent operations at the max SM clock
+    n_comp = (int(np.maximum(nums - 1, 0).sum()) + int((~has).sum())
+              + 2 * int(has.sum()))
+    cp_ms = n_comp * 64 * SHA256_ROUND_DEPTH / clock_hz * 1e3
+    note(f"phase 15b: one lane, a {tps} x {hpt} slot ({n_hashes} hashes, "
+         f"{steps_b} entries: {n_mix} mixin entries of {n_m} and a tick "
+         f"entry of {n_t} a tick, {len(mbs)} mixins by one mixin-tree "
+         f"launch == txn_mixin): verify_chain (hashlib) True in "
+         f"{t_host:.3f} s; kernel {chain_ms:.3f} ms = "
+         f"{n_hashes / chain_ms * 1e3:.1f} hashes/s "
+         f"({clock_hz * chain_ms / 1e3 / n_hashes:.0f} cycles a hash at "
+         f"{clock_hz / 1e6:.0f} MHz), the slot "
+         f"{chain_ms:.3f} ms against Agave's {AGAVE_SLOT_MS:.0f} ms "
+         f"({'fits' if chain_ms <= AGAVE_SLOT_MS else 'does not fit'}); "
+         f"critical-path bound {cp_ms:.3f} ms ({n_comp} compressions x 64 "
+         f"rounds x {SHA256_ROUND_DEPTH} dependent operations at "
+         f"{clock_hz / 1e6:.0f} MHz); an append's least work "
+         f"{SHA256_APPEND_OPS[0]} integer-pipe-only and "
+         f"{SHA256_APPEND_OPS[1]} add operations, {2 * SHA256_APPEND_OPS[0]}"
+         f" cycles a hash at a sub-partition's 16 INT32 lanes")
+    note(f"phase 15b: verify_entries re-check of the {steps_b} entries: all "
+         f"pass; entry {bad} with one txn byte changed fails alone (and "
+         f"verify_chain fails); call {ve_ms:.4f} ms = "
+         f"{steps_b / ve_ms * 1e3:.1f} entries/s; the kernel on the built "
+         f"blob {rc_ms:.4f} ms, device {rc_dev:.4f} ms, bound "
+         f"{rc_bound[0]:.5f} ms ({rc_bound[1]}: {rc_ops[0]} integer-pipe "
+         f"and {rc_ops[1]} add operations, "
+         f"{rc_bytes} bytes)")
+    out.update(chain_ms=chain_ms, chain_hps=n_hashes / chain_ms * 1e3,
+               chain_cp_ms=cp_ms, rc_ms=rc_ms, rc_dev=rc_dev,
+               rc_bound=rc_bound, ve_ms=ve_ms, rc_entries=steps_b)
+
+    # ---- (c) kernel B against its plain version and txn_mixin
+    merr = 0
+    batches = [_fake_txns(rng, w) for w in range(1, 34)]
+    reset_counts()
+    mix33 = entry_lib.txn_mixins_device(batches, pad_batch=40, pad_width=64,
+                                        device=device)
+    got_c = counts()
+    if got_c["mixin_tree"] != 1 or any(
+            bytes(mix33[i]) != entry_lib.txn_mixin(ts)
+            for i, ts in enumerate(batches)):
+        raise AssertionError(f"phase 15c: widths 1-33 differ from "
+                             f"txn_mixin (launches {got_c})")
+
+    def sig_planes(bs, B, W):
+        sigs = np.zeros((B, W, 64), np.uint8)
+        for i, ts in enumerate(bs):
+            for j, t in enumerate(ts):
+                sigs[i, j] = np.frombuffer(t[1:65], np.uint8)
+        w = np.ones(B, np.int32)
+        w[:len(bs)] = [len(ts) for ts in bs]
+        return torch.from_numpy(sigs).to(dev), torch.from_numpy(w).to(dev)
+
+    tile_mbs = [_fake_txns(rng, 31) for _ in range(8)]
+    for bs, B, W in ((batches, 40, 64), (tile_mbs, 8, 32)):
+        s_d, w_d = sig_planes(bs, B, W)
+        k, p = mt.mixin_tree(s_d, w_d), mt.mixin_tree_plain(s_d, w_d)
+        if not torch.equal(k, p):
+            raise AssertionError(f"phase 15c: {B} x {W}: kernel differs "
+                                 f"from plain")
+        merr = max(merr, int((k.to(torch.int16) - p).abs().max()))
+    if [bytes(r) for r in k.cpu().numpy()] != [entry_lib.txn_mixin(ts)
+                                               for ts in tile_mbs]:
+        raise AssertionError("phase 15c: 8 x 31 differs from txn_mixin")
+    m_ms = cuda_ms(lambda: mt.mixin_tree(s_d, w_d))
+    m_dev = dev_ms(lambda: mt.mixin_tree(s_d, w_d), "mixin_tree_kernel")
+    m_plain = cuda_ms(lambda: mt.mixin_tree_plain(s_d, w_d), PLAIN_RUNS, 1)
+    m_ops = tuple(x * _tree_hashes([31] * 8) for x in SHA256_NODE_OPS)
+    m_bytes = 8 * 32 * 64 + 8 * 4 + 8 * 32
+    m_bound = max((m_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (_sha256_bound_ms(m_ops, int_ops_per_s), "operations"))
+    note(f"phase 15c: mixin tree: widths 1-33 (padded to 40 x 64) == "
+         f"txn_mixin in one launch; kernel == plain at 40 x 64 and at the "
+         f"tile's 8 x 31 (W 32), == txn_mixin; 8 x 31: kernel "
+         f"{m_ms:.5f} ms, device {m_dev:.5f} ms, plain {m_plain:.4f} ms, "
+         f"bound {m_bound[0]:.6f} ms ({m_bound[1]}); max error {merr}")
+    out.update(m_err=merr, m_ms=m_ms, m_dev=m_dev, m_plain=m_plain,
+               m_bound=m_bound)
+
+    old_env = {k: os.environ.get(k)
+               for k in ("OMP_NUM_THREADS", "FDTPU_DRAIN_DIR")}
+    os.environ["OMP_NUM_THREADS"] = "1"
+    # each tile's drain manifest; poh_dev's records its kernel launches
+    # since its boot ended
+    os.environ["FDTPU_DRAIN_DIR"] = str(workdir / "drain")
+    try:
+        # ---- (d) leader-bench in processes at the [leader] defaults
+        cfg = app_config.load(environ={})
+        cfg["name"] = f"{tag}l"
+        cfg["topology"] = "leader-bench"
+        cfg["development"]["source_count"] = n_src
+        cfg["tiles"]["verify"]["device"] = device or ""
+        cfg["leader"]["device"] = device or ""
+        cfg["leader"]["capture_path"] = str(workdir / "entries.cap")
+        cfg["supervision"]["drain_timeout_s"] = 120.0
+        spec = app_config.build_topology(cfg)
+        # a second in-link into the verify tile, written by hand: valid
+        # txns of another stream and forged ones (a signature bit flipped)
+        spec = dc_.replace(
+            spec, links=spec.links + (topo_mod.LinkSpec("inj_verify", 256,
+                                                        1280),),
+            tiles=(topo_mod.TileSpec("inj", "sink", (), ("inj_verify",),
+                                     {}),)
+            + tuple(dc_.replace(t, in_links=t.in_links
+                                + (topo_mod.InLink("inj_verify"),))
+                    if t.kind == "verify" else t
+                    for t in spec.tiles)).validate()
+        _shm_check(spec.wksp_mb << 20, note)
+        seed = cfg["development"]["bench_seed"]
+        step = -(-n_src // 16)
+        src_w = pool.starmap_async(_stream_part, [
+            (seed, 4, lo, min(lo + step, n_src))
+            for lo in range(0, n_src, step)])
+        foreign = [w for _, w in _stream_part(7, 4, 0, n_foreign)]
+        forged = []
+        for _, w in _stream_part(8, 4, 0, n_forged):
+            b = bytearray(w)
+            b[1 + 40] ^= 1
+            forged.append(bytes(b))
+        inj = foreign + forged
+        inj = [inj[i] for i in rng.permutation(len(inj))]
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy.from_cfg(cfg))
+        try:
+            run.wait_ready(timeout=cfg["supervision"]["boot_grace_s"])
+            t_boot = time.perf_counter() - t0
+            lnk = run.jt.links["inj_verify"]
+            lens = np.array([len(w) for w in inj], np.int32)
+            offs = np.zeros(len(inj), np.int64)
+            np.cumsum(lens[:-1], out=offs[1:])
+            sigs = np.array([int.from_bytes(w[1:9], "little")
+                             & ((1 << 63) - 1) for w in inj], np.uint64)
+            tx_burst(lnk.mcache, lnk.dcache, lnk.dcache.chunk0,
+                     b"".join(inj), offs, lens, sigs)
+            lnk = None
+            want = sorted([w for part in src_w.get(600) for _, w in part]
+                          + foreign)
+            t0 = time.perf_counter()
+
+            def mixed():
+                pm, dm = run.metrics("leader_pack"), run.metrics("poh_dev")
+                return (pm["sched_txn_cnt"] == len(want)
+                        and dm["mixin_cnt"] == pm["microblock_cnt"])
+
+            _wait_for(mixed, 600, "every valid txn mixed into the chain", run)
+            t_d = time.perf_counter() - t0
+            if not run.drain():
+                raise AssertionError("phase 15d: drain() did not drain "
+                                     "every tile")
+            v, pm = run.metrics("verify:0"), run.metrics("leader_pack")
+            pd = run.metrics("poh_dev")
+            # the tile's launches and dispatches when it ran dry (the
+            # halt's fini dispatches after it)
+            st_d = run._load_drain_manifest("poh_dev")["tile_state"]
+            got_d = st_d["launches"]
+        finally:
+            run.close()
+        if set(run.exitcodes.values()) != {0}:
+            raise AssertionError(f"phase 15d: exit codes {run.exitcodes}")
+        recs = read_capture(str(workdir / "entries.cap"))
+        ents = [entry_lib.Entry.deserialize(p)[0] for _, p in recs]
+        got_txns = sorted(t for e in ents for t in e.txns)
+        done_bit = PohDevTile.SLOT_DONE_BIT
+        slots = [s & ~done_bit for s, _ in recs]
+        # the done bit marks each slot's last entry; the sink may halt
+        # before the slot that fini closes reaches it
+        done_ok = all(bool(s & done_bit) == (slots[i + 1] != slots[i])
+                      for i, (s, _) in enumerate(recs[:-1]))
+        host_ok = []
+        for w in inj:
+            t = txn_lib.parse(w)
+            host_ok.append(all(
+                ed.verify_one_host(s, t.message(w), k)
+                for s, k in zip(t.signatures(w), t.signer_pubkeys(w))))
+        if not (entry_lib.verify_chain(bytes(32), ents)
+                and got_txns == want and done_ok
+                and sum(host_ok) == n_foreign
+                and pd["recheck_fail_cnt"] == 0 and pd["recheck_ok_cnt"] > 0
+                and pd["parse_fail_cnt"] == 0 and v["torn_drop_cnt"] == 0
+                and v["compile_cnt"] == 0
+                and v["verify_fail_cnt"] == n_forged
+                and st_d["splice_dispatch_cnt"] > 0
+                and got_d["poh_spans"] == (st_d["dispatch_cnt"]
+                                           + st_d["splice_dispatch_cnt"])
+                and got_d["mixin_tree"] == st_d["splice_dispatch_cnt"]):
+            raise AssertionError(
+                f"phase 15d: chain {entry_lib.verify_chain(bytes(32), ents)}"
+                f", {len(got_txns)} txns in the entries of {len(want)} "
+                f"valid, slot_done {done_ok}, host {sum(host_ok)}, verify "
+                f"{v}, poh_dev {pd}, at the drain {st_d}")
+        note(f"phase 15d: leader-bench in processes at the [leader] "
+             f"defaults: {n_src} source txns + {n_foreign} valid and "
+             f"{n_forged} forged injected; {len(ents)} entries re-verify "
+             f"from the seed (verify_chain), each of the {len(want)} valid "
+             f"txns once in {pm['microblock_cnt']} microblocks, no forged "
+             f"one (verify_fail {v['verify_fail_cnt']}); SLOT_DONE_BIT on "
+             f"each slot's last entry; torn {v['torn_drop_cnt']}, compile "
+             f"{v['compile_cnt']}, recheck ok {pd['recheck_ok_cnt']} fail "
+             f"{pd['recheck_fail_cnt']}; spec_hit {pd['spec_hit_cnt']}, "
+             f"spec_miss {pd['spec_miss_cnt']}, rehash {pd['rehash_cnt']}, "
+             f"dispatch {pd['dispatch_cnt']}, splice "
+             f"{pd['splice_dispatch_cnt']}; launches from boot to the "
+             f"drain in the tile's process (its drain manifest) "
+             f"{{poh_spans: {got_d['poh_spans']}, mixin_tree: "
+             f"{got_d['mixin_tree']}}} == dispatch + splice "
+             f"({st_d['dispatch_cnt']} + {st_d['splice_dispatch_cnt']}) and "
+             f"splice then; "
+             f"drain() True; every tile exited 0; boot {t_boot:.3f} s; "
+             f"{len(want) / t_d:.1f} txns/s into the chain ({t_d:.3f} s, "
+             f"the source signs on the host)")
+
+        # ---- (e) the poh_dev tile at hpt x tps in process under the Mux
+        mtu_mb = 4 + 31 * (4 + 1280)
+        mtu_e = 48 + 32 * (4 + 1280)
+        spec = (topo_mod.TopoBuilder(f"{tag}e", wksp_mb=64)
+                .link("p_d", depth=256, mtu=mtu_mb)
+                .link("d_s", depth=1024, mtu=mtu_e)
+                .tile("src", "sink", outs=["p_d"])
+                .tile("poh", "poh_dev", ins=["p_d"], outs=["d_s"],
+                      hashes_per_tick=hpt, ticks_per_slot=tps,
+                      device=device)
+                .tile("s", "sink", ins=[topo_mod.InLink("d_s",
+                                                       reliable=False)])
+                .build())
+        _shm_check(spec.wksp_mb << 20, note)
+        e_in = [_fake_txns(rng, int(w)) for w in rng.integers(1, 32, e_mbs)]
+        jt = topo_mod.create(spec)
+        tile, run_err = PohDevTile(), []
+        try:
+            lnk = jt.links["p_d"]
+            chunk = lnk.dcache.chunk0
+            for ts in e_in:
+                f = entry_lib.serialize_txn_batch(ts)
+                nxt = lnk.dcache.write(chunk, f)
+                lnk.mcache.publish(0, chunk, len(f))
+                chunk = nxt
+            lnk = None
+            mux = Mux(jt, "poh", tile)
+            mux.HOUSE_NS = 1_000_000
+
+            def run_mux():
+                try:
+                    mux.run()
+                except BaseException as e:  # re-raised below
+                    run_err.append(e)
+
+            th = threading.Thread(target=run_mux, daemon=True)
+            reset_counts()
+            th.start()
+            cnc = jt.cnc["poh"]
+            _wait_for(lambda: cnc.signal_query() == Cnc.SIGNAL_RUN
+                      or run_err, 300, "the poh_dev tile's boot")
+            t0 = time.perf_counter()
+            _wait_for(lambda: tile.slot > 1 or run_err, 600,
+                      "the first slot")
+            t_slot = time.perf_counter() - t0
+            cnc.signal(Cnc.SIGNAL_HALT)
+            th.join(120)
+            if th.is_alive() or run_err:
+                raise AssertionError(f"phase 15e: the tile did not halt "
+                                     f"cleanly: {run_err}")
+            got_e = counts()
+            lnk = jt.links["d_s"]
+            recs = []
+            for seq in range(lnk.mcache.seq0(), lnk.mcache.seq_query()):
+                rc, m = lnk.mcache.query(seq)
+                if rc != 0:
+                    raise AssertionError("phase 15e: an entry frag was "
+                                         "overrun before it was read")
+                recs.append((int(m["sig"]), lnk.dcache.read(
+                    int(m["chunk"]), int(m["sz"]))))
+            lnk = None
+            snap = jt.metrics["poh"].snapshot()
+            mux = None
+            import gc
+            gc.collect()
+        finally:
+            jt.close()
+            jt.unlink()
+        ents = [entry_lib.Entry.deserialize(p)[0] for _, p in recs]
+        t0 = time.perf_counter()
+        chain_ok = entry_lib.verify_chain(bytes(32), ents)
+        t_ver = time.perf_counter() - t0
+        slot1 = [e for (s, _), e in zip(recs, ents)
+                 if s & ~PohDevTile.SLOT_DONE_BIT == 1]
+        mixed_e = [e.txns for e in ents if e.txns]
+        if not (chain_ok and mixed_e == e_in
+                and sum(e.num_hashes for e in slot1) == hpt * tps
+                and recs[len(slot1) - 1][0] & PohDevTile.SLOT_DONE_BIT
+                and snap["recheck_fail_cnt"] == 0
+                and got_e["poh_spans"] >= 1 and got_e["mixin_tree"] >= 1):
+            raise AssertionError(
+                f"phase 15e: chain {chain_ok}, {len(mixed_e)} of {e_mbs} "
+                f"microblocks in order {mixed_e == e_in}, slot 1 "
+                f"{sum(e.num_hashes for e in slot1)} hashes, metrics {snap},"
+                f" launches {got_e}")
+        note(f"phase 15e: poh_dev at {hpt} x {tps} under the port's Mux in "
+             f"process (house every 1 ms), {e_mbs} microblocks fed before "
+             f"RUN: slot 1 closed {t_slot:.3f} s after RUN "
+             f"({len(slot1)} entries, {hpt * tps} hashes; Agave's slot "
+             f"{AGAVE_SLOT_MS:.0f} ms; a finding, not a gate); "
+             f"{len(ents)} entries re-verify (verify_chain, {t_ver:.3f} s), "
+             f"the microblocks in order; spec_hit {snap['spec_hit_cnt']}, "
+             f"spec_miss {snap['spec_miss_cnt']}, rehash "
+             f"{snap['rehash_cnt']}, dispatch {snap['dispatch_cnt']}, "
+             f"splice {snap['splice_dispatch_cnt']}, recheck ok "
+             f"{snap['recheck_ok_cnt']} fail {snap['recheck_fail_cnt']}; "
+             f"launches {{poh_spans: {got_e['poh_spans']}, mixin_tree: "
+             f"{got_e['mixin_tree']}}}")
+        out.update(launches=got_e, t_slot=t_slot)
+    finally:
+        for k, val in old_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    note(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1305,7 +2013,9 @@ def main() -> int:
         from firedancer_tpu_torch.ops import dsm
         from firedancer_tpu_torch.ops import ed25519 as ed
         from firedancer_tpu_torch.ops import f25519 as fe
+        from firedancer_tpu_torch.ops import mixin_tree as mt
         from firedancer_tpu_torch.ops import msm as ms
+        from firedancer_tpu_torch.ops import poh_spans as ps
         from firedancer_tpu_torch.ops import reduce_recode as rr
         from firedancer_tpu_torch.ops import rlc_recode as rl
         from firedancer_tpu_torch.ops import scalar25519 as sc
@@ -1552,7 +2262,8 @@ def main() -> int:
                "reduce_recode": rr.reduce_recode,
                "dsm_tail_q": dsm.dsm_tail_q,
                "double_scalar_mul_base": dsm.double_scalar_mul_base,
-               "rlc_recode": rl.rlc_recode}
+               "rlc_recode": rl.rlc_recode, "poh_spans": ps.poh_spans,
+               "mixin_tree": mt.mixin_tree}
 
     def reset_counts():
         for fn in counted.values():
@@ -2331,6 +3042,12 @@ def main() -> int:
         # VerifyTile under the port's Mux in process, then the
         # verify-bench topology in processes, wire and packed-wire
         topology_phase(pool, reset_counts, counts, note)
+        # ---- phase 15: the leader lane: the PoH spans and mixin-tree
+        # kernels, leader-bench in processes, the poh_dev tile at the
+        # Solana clock defaults
+        lead = leader_phase(pool, reset_counts, counts, note, cuda_ms,
+                            dev_ms, int_ops_per_s, clock_mhz * 1e6,
+                            hpt=POH_HASHES_PER_TICK, tps=POH_TICKS_PER_SLOT)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels
@@ -2390,6 +3107,34 @@ def main() -> int:
              "bound_ms": b_[0],
              "bound_by": b_[1], "library_ms": None,
              "shape": f"{buckets[0][0]}x{buckets[0][1]}"})
+    # the leader lane's hand kernels (no Pallas kernel in the JAX package:
+    # they replace its lax.scan code); launches from phase 15e's poh_dev
+    # run, times at the shapes named
+    kernels += [
+        {"name": "poh_spans", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/poh_spans.cu",
+         "replaces": "firedancer_tpu/ballet/poh_engine.py:51 poh_spans_blob;"
+                     " firedancer_tpu/ballet/poh.py:41 verify_entries",
+         "launches": lead["launches"]["poh_spans"],
+         "max_abs_err": lead["poh_err"], "ms": lead["rc_ms"],
+         "device_ms": lead["rc_dev"], "plain_ms": lead["poh_plain_ms"],
+         "bound_ms": lead["rc_bound"][0], "bound_by": lead["rc_bound"][1],
+         "library_ms": None,
+         "shape": f"{lead['rc_entries']} entries of a "
+                  f"{POH_HASHES_PER_TICK} x {POH_TICKS_PER_SLOT} slot, one "
+                  f"step a lane",
+         "plain_shape": "8 lanes x 2 steps x 64 hashes",
+         "chain_ms": lead["chain_ms"],
+         "chain_hashes_per_s": lead["chain_hps"],
+         "chain_critical_path_ms": lead["chain_cp_ms"]},
+        {"name": "mixin_tree", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/mixin_tree.cu",
+         "replaces": "firedancer_tpu/ballet/entry.py:146 _mixin_roots",
+         "launches": lead["launches"]["mixin_tree"],
+         "max_abs_err": lead["m_err"], "ms": lead["m_ms"],
+         "device_ms": lead["m_dev"], "plain_ms": lead["m_plain"],
+         "bound_ms": lead["m_bound"][0], "bound_by": lead["m_bound"][1],
+         "library_ms": None, "shape": "8 trees x 31 leaves (W 32)"}]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,9 +7,10 @@ reads.
 The compiled-in defaults are DEFAULT_TOML below, with the JAX package's
 values; a user file overlays it key by key; FDTPU_* environment variables
 overlay scalars last (FDTPU_LAYOUT_VERIFY_TILE_COUNT=4 sets [layout]
-verify_tile_count).  build_topology materializes `verify-bench`; the
-`fdtpu` and `leader-bench` topologies need tiles the port does not have
-yet and raise NotImplementedError.
+verify_tile_count).  build_topology materializes `verify-bench` and
+`leader-bench` (with one pack tile: `[leader] pack_shards > 1` needs the
+leader_merge tile and raises NotImplementedError); the `fdtpu` topology
+needs tiles the port does not have yet and raises NotImplementedError.
 """
 
 import os
@@ -19,7 +20,7 @@ from ..disco.topo import TopoBuilder, TopoSpec, assign_affinity
 
 DEFAULT_TOML = """
 name = "fdtpu"
-topology = "verify-bench"   # verify-bench (fdtpu, leader-bench: not ported)
+topology = "verify-bench"   # verify-bench | leader-bench (fdtpu: not ported)
 
 [layout]
 verify_tile_count = 1
@@ -59,6 +60,33 @@ spill_age_factor = 4.0      # spill when open-queue age > factor * deadline
 
 [tiles.dedup]
 tcache_depth = 1048576
+
+[leader]                    # leader lane: pack -> device PoH (the
+                            # leader-bench topology)
+hashes_per_tick = 16
+ticks_per_slot = 8
+spec_spans = 3              # concurrent engine span lanes: 1 chain lane +
+                            # (spec_spans - 1) emitted-entry re-check lanes
+poh_spec_ticks = 4          # PoH speculation depth: ticks pre-hashed per
+                            # window dispatch (a mixin splices from the
+                            # saved insertion point and invalidates the
+                            # rest of the window)
+mb_per_tick = 8             # mixin steps per tick (capped at
+                            # hashes_per_tick - 1; excess microblocks defer)
+pack_shards = 1             # leader_pack tiles (> 1: the sharded pack and
+                            # its leader_merge tile, not ported)
+native_pack = -1            # pack schedule hot loop: -1 or 1 = the C
+                            # scheduler (raises when the host library does
+                            # not build), 0 = the Python scheduler
+mixin_txn_max = 32          # mixin merkle-tree pad width (txns/microblock)
+max_txn_per_microblock = 31
+max_pending = 4096          # pack heap cap (0 = unbounded; simple votes
+                            # bypass — the reserved vote lane)
+block_us = 400000           # end_block cadence (block budget reset)
+capture_path = ""           # sink capture file (sig|len|payload per frag)
+                            # for offline chain re-verification; "" = off
+device = ""                 # the poh_dev tile's: "" = the GPU; "cpu" runs
+                            # the plain versions
 
 [tiles.metric]
 prometheus_port = 0         # >0: the metric tile, not ported
@@ -145,6 +173,8 @@ _STRICT_SUBTABLES = {"supervision": ("heartbeat_stale",)}
 _RESPAWN = "respawn (TopoRun.supervise)"
 _GUARD = "the verify tile's GuardedVerifier (host fallback)"
 _NOT_PORTED = {
+    "leader": {"unroll": "the XLA scan unroll of the PoH step (the CUDA "
+                         "kernel unrolls its rounds in full)"},
     "supervision": {"max_restarts": _RESPAWN, "backoff_initial_s": _RESPAWN,
                     "backoff_max_s": _RESPAWN, "backoff_jitter": _RESPAWN,
                     "device_fail_threshold": _GUARD, "device_retry": _GUARD,
@@ -189,7 +219,6 @@ def load(path: str | None = None, environ=os.environ) -> dict:
 # the tiles each topology the port does not build yet is missing
 _MISSING = {
     "fdtpu": "net, quic, pack, bank, poh, shred, store, sign",
-    "leader-bench": "leader_pack, leader_merge, poh_dev, shred",
 }
 
 
@@ -201,7 +230,7 @@ def build_topology(cfg: dict) -> TopoSpec:
         raise NotImplementedError(
             f"topology {name!r} needs tiles the port does not have yet: "
             f"{_MISSING[name]}")
-    if name != "verify-bench":
+    if name not in _TOPOS:
         raise ValueError(f"unknown topology {name!r}")
     if int(cfg["tiles"]["metric"]["prometheus_port"]):
         raise NotImplementedError(
@@ -210,17 +239,17 @@ def build_topology(cfg: dict) -> TopoSpec:
         raise NotImplementedError(
             "[autotune] enabled: the Autotuner (disco/autotune.py) is not "
             "ported")
-    return assign_affinity(_topo_verify_bench(cfg),
+    return assign_affinity(_TOPOS[name](cfg),
                            str(cfg["layout"].get("affinity", "")))
 
 
-def _topo_verify_bench(cfg: dict) -> TopoSpec:
-    """source -> verify[v] -> dedup -> sink: the synthetic sigverify load
-    harness (the verify_synth_load.c / `fddev bench` analogue)."""
+def _source_and_verify(cfg: dict, name: str, out_link: str):
+    """The builder with the source and the verify tiles both topologies
+    share: source -> verify[v], verify v publishing on `out_link`:v.
+    Returns (builder, nverify, egress_packed)."""
     nverify = int(cfg["layout"]["verify_tile_count"])
-    t = cfg["tiles"]
     dev = cfg["development"]
-    vcfg = dict(t["verify"])
+    vcfg = dict(cfg["tiles"]["verify"])
     vcfg["device"] = vcfg.get("device") or None
     vcfg["mode"] = str(cfg.get("verify", {}).get("mode", "strict"))
     packed = int(dev.get("packed_wire", 0))
@@ -229,7 +258,7 @@ def _topo_verify_bench(cfg: dict) -> TopoSpec:
     egress_packed = bool(int(ing.get("egress_packed", 0))) and bool(packed)
     if egress_packed:
         vcfg["egress_packed"] = 1
-    b = TopoBuilder(cfg.get("name", "fdtpu") + "-bench",
+    b = TopoBuilder(cfg.get("name", "fdtpu") + name,
                     wksp_mb=128 if packed else 64)
     if packed:
         # zero-copy wire->device: the src_verify dcache chunk layout IS
@@ -266,10 +295,19 @@ def _topo_verify_bench(cfg: dict) -> TopoSpec:
     else:
         vd_depth, vd_mtu = 256, 1280
     for v in range(nverify):
-        b.link(f"verify_dedup:{v}", depth=vd_depth, mtu=vd_mtu)
+        b.link(f"{out_link}:{v}", depth=vd_depth, mtu=vd_mtu)
         b.tile(f"verify:{v}", "verify", ins=["src_verify"],
-               outs=[f"verify_dedup:{v}"],
+               outs=[f"{out_link}:{v}"],
                round_robin_cnt=nverify, round_robin_idx=v, **vcfg)
+    return b, nverify, egress_packed
+
+
+def _topo_verify_bench(cfg: dict) -> TopoSpec:
+    """source -> verify[v] -> dedup -> sink: the synthetic sigverify load
+    harness (the verify_synth_load.c / `fddev bench` analogue)."""
+    b, nverify, egress_packed = _source_and_verify(cfg, "-bench",
+                                                   "verify_dedup")
+    t = cfg["tiles"]
     b.link("dedup_sink", depth=256, mtu=1280)
     b.tile("dedup", "dedup",
            ins=[f"verify_dedup:{v}" for v in range(nverify)],
@@ -278,3 +316,44 @@ def _topo_verify_bench(cfg: dict) -> TopoSpec:
     b.tile("sink", "sink", ins=["dedup_sink"],
            **dict(t.get("sink") or {}))
     return b.build()
+
+
+def _topo_leader_bench(cfg: dict) -> TopoSpec:
+    """source -> verify[v] -> leader_pack -> poh_dev -> sink: the leader
+    write-side harness.  Verified txns feed the fee-priority pack
+    scheduler, whose microblocks mix into the device PoH chain; the sink
+    collects serialized entries (capture_path, for re-verification)."""
+    ld = dict(cfg.get("leader") or {})
+    if int(ld.get("pack_shards", 1)) > 1:
+        raise NotImplementedError(
+            "[leader] pack_shards > 1: the sharded pack and its "
+            "leader_merge tile are not ported")
+    b, nverify, egress_packed = _source_and_verify(cfg, "-leader",
+                                                   "verify_pack")
+    mtxn = int(ld.get("max_txn_per_microblock", 31))
+    mb_mtu = 4 + mtxn * (4 + 1280)          # serialize_txn_batch wire
+    b.link("pack_poh", depth=256, mtu=mb_mtu)
+    b.tile("leader_pack", "leader_pack",
+           ins=[f"verify_pack:{v}" for v in range(nverify)],
+           outs=["pack_poh"], packed_egress=int(egress_packed),
+           max_txn=mtxn, max_pending=int(ld.get("max_pending", 4096)),
+           block_us=int(ld.get("block_us", 400_000)),
+           native_pack=int(ld.get("native_pack", -1)))
+    mixin_max = int(ld.get("mixin_txn_max", 32))
+    entry_mtu = 48 + mixin_max * (4 + 1280)  # Entry.serialize wire
+    b.link("poh_sink", depth=512, mtu=entry_mtu)
+    b.tile("poh_dev", "poh_dev", ins=["pack_poh"], outs=["poh_sink"],
+           hashes_per_tick=int(ld.get("hashes_per_tick", 16)),
+           ticks_per_slot=int(ld.get("ticks_per_slot", 8)),
+           spec_spans=int(ld.get("spec_spans", 3)),
+           spec_ticks=int(ld.get("poh_spec_ticks", 4)),
+           mb_per_tick=int(ld.get("mb_per_tick", 8)),
+           mixin_txn_max=mixin_max,
+           device=ld.get("device") or None)
+    b.tile("sink", "sink", ins=["poh_sink"],
+           capture_path=str(ld.get("capture_path", "")))
+    return b.build()
+
+
+_TOPOS = {"verify-bench": _topo_verify_bench,
+          "leader-bench": _topo_leader_bench}

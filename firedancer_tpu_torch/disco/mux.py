@@ -302,8 +302,9 @@ class Mux:
     def _write_drain_manifest(self):
         """Cursor manifest for a completed drain: what an operator or a
         test inspects to prove zero loss — per-in-link fseq cursor,
-        out-link publish cursor, and the knob-pod generation the tile had
-        applied.  Written to
+        out-link publish cursor, the knob-pod generation the tile had
+        applied, and under "tile_state" what the tile's optional
+        drain_manifest(ctx) hook returns.  Written to
         [supervision] drain_manifest_dir (threaded into tile cfg) or
         $FDTPU_DRAIN_DIR; skipped when neither is set — a drain must
         never fail on a read-only filesystem."""
@@ -322,6 +323,11 @@ class Mux:
                 "cursors": {i.name: int(i.fseq.query()) for i in self.ins},
                 "outs": {o.name: int(o.seq) for o in self.outs},
             }
+            # the vtable's optional drain_manifest(ctx) -> dict: what the
+            # tile itself records of its run (JSON values)
+            cb_man = getattr(self.vt, "drain_manifest", None)
+            if cb_man is not None:
+                man["tile_state"] = cb_man(self.ctx)
             path = os.path.join(
                 d, self.tile.name.replace(":", "_") + ".manifest.json")
             tmp = path + ".tmp"

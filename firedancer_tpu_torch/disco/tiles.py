@@ -10,11 +10,12 @@ TileSpec.kind.  The verify-bench data plane is
 
     source -> verify -> dedup -> sink
 
-with the port's VerifyTile (disco/verify_tile.py) dispatching to the card.
-The net, quic, pack, bank and later tiles are not ported yet; neither are
-the source's executable transfers, stream adoption and blockhash
-feedback, nor the dedup tile's sharded tcache and restart preload: those
-options raise NotImplementedError.
+with the port's VerifyTile (disco/verify_tile.py) dispatching to the card;
+the leader-bench topology adds the leader_pack and poh_dev tiles
+(disco/leader_tiles.py).  The net, quic, bank and later tiles are not
+ported yet; neither are the source's executable transfers, stream
+adoption and blockhash feedback, nor the dedup tile's sharded tcache and
+restart preload: those options raise NotImplementedError.
 """
 
 import time
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..ballet import txn as txn_lib
 from ..tango.tcache import NativeTCache
+from .leader_tiles import LeaderPackTile, PohDevTile
 from .pipeline import LAT_PRIO_BIT
 from .verify_tile import VerifyTile
 
@@ -371,4 +373,6 @@ TILES: dict[str, type] = {
     "verify": VerifyTile,
     "dedup": DedupTile,
     "sink": SinkTile,
+    "leader_pack": LeaderPackTile,
+    "poh_dev": PohDevTile,
 }

@@ -35,7 +35,8 @@ class VerifierConfig:
 
 
 class Verdict:
-    """Pass bits of one dispatch, still on the device."""
+    """The result of one dispatch, still on the device: pass bits, or
+    another workload's tensor (the PoH engine's span planes)."""
 
     def __init__(self, bits: torch.Tensor):
         self._bits = bits
@@ -51,7 +52,8 @@ class Verdict:
     def copy_to_host_async(self):
         if self._host is None:
             if self._bits.is_cuda:
-                self._host = torch.empty(self._bits.shape, dtype=torch.bool,
+                self._host = torch.empty(self._bits.shape,
+                                         dtype=self._bits.dtype,
                                          pin_memory=True)
                 self._host.copy_(self._bits, non_blocking=True)
                 self._event = torch.cuda.Event()

@@ -1,14 +1,16 @@
-"""The port's host library, built with g++ at first use from three
+"""The port's host library, built with g++ at first use from four
 sources: tango.cpp (the rings), txnparse.cpp (the burst txn parser and
-the native tcache) and hostpath.cpp (the packed rows' one-pass submit and
-finish, which resolves the tcache's symbols at link time).
+the native tcache), hostpath.cpp (the packed rows' one-pass submit and
+finish, which resolves the tcache's symbols at link time) and
+packsched.cpp (the pack scheduler's hot loop).
 
 The library goes to ``firedancer_tpu_torch/_build/host-<hash>/``, keyed by
 a hash of every source and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Every tile process loads it at boot, and
 several may build it at the same moment: each compiles to a file of its
 own pid and renames it into place.  A failed build raises; there is no
-pure-Python ring, parser or tcache to fall back to.
+pure-Python ring, parser or tcache to fall back to, and the pack
+scheduler runs its Python version only when asked (native_pack = 0).
 """
 
 import ctypes
@@ -20,7 +22,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 SOURCES = tuple(_DIR / n for n in ("tango.cpp", "txnparse.cpp",
-                                    "hostpath.cpp"))
+                                    "hostpath.cpp", "packsched.cpp"))
 BUILD = _DIR.parent / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden")
 
@@ -111,6 +113,18 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
                                      p, p, p, p, p, p, p, p, p]),
         "fd_txn_parse_batch_packed": (i32, [p, p, i32, p, i32, i32, i32,
                                             p, i64, p, p, p, p, p, p]),
+        "fd_pack_new": (p, [i32, ctypes.c_longlong]),
+        "fd_pack_delete": (None, [p]),
+        "fd_pack_acct_key": (u64, [ctypes.c_char_p]),
+        "fd_pack_insert": (ctypes.c_longlong,
+                           [p, ctypes.c_char_p, ctypes.c_char_p]),
+        "fd_pack_pending": (ctypes.c_longlong, [p]),
+        "fd_pack_clear_pending": (None, [p]),
+        "fd_pack_schedule": (ctypes.c_longlong,
+                             [p, i32, i32, ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.POINTER(ctypes.c_longlong)]),
+        "fd_pack_done": (None, [p, i32]),
+        "fd_pack_end_block": (None, [p]),
     }
     for name, (res, args) in sig.items():
         fn = getattr(L, name)

@@ -3,15 +3,16 @@
 
     python3 firedancer_tpu_torch/tools/kernel_time.py [--root DIR]
         [--label L] [--kernels msm,verify_tail,dsm_tail_q,dsm_base,
-        sha512,decompress,reduce_recode,rlc_recode] [--lanes N,...]
-        [--sass]
+        sha512,decompress,reduce_recode,rlc_recode,poh_spans,mixin_tree]
+        [--lanes N,...] [--sass]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
 lines (registers, shared memory, stack and spills of each entry and
 out-of-line function), with --sass also the static SASS instruction
 counts of each kernel entry by opcode (cuobjdump -sass: the code as
-compiled, not as executed), and times each call two ways:
+compiled, not as executed) and of each loop in it (a backward branch and
+the instructions from its target to it), and times each call two ways:
   call ms    CUDA events around the whole wrapper call (median, min and
              max of 20 after 3 warm-ups): the host's enqueue, the
              allocations and the follow-on device ops included;
@@ -43,7 +44,13 @@ On inputs made from fixed seeds:
                decompress calls), plus the decompress launches of one
                verify_batch_rlc call at the first shape;
   reduce_recode, rlc_recode  at the 128-byte shapes, on the same
-               signatures' S and digests and random z.
+               signatures' S and digests and random z;
+  poh_spans    one step a lane of CHAIN_HASHES plain hashes from random
+               starts, at 1 and 32 lanes (one warp) and at 1, 4, 8 and
+               16 warps an SM (one warp a block), with the hashes/s of a
+               lane and of all;
+  mixin_tree   8 trees of 31 leaves (W 32, the poh_dev tile's shape) on
+               random signatures.
 The last line is one JSON object: the label, the card's name and power
 limit (nvidia-smi), the call times in ms, the device times in ms, the
 launches and the other device ops a call, and the device-time method.
@@ -62,15 +69,18 @@ from pathlib import Path
 import numpy as np
 
 RUNS, M = 20, 8
+CHAIN_HASHES = 20_000
 SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "dsm_tail_q": "dsm",
            "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
-           "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode"}
+           "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode",
+           "poh_spans": "poh_spans", "mixin_tree": "mixin_tree"}
 # each kernel's entry, as the profiler names its device events
 ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
            "dsm_tail_q": "dsm_tail_q_kernel", "dsm_base": "dsm_base_kernel",
            "sha512": "sha512_ram_kernel", "decompress": "decompress_kernel",
            "reduce_recode": "reduce_recode_kernel",
-           "rlc_recode": "rlc_recode_kernel"}
+           "rlc_recode": "rlc_recode_kernel",
+           "poh_spans": "poh_spans_kernel", "mixin_tree": "mixin_tree_kernel"}
 
 
 def cuda_ms(torch, fn) -> list[float]:
@@ -136,26 +146,58 @@ def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3,
     return a.elapsed_time(z) / runs, None, None, "events"
 
 
-def sass_counts(build, src: str) -> dict[str, dict[str, int]]:
-    """{kernel entry: {opcode: static count}} of csrc/<src>.cu's library,
-    from cuobjdump -sass (the opcode without its modifiers)."""
+def _sass(build, src: str) -> dict[str, list[tuple[int, str, str]]]:
+    """{function: [(address, opcode, instruction text)]} of csrc/<src>.cu's
+    library from cuobjdump -sass, the opcode without its modifiers; a
+    label's address is that of the instruction after it."""
     lib = build.BUILD / build._src_hash() / f"lib{src}.so"
     tool = Path(build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    fns, fn = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = counts.setdefault(m.group(1), {})
+            fn = fns.setdefault(m.group(1), [])
             continue
-        m = re.match(
-            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)[^;]*)", line)
         if m and fn is not None:
-            op = m.group(1).split(".")[0]
-            fn[op] = fn.get(op, 0) + 1
-    return {k: dict(sorted(v.items(), key=lambda kv: -kv[1]))
-            for k, v in counts.items() if "kernel" in k}
+            fn.append((int(m.group(1), 16), m.group(3).split(".")[0],
+                       m.group(2).strip()))
+    return fns
+
+
+def _opcodes(instrs) -> dict[str, int]:
+    ops = {}
+    for _, op, _ in instrs:
+        ops[op] = ops.get(op, 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def sass_counts(build, src: str) -> dict[str, dict[str, int]]:
+    """{kernel entry: {opcode: static count}} of csrc/<src>.cu's library."""
+    return {k: _opcodes(v) for k, v in _sass(build, src).items()
+            if "kernel" in k}
+
+
+def sass_loops(build, src: str) -> dict[str, list[tuple[int, int, dict]]]:
+    """{kernel entry: [(first address, last address, {opcode: count})]}:
+    each backward branch of the entry and the instructions from its
+    target to it, the body of one trip of that loop."""
+    out = {}
+    for k, instrs in _sass(build, src).items():
+        if "kernel" not in k:
+            continue
+        loops = []
+        for addr, op, text in instrs:
+            m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if op == "BRA" and m and int(m.group(1), 16) <= addr:
+                lo = int(m.group(1), 16)
+                loops.append((lo, addr, _opcodes(
+                    [i for i in instrs if lo <= i[0] <= addr])))
+        out[k] = loops
+    return out
 
 
 def main() -> int:
@@ -204,6 +246,11 @@ def main() -> int:
             for fn, ops in sass_counts(build, src).items():
                 print(f"{args.label} {src}.cu sass {fn} total "
                       f"{sum(ops.values())} {json.dumps(ops)}")
+            for fn, loops in sass_loops(build, src).items():
+                for lo, hi, ops in loops:
+                    print(f"{args.label} {src}.cu sass {fn} loop "
+                          f"{lo:#x}-{hi:#x} body {sum(ops.values())} "
+                          f"{json.dumps(ops)}")
 
     dev = torch.device("cuda", 0)
     times, dev_times, launches, others, methods = {}, {}, {}, {}, set()
@@ -229,6 +276,34 @@ def main() -> int:
                 for sel in ms.SELECTS:
                     timed(f"msm {n} {sel} nwin {nwin}", "msm",
                           lambda: ms.msm_lanes(win, pts, M, nwin, sel))
+    if "poh_spans" in kernels:
+        from firedancer_tpu_torch.ballet.poh_engine import row_bytes
+        from firedancer_tpu_torch.ops import poh_spans as ps
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rng = np.random.default_rng(13)
+        for lanes in (1, 32, 32 * sms, 128 * sms, 256 * sms, 512 * sms):
+            # a row: start | mixin | n (u32 LE) | has_mixin | active
+            rows = np.zeros((lanes, row_bytes(1)), np.uint8)
+            rows[:, :32] = rng.integers(0, 256, (lanes, 32), np.uint8)
+            rows[:, 64:68] = np.frombuffer(
+                np.uint32(CHAIN_HASHES).astype("<u4").tobytes(), np.uint8)
+            rows[:, 69] = 1
+            blob = torch.from_numpy(rows).to(dev)
+            key = f"poh_spans {lanes} lanes x {CHAIN_HASHES}"
+            timed(key, "poh_spans",
+                  lambda: ps.poh_spans(blob, 1, (CHAIN_HASHES,)))
+            t = times[key][0]
+            print(f"{args.label} {key}: {CHAIN_HASHES / t * 1e3:.1f} "
+                  f"hashes/s a lane, {lanes * CHAIN_HASHES / t * 1e3:.1f} "
+                  f"in all")
+    if "mixin_tree" in kernels:
+        from firedancer_tpu_torch.ops import mixin_tree as mt
+        rng = np.random.default_rng(14)
+        sigs = torch.from_numpy(rng.integers(0, 256, (8, 32, 64),
+                                             np.uint8)).to(dev)
+        widths = torch.full((8,), 31, dtype=torch.int32, device=dev)
+        timed("mixin_tree 8 x 31", "mixin_tree",
+              lambda: mt.mixin_tree(sigs, widths))
     shapes = ([(int(n), 128) for n in args.lanes.split(",")] if args.lanes
               else [(4096, 128), (32768, 128), (4096, 1232)])
     wide_only = {"verify_tail", "sha512"}

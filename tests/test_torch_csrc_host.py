@@ -14,9 +14,12 @@ threads (msm's points, the four ranks of the chain in vt_lane4,
 dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate), the
 harness runs those threads in lockstep and passes what the warp's
 shuffles would through arrays; each point step of the four-rank chain is
-also held alone against its plain function.  The launch, the grid and
-the memory layout are not checked here: chip_smoke.py checks those on
-the card.
+also held alone against its plain function.  The leader lane's lanes
+(csrc/sha256.cuh's fixed forms, the PoH lane of poh_spans.cu and the
+level rule of mixin_tree.cu) build into a second, smaller harness and
+are held against hashlib and the plain versions.  The launch, the grid
+and the memory layout are not checked here: chip_smoke.py checks those
+on the card.
 """
 
 import hashlib
@@ -698,3 +701,178 @@ def test_chain_step_matches_plain(harness, step):
         assert fe.to_ints(g) == fe.to_ints(plane)
     if kind == 4:
         assert fe.to_ints(got[4]) == fe.to_ints(cv.to_niels(p).T2d)
+
+
+# -- the leader lane's SHA-256 lanes (csrc/sha256.cuh, poh_spans.cu,
+# mixin_tree.cu), in a harness of their own ---------------------------------
+
+HARNESS_256 = r"""
+#include "poh_spans.cu"
+#include "mixin_tree.cu"
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+static void rd(void *p, size_t n) {
+  if (fread(p, 1, n, stdin) != n) exit(2);
+}
+int main() {
+  char mode; int n, k;
+  rd(&mode, 1); rd(&n, 4); rd(&k, 4);
+  if (mode == 'f' || mode == 'x') {   // 32-byte states (+ 32-byte mixins)
+    for (int i = 0; i < n; i++) {
+      uint8_t b[64];
+      rd(b, mode == 'f' ? 32 : 64);
+      uint32_t st[8], mix[8];
+      for (int j = 0; j < 8; j++) {
+        st[j] = s256_load_be(b + 4 * j);
+        mix[j] = s256_load_be(b + 32 + 4 * j);
+      }
+      if (mode == 'f') s256_fixed32(st); else s256_fixed64(st, mix);
+      for (int j = 0; j < 8; j++) s256_store_be(b + 4 * j, st[j]);
+      fwrite(b, 1, 32, stdout);
+    }
+  } else if (mode == 'l') {     // k steps: caps, then the span rows
+    std::vector<int> caps(k);
+    rd(caps.data(), 4 * k);
+    std::vector<uint8_t> row(32 + 38 * k), out(32 * k);
+    for (int i = 0; i < n; i++) {
+      rd(row.data(), row.size());
+      poh_lane(row.data(), k, caps.data(), out.data());
+      fwrite(out.data(), 1, out.size(), stdout);
+    }
+  } else {                      // 't': n trees of W = k leaves: widths,
+    std::vector<int> widths(n);   // then the signatures
+    rd(widths.data(), 4 * n);
+    std::vector<uint8_t> sigs((size_t)n * k * 64);
+    rd(sigs.data(), sigs.size());
+    std::vector<uint32_t> nodes(8 * k), next(8 * k);
+    for (int b = 0; b < n; b++) {
+      for (int t = 0; t < k; t++)
+        mixin_leaf(&nodes[8 * t], &sigs[((size_t)b * k + t) * 64]);
+      int w = widths[b];
+      // one level a pass; every thread reads the level as it was, as the
+      // block does between its two __syncthreads
+      for (int half = k / 2; half >= 1; half /= 2) {
+        if (w > 1) {
+          for (int t = 0; t < half; t++)
+            mixin_level_node(&next[8 * t], nodes.data(), t, w);
+          for (int t = 0; t < half; t++)
+            for (int i = 0; i < 8; i++) nodes[8 * t + i] = next[8 * t + i];
+          w = (w + 1) / 2;
+        }
+      }
+      uint8_t root[32];
+      for (int i = 0; i < 8; i++) s256_store_be(root + 4 * i, nodes[i]);
+      fwrite(root, 1, 32, stdout);
+    }
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness256(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    d = tmp_path_factory.mktemp("csrc_host256")
+    (d / "harness.cpp").write_text(HARNESS_256)
+    exe = d / "harness"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror",
+                    "-Wno-unknown-pragmas", f"-I{CSRC}", "-o", str(exe),
+                    str(d / "harness.cpp")], check=True, capture_output=True,
+                   timeout=300)
+
+    def run(mode: bytes, n: int, k: int, payload: bytes) -> bytes:
+        return subprocess.run(
+            [str(exe)], input=mode + struct.pack("<ii", n, k) + payload,
+            capture_output=True, check=True, timeout=300).stdout
+    return run
+
+
+def test_sha256_fixed_lanes_match_hashlib_and_plain(harness256):
+    from firedancer_tpu_torch.ops import sha256 as s256
+    rng = np.random.default_rng(256)
+    m = rng.integers(0, 256, (17, 64), np.uint8)
+    m[0] = 0
+    m[1] = 255
+    f = np.frombuffer(harness256(b"f", 17, 0, m[:, :32].tobytes()),
+                      np.uint8).reshape(17, 32)
+    x = np.frombuffer(harness256(b"x", 17, 0, m.tobytes()),
+                      np.uint8).reshape(17, 32)
+    assert f.tolist() == s256.sha256_fixed32(
+        torch.from_numpy(m[:, :32].copy())).tolist()
+    assert x.tolist() == s256.sha256_fixed64(torch.from_numpy(m)).tolist()
+    for i in range(17):
+        assert bytes(f[i]) == hashlib.sha256(bytes(m[i, :32])).digest()
+        assert bytes(x[i]) == hashlib.sha256(bytes(m[i])).digest()
+
+
+def _span_rows(rng, lanes, steps, nmax):
+    rows = np.zeros((lanes, 32 + 38 * steps), np.uint8)
+    rows[:, :32] = rng.integers(0, 256, (lanes, 32))
+    for s in range(steps):
+        b = 32 + 38 * s
+        rows[:, b:b + 32] = rng.integers(0, 256, (lanes, 32))
+        n = rng.integers(0, nmax + 1, lanes).astype("<u4")
+        rows[:, b + 32:b + 36] = n.view(np.uint8).reshape(lanes, 4)
+        rows[:, b + 36] = rng.integers(0, 2, lanes)
+        rows[:, b + 37] = rng.integers(0, 4, lanes) > 0
+    return rows
+
+
+def _host_lane(row, steps, caps):
+    h = bytes(row[:32])
+    out = []
+    for s in range(steps):
+        b = 32 + 38 * s
+        n = int.from_bytes(bytes(row[b + 32:b + 36]), "little", signed=True)
+        if row[b + 37] and n > 0:
+            for _ in range(min(n - 1, caps[s])):
+                h = hashlib.sha256(h).digest()
+            h = hashlib.sha256(h + bytes(row[b:b + 32]) if row[b + 36]
+                               else h).digest()
+        out.append(h)
+    return b"".join(out)
+
+
+def test_poh_lane_matches_hashlib_and_plain(harness256):
+    """Kernel A's lane body: 0, 1 and cap hashes, n past the cap (the
+    loop stops at the cap), inactive steps, mixins, a negative n."""
+    from firedancer_tpu_torch.ops import poh_spans as ps
+    rng = np.random.default_rng(38)
+    steps, caps = 4, [0, 1, 6, 9]
+    rows = _span_rows(rng, 24, steps, 12)
+    for lane, n in enumerate((0, 1, 2, 7, 10, 40, 2**32 - 3)):   # s = 2
+        b = 32 + 38 * 2
+        rows[lane, b + 32:b + 36] = np.frombuffer(
+            np.uint32(n).tobytes(), np.uint8)
+        rows[lane, b + 37] = 1
+    got = np.frombuffer(harness256(b"l", len(rows), steps,
+                                   np.array(caps, np.int32).tobytes()
+                                   + rows.tobytes()),
+                        np.uint8).reshape(len(rows), 32 * steps)
+    plain = ps.poh_spans(torch.from_numpy(rows), steps, caps).numpy()
+    assert got.tolist() == plain.tolist()
+    for i in range(len(rows)):
+        assert bytes(got[i]) == _host_lane(rows[i], steps, caps)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32, 64])
+def test_mixin_tree_level_rule_matches_np_tree(harness256, W):
+    """Kernel B's leaf and level rule: every width from 1 to W (up to 33
+    at W = 64) against bmtree.np_tree and the plain version."""
+    from firedancer_tpu_torch.ballet import bmtree
+    from firedancer_tpu_torch.ops import mixin_tree as mt
+    rng = np.random.default_rng(W)
+    widths = np.arange(1, min(W, 33) + 1, dtype=np.int32)
+    sigs = rng.integers(0, 256, (len(widths), W, 64), np.uint8)
+    got = np.frombuffer(harness256(b"t", len(widths), W, widths.tobytes()
+                                   + sigs.tobytes()),
+                        np.uint8).reshape(len(widths), 32)
+    plain = mt.mixin_tree(torch.from_numpy(sigs), torch.from_numpy(widths))
+    assert got.tolist() == plain.tolist()
+    for i, w in enumerate(widths):
+        leaves = [bytes(sigs[i, j]) for j in range(w)]
+        assert bytes(got[i]) == bmtree.np_tree(leaves)[-1][0]

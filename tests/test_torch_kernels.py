@@ -316,3 +316,50 @@ def test_strict_layouts_on_the_card_match_host(cuda, tail):
     ver = tv.SigVerifier(tv.VerifierConfig(64, 128), strict_tail=tail)
     assert np.asarray(ver.dispatch_blob(blob)).tolist() == \
         ed.host_verify_blob(blob)
+
+
+# -- the leader lane's kernels (csrc/poh_spans.cu, csrc/mixin_tree.cu) -----
+
+@pytest.mark.parametrize("lanes,steps", [(1, 3), (40, 4), (513, 1)])
+def test_poh_spans_kernel_matches_plain_and_hashlib(cuda, lanes, steps):
+    from firedancer_tpu_torch.ops import poh_spans as ps
+    rng = np.random.default_rng(lanes)
+    caps = tuple(int(c) for c in rng.integers(0, 10, steps))
+    rows = np.zeros((lanes, ps.row_bytes(steps)), np.uint8)
+    rows[:, :32] = rng.integers(0, 256, (lanes, 32))
+    for s in range(steps):
+        b = 32 + 38 * s
+        rows[:, b:b + 32] = rng.integers(0, 256, (lanes, 32))
+        n = rng.integers(0, 14, lanes).astype("<u4")
+        rows[:, b + 32:b + 36] = n.view(np.uint8).reshape(lanes, 4)
+        rows[:, b + 36] = rng.integers(0, 2, lanes)
+        rows[:, b + 37] = rng.integers(0, 4, lanes) > 0
+    blob = torch.from_numpy(rows)
+    before = ps.poh_spans.launches
+    got = ps.poh_spans(blob.to(cuda), steps, caps).cpu()
+    assert ps.poh_spans.launches == before + 1
+    assert torch.equal(got, ps.poh_spans_plain(blob, steps, caps))
+    for i in range(min(lanes, 40)):
+        h = bytes(rows[i, :32])
+        for s in range(steps):
+            b = 32 + 38 * s
+            n = int.from_bytes(bytes(rows[i, b + 32:b + 36]), "little")
+            if rows[i, b + 37] and n > 0:
+                for _ in range(min(n - 1, caps[s])):
+                    h = hashlib.sha256(h).digest()
+                h = hashlib.sha256(h + bytes(rows[i, b:b + 32])
+                                   if rows[i, b + 36] else h).digest()
+            assert bytes(got[i, 32 * s:32 * s + 32].tolist()) == h
+
+
+@pytest.mark.parametrize("B,W", [(3, 1), (33, 64), (8, 32), (2, 1024)])
+def test_mixin_tree_kernel_matches_plain(cuda, B, W):
+    from firedancer_tpu_torch.ops import mixin_tree as mt
+    rng = np.random.default_rng(B * W)
+    sigs = torch.from_numpy(rng.integers(0, 256, (B, W, 64), np.uint8))
+    widths = torch.from_numpy(
+        rng.integers(1, W + 1, B).astype(np.int32))
+    before = mt.mixin_tree.launches
+    got = mt.mixin_tree(sigs.to(cuda), widths.to(cuda)).cpu()
+    assert mt.mixin_tree.launches == before + 1
+    assert torch.equal(got, mt.mixin_tree_plain(sigs, widths))

@@ -584,6 +584,34 @@ class _DrainVt:
         return self.drain_polls > self.wet
 
 
+class _ManifestVt(_DrainVt):
+    def drain_manifest(self, ctx) -> dict:
+        return {"drain_polls": self.drain_polls}
+
+
+def test_mux_drain_manifest_records_the_tiles_state(tmp_path):
+    """A vtable's drain_manifest(ctx) hook lands in the manifest under
+    tile_state, written after the tile ran dry."""
+    jt = topo_mod.create(_mini_spec(
+        "dm", supervision={"drain_manifest_dir": str(tmp_path)}))
+    try:
+        vt = _ManifestVt(wet=2)
+        with _Running(jt, "v:0", vt) as run:
+            cnc = run.cnc
+            cnc.signal(Cnc.SIGNAL_DRAIN)
+            _wait(lambda: cnc.signal_query() == Cnc.SIGNAL_DRAINED,
+                  what="DRAINED ack")
+            man = json.loads((tmp_path / "v_0.manifest.json").read_text())
+            assert man["tile"] == "v:0"
+            assert man["tile_state"] == {"drain_polls": 3}
+        run = None  # noqa: F841
+        import gc
+        gc.collect()
+    finally:
+        jt.close()
+        jt.unlink()
+
+
 def test_mux_drain_flushes_parks_and_manifests(tmp_path):
     jt = topo_mod.create(_mini_spec(
         "dr", supervision={"drain_manifest_dir": str(tmp_path)}))
@@ -606,6 +634,7 @@ def test_mux_drain_flushes_parks_and_manifests(tmp_path):
             assert man["tile"] == "v:0" and man["kind"] == "verify"
             assert man["cursors"]["a_b"] == mc.seq0() + 6
             assert man["knob_gen"] == 0 and man["outs"] == {}
+            assert "tile_state" not in man
             # the park holds DRAINED, heartbeating
             time.sleep(0.05)
             assert cnc.signal_query() == Cnc.SIGNAL_DRAINED

@@ -70,6 +70,39 @@ def test_verify_bench_spec_equals_the_jax_package(packed, nverify):
         assert pt.cfg.get("device", None) is None
 
 
+@pytest.mark.parametrize("packed,nverify", [(0, 1), (1, 2)])
+def test_leader_bench_spec_equals_the_jax_package(packed, nverify):
+    """leader-bench from each package's own config at the same settings:
+    the same links and tiles, and the same tile cfgs but for the keys the
+    port adds (`device`) or lacks (the poh tile's XLA scan `unroll`)."""
+    specs = []
+    for cm in (jconfig, pconfig):
+        cfg = cm.load(environ={})
+        cfg["topology"] = "leader-bench"
+        cfg["name"] = f"tlb{os.getpid()}"
+        cfg["layout"]["verify_tile_count"] = nverify
+        cfg["development"]["packed_wire"] = packed
+        cfg["ingest"]["egress_packed"] = packed
+        specs.append(cm.build_topology(cfg))
+    js, ps = specs
+    assert _shape(ps) == _shape(js)
+    assert [t.kind for t in ps.tiles][-3:] == ["leader_pack", "poh_dev",
+                                               "sink"]
+    for pt, jt in zip(ps.tiles, js.tiles):
+        want = dict(jt.cfg)
+        want.pop("unroll", None)
+        if "supervision" in want:
+            want["supervision"] = {
+                k: v for k, v in want["supervision"].items()
+                if k not in pconfig._NOT_PORTED["supervision"]}
+        assert {k: v for k, v in pt.cfg.items() if k != "device"} == want
+        assert pt.cfg.get("device", None) is None
+    pl = {k: v for k, v in pconfig.load(environ={})["leader"].items()
+          if k != "device"}
+    jl = jconfig.load(environ={})["leader"]
+    assert pl == {k: v for k, v in jl.items() if k != "unroll"}
+
+
 def _offsets(jt):
     return {
         "links": {n: (l.mcache.off, l.mcache.depth,
@@ -259,9 +292,10 @@ def test_config_layers_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="deadline_us"):
         pconfig.load(environ={"FDTPU_LATENCY_DEADLINE_USS": "3"})
     for topo_name, missing in (("fdtpu", "quic"),
-                               ("leader-bench", "poh_dev")):
+                               ("leader-bench", "leader_merge")):
         c = pconfig.load(environ={})
         c["topology"] = topo_name
+        c["leader"]["pack_shards"] = 2     # leader-bench boots at 1
         with pytest.raises(NotImplementedError, match=missing):
             pconfig.build_topology(c)
     c = pconfig.load(environ={})
