@@ -30,12 +30,14 @@ default bucket ladder, the packed-wire firehose over two verify tiles
 on the one card, and the wire firehose through one verify tile's native
 burst parse for a fixed window.  Then the leader lane (phase 15): the
 PoH spans kernel (the span engine, the poh_dev tile's window and splice
-geometry, verify_entries) and the mixin-tree kernel against their plain
-versions and the host chain, one lane through a whole slot at the
-Solana clock defaults with its entries re-checked, leader-bench (source
--> verify -> leader_pack -> poh_dev -> sink) in spawned processes with
-forged txns injected, and the poh_dev tile at the clock defaults under
-the port's Mux.  Each path runs with the launch counts set to 0
+geometry, verify_entries, and edge rows at lane counts around its pairs
+of warps, lanes of one pair diverging) and the mixin-tree kernel
+against their plain versions and the host chain, one lane through a
+whole slot at the Solana clock defaults with its entries re-checked,
+leader-bench (source -> verify -> leader_pack -> poh_dev -> sink) in
+spawned processes with forged txns injected, and the poh_dev tile at
+the clock defaults under the port's Mux, with the chain-lane hashes its
+dispatches ran by the slot's close.  Each path runs with the launch counts set to 0
 just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
@@ -214,6 +216,9 @@ AGAVE_SLOT_MS = 400.0         # Solana's slot (DEFAULT_MS_PER_SLOT)
 # phase 15: the Solana SDK clock defaults (DEFAULT_HASHES_PER_TICK,
 # DEFAULT_TICKS_PER_SLOT)
 POH_HASHES_PER_TICK, POH_TICKS_PER_SLOT = 12_500, 64
+# phase 15a's edge rows: lane counts around the PoH kernel's pair of
+# warps (32 lanes a block), the last one pair on each of the H100's SMs
+POH_EDGE_LANES = (1, 31, 33, 64, 512, 4224)
 RLC_BUCKETS = ((4096, 128), (32768, 128))
 MSM_M = 8
 # phase 13's stall on the card, in clock cycles (torch.cuda._sleep):
@@ -1412,6 +1417,48 @@ def _fake_txns(rng, w: int) -> list:
     return [b"\x01" + rng.bytes(64) + rng.bytes(24) for _ in range(w)]
 
 
+class _LaunchTimer:
+    """Brackets every launch of the given wrapper modules' kernels with
+    CUDA events on the launching stream, by wrapping each module's ctypes
+    entry (its _fn) until restore(); device_ms(t0, t1) sums, by name,
+    (ms, launches) over the launches made between host times t0 and t1.
+    The events run beside a wrapper's own launch count and change it
+    nowhere."""
+
+    def __init__(self, torch, mods: dict):
+        self.torch, self.mods, self.log = torch, mods, []
+        self.saved = {name: m._fn for name, m in mods.items()}
+        for name, m in mods.items():
+            m._fn = self._wrap(name, self.saved[name])
+
+    def _wrap(self, name, entry):
+        torch, log = self.torch, self.log
+
+        def call(*args):
+            stream = torch.cuda.current_stream()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(stream)
+            rc = entry()(*args)
+            e1.record(stream)
+            log.append((name, time.perf_counter(), e0, e1))
+            return rc
+
+        return lambda: call
+
+    def restore(self):
+        for name, m in self.mods.items():
+            m._fn = self.saved[name]
+
+    def device_ms(self, t0: float, t1: float) -> dict:
+        out = {name: [0.0, 0] for name in self.mods}
+        for name, t, e0, e1 in list(self.log):
+            if t0 <= t <= t1:
+                out[name][0] += e0.elapsed_time(e1)
+                out[name][1] += 1
+        return {name: tuple(v) for name, v in out.items()}
+
+
 def _sha256_ops(nums, has) -> tuple:
     """32-bit operations of a batch of PoH segments, (integer-pipe-only,
     adds): n - 1 appends and the last hash, a mixin or an append."""
@@ -1444,7 +1491,8 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     against its plain version and the host chain at the span engine's
     bench shape, at the poh_dev tile's window and splice geometry of the
     [leader] defaults at every mixin offset, and on rows with n == 0,
-    inactive steps and n past a cap.  (b) At the Solana clock defaults
+    inactive steps and n past a cap, also at POH_EDGE_LANES lanes with
+    the lanes of one pair diverging.  (b) At the Solana clock defaults
     (hpt hashes a tick, tps ticks a slot): one lane extends a chain
     through a whole slot of 7 mixin entries and one tick entry a tick,
     and verify_entries re-checks its entries, one of them corrupted.
@@ -1452,7 +1500,8 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     widths 1-33 and at the tile's 8 x 31.  (d) leader-bench in spawned
     processes at the [leader] defaults, with forged txns injected beside
     the source's.  (e) The poh_dev tile at hpt x tps in process under
-    the port's Mux, fed e_mbs microblocks for one slot.  Each path runs
+    the port's Mux, fed e_mbs microblocks for one slot, and the chain
+    lane's hashes by the slot's close against the slot's.  Each path runs
     with the launch counts set to 0 just before it.  device None is the
     card.  Returns the numbers of the kernels record.  Raises on any
     failed check."""
@@ -1580,10 +1629,52 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
         edge[:, b + 37] = rng.integers(0, 4, 40) > 0
     err = max(err, hold_poh(torch.from_numpy(edge).to(dev), steps, caps,
                             "edges"))
+    # the kernel's pairs of warps at lane counts that fill a pair in part,
+    # in whole, a lane over, two pairs, 16 pairs and one pair an SM: warp
+    # 0's lanes diverge (n, the step a cap ends, mixins, inactive steps),
+    # warp 1 has only its lane 0 active, each step also ends exactly at its
+    # cap; plain and the host chain once, on all the rows
+    erng = np.random.default_rng(1501)
+    rows = POH_EDGE_LANES[-1]
+    div = np.zeros((rows, pe.row_bytes(steps)), np.uint8)
+    div[:, :32] = erng.integers(0, 256, (rows, 32))
+    lane = np.arange(rows)
+    for s_ in range(steps):
+        b = 32 + 38 * s_
+        div[:, b:b + 32] = erng.integers(0, 256, (rows, 32))
+        n = erng.integers(0, 13, rows).astype("<u4")
+        n[:32] = (lane[:32] + 3 * s_) % 13
+        n[1], n[2], n[3] = caps[s_] + 1, caps[s_] + 2, 2**32 - 3
+        n[32] = caps[s_] + 1
+        n[64::7] = caps[s_] + 1
+        div[:, b + 32:b + 36] = n.view(np.uint8).reshape(rows, 4)
+        div[:, b + 36] = erng.integers(0, 2, rows)
+        div[:32, b + 36] = (lane[:32] + s_) % 2
+        div[:, b + 37] = erng.integers(0, 4, rows) > 0
+        div[:32, b + 37] = lane[:32] % 7 != 3
+        div[32:64, b + 37] = lane[32:64] == 32
+    div_dev = torch.from_numpy(div).to(dev)
+    div_want = ps.poh_spans_plain(div_dev, steps, caps)
+    g = div_want.cpu().numpy()
+    for i in range(rows):
+        if bytes(g[i]) != _host_span_row(div[i], steps, caps):
+            raise AssertionError(f"phase 15a: the plain version differs from "
+                                 f"the host chain on edge lane {i}")
+    for n_l in POH_EDGE_LANES:
+        got = ps.poh_spans(div_dev[:n_l], steps, caps)
+        if not torch.equal(got, div_want[:n_l]):
+            raise AssertionError(
+                f"phase 15a: {n_l} edge lanes: "
+                f"{int((got != div_want[:n_l]).any(1).sum())} lanes differ "
+                f"from plain")
+        err = max(err, int((got.to(torch.int16) - div_want[:n_l]).abs().max()))
     note(f"phase 15a: the poh_dev window (3 lanes x {2 * K} steps, caps "
          f"{win_caps}) and splice (j = 0..3 of {mb_cap}) geometry == "
          f"host_spans; kernel == plain == host chain there and on 40 rows "
-         f"of n == 0, inactive steps, n past the cap; max error {err}")
+         f"of n == 0, inactive steps, n past the cap; and at "
+         f"{', '.join(map(str, POH_EDGE_LANES))} lanes (a pair of warps "
+         f"whose lanes diverge, one with only lane 0 active, steps that "
+         f"end exactly at their cap); max error {err}")
     out["poh_err"], out["poh_plain_ms"] = err, plain_ms
 
     # ---- (b) a whole slot at the Solana clock defaults
@@ -1676,11 +1767,20 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     ve_ms = cuda_ms(lambda: poh_lib.verify_entries(*args[:4], hpt))
     rc_ops = _sha256_ops(nums, has)
     rc_bytes = rc_blob.numel() + steps_b * 32
+    # each entry's compressions: n - 1 appends and the last hash, two for
+    # a mixin; one lane's are one dependent chain
+    comps = np.maximum(nums - 1, 0) + np.where(has, 2, 1)
+    rc_cp_ms = int(comps.max()) * 64 * SHA256_ROUND_DEPTH / clock_hz * 1e3
+    rc_issue_ms = _sha256_bound_ms(rc_ops, int_ops_per_s)
+    # the least time is the larger of the issue bound and the critical
+    # path of the longest entry (both count operations); rc_term says
+    # which of the two sets it
     rc_bound = max((rc_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                   (_sha256_bound_ms(rc_ops, int_ops_per_s), "operations"))
+                   (max(rc_issue_ms, rc_cp_ms), "operations"))
+    rc_term = ("bytes" if rc_bound[1] == "bytes" else
+               "critical path" if rc_cp_ms >= rc_issue_ms else "issue")
     # the one-lane chain: its dependent operations at the max SM clock
-    n_comp = (int(np.maximum(nums - 1, 0).sum()) + int((~has).sum())
-              + 2 * int(has.sum()))
+    n_comp = int(comps.sum())
     cp_ms = n_comp * 64 * SHA256_ROUND_DEPTH / clock_hz * 1e3
     note(f"phase 15b: one lane, a {tps} x {hpt} slot ({n_hashes} hashes, "
          f"{steps_b} entries: {n_mix} mixin entries of {n_m} and a tick "
@@ -1703,12 +1803,17 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
          f"verify_chain fails); call {ve_ms:.4f} ms = "
          f"{steps_b / ve_ms * 1e3:.1f} entries/s; the kernel on the built "
          f"blob {rc_ms:.4f} ms, device {rc_dev:.4f} ms, bound "
-         f"{rc_bound[0]:.5f} ms ({rc_bound[1]}: {rc_ops[0]} integer-pipe "
-         f"and {rc_ops[1]} add operations, "
-         f"{rc_bytes} bytes)")
+         f"{rc_bound[0]:.5f} ms ({rc_bound[1]}, set by the {rc_term}: the "
+         f"larger of the issue "
+         f"bound {rc_issue_ms:.5f} ms, {rc_ops[0]} integer-pipe and "
+         f"{rc_ops[1]} add operations, and the critical path "
+         f"{rc_cp_ms:.5f} ms, the longest entry's {int(comps.max())} "
+         f"compressions x 64 rounds x {SHA256_ROUND_DEPTH} dependent "
+         f"operations at {clock_hz / 1e6:.0f} MHz; {rc_bytes} bytes)")
     out.update(chain_ms=chain_ms, chain_hps=n_hashes / chain_ms * 1e3,
                chain_cp_ms=cp_ms, rc_ms=rc_ms, rc_dev=rc_dev,
-               rc_bound=rc_bound, ve_ms=ve_ms, rc_entries=steps_b)
+               rc_bound=rc_bound, rc_term=rc_term, ve_ms=ve_ms,
+               rc_entries=steps_b)
 
     # ---- (c) kernel B against its plain version and txn_mixin
     merr = 0
@@ -1906,7 +2011,7 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
         _shm_check(spec.wksp_mb << 20, note)
         e_in = [_fake_txns(rng, int(w)) for w in rng.integers(1, 32, e_mbs)]
         jt = topo_mod.create(spec)
-        tile, run_err = PohDevTile(), []
+        tile, run_err, timed = PohDevTile(), [], None
         try:
             lnk = jt.links["p_d"]
             chunk = lnk.dcache.chunk0
@@ -1926,6 +2031,8 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
                     run_err.append(e)
 
             th = threading.Thread(target=run_mux, daemon=True)
+            timed = _LaunchTimer(torch, {"poh_spans": ps,
+                                         "mixin_tree": mt})
             reset_counts()
             th.start()
             cnc = jt.cnc["poh"]
@@ -1934,13 +2041,19 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
             t0 = time.perf_counter()
             _wait_for(lambda: tile.slot > 1 or run_err, 600,
                       "the first slot")
-            t_slot = time.perf_counter() - t0
+            t_close = time.perf_counter()
+            t_slot = t_close - t0
+            # the dispatches by the slot's close (read within the wait's
+            # poll; the halt and fini dispatch again)
+            at_close = jt.metrics["poh"].snapshot()
             cnc.signal(Cnc.SIGNAL_HALT)
             th.join(120)
             if th.is_alive() or run_err:
                 raise AssertionError(f"phase 15e: the tile did not halt "
                                      f"cleanly: {run_err}")
             got_e = counts()
+            torch.cuda.synchronize(dev)
+            slot_dev = timed.device_ms(t0, t_close)
             lnk = jt.links["d_s"]
             recs = []
             for seq in range(lnk.mcache.seq0(), lnk.mcache.seq_query()):
@@ -1956,6 +2069,8 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
             import gc
             gc.collect()
         finally:
+            if timed is not None:
+                timed.restore()
             jt.close()
             jt.unlink()
         ents = [entry_lib.Entry.deserialize(p)[0] for _, p in recs]
@@ -1975,11 +2090,33 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
                 f"microblocks in order {mixed_e == e_in}, slot 1 "
                 f"{sum(e.num_hashes for e in slot1)} hashes, metrics {snap},"
                 f" launches {got_e}")
+        # what the slot cost the chain lane: each window dispatch
+        # pre-hashes K whole ticks, each splice re-hashes a tick's mixin
+        # region (mb_cap + 1 hashes); and the device time of the kernels
+        # launched from RUN to the slot's close, by CUDA events around
+        # each launch on its stream
+        chain_hashes = (at_close["dispatch_cnt"] * tile.K * hpt
+                        + at_close["splice_dispatch_cnt"] * (tile.mb_cap + 1))
+        kern_ms = sum(ms for ms, _ in slot_dev.values())
+        share = kern_ms / (t_slot * 1e3)
         note(f"phase 15e: poh_dev at {hpt} x {tps} under the port's Mux in "
              f"process (house every 1 ms), {e_mbs} microblocks fed before "
              f"RUN: slot 1 closed {t_slot:.3f} s after RUN "
              f"({len(slot1)} entries, {hpt * tps} hashes; Agave's slot "
-             f"{AGAVE_SLOT_MS:.0f} ms; a finding, not a gate); "
+             f"{AGAVE_SLOT_MS:.0f} ms; a finding, not a gate); by then "
+             f"{at_close['dispatch_cnt']} windows x K {tile.K} x {hpt} + "
+             f"{at_close['splice_dispatch_cnt']} splices x "
+             f"{tile.mb_cap + 1} = {chain_hashes} chain-lane hashes, "
+             f"{chain_hashes / (hpt * tps):.3f}x the slot's {hpt * tps}; "
+             f"device time from RUN to the close (CUDA events around each "
+             f"launch): poh_spans {slot_dev['poh_spans'][0]:.3f} ms in "
+             f"{slot_dev['poh_spans'][1]} launches "
+             f"({chain_hashes / slot_dev['poh_spans'][0] * 1e3:.1f} "
+             f"chain-lane hashes a second of it, 15b's one lane "
+             f"{out['chain_hps']:.1f}), mixin_tree "
+             f"{slot_dev['mixin_tree'][0]:.3f} ms in "
+             f"{slot_dev['mixin_tree'][1]}, together {share:.4f} of the "
+             f"slot's wall time (a measurement, not a gate); "
              f"{len(ents)} entries re-verify (verify_chain, {t_ver:.3f} s), "
              f"the microblocks in order; spec_hit {snap['spec_hit_cnt']}, "
              f"spec_miss {snap['spec_miss_cnt']}, rehash "
@@ -1988,7 +2125,8 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
              f"{snap['recheck_ok_cnt']} fail {snap['recheck_fail_cnt']}; "
              f"launches {{poh_spans: {got_e['poh_spans']}, mixin_tree: "
              f"{got_e['mixin_tree']}}}")
-        out.update(launches=got_e, t_slot=t_slot)
+        out.update(launches=got_e, t_slot=t_slot, slot_hashes=chain_hashes,
+                   slot_kernel_ms=kern_ms, slot_kernel_share=share)
     finally:
         for k, val in old_env.items():
             if val is None:
@@ -3119,14 +3257,18 @@ def main() -> int:
          "max_abs_err": lead["poh_err"], "ms": lead["rc_ms"],
          "device_ms": lead["rc_dev"], "plain_ms": lead["poh_plain_ms"],
          "bound_ms": lead["rc_bound"][0], "bound_by": lead["rc_bound"][1],
-         "library_ms": None,
+         "bound_term": lead["rc_term"], "library_ms": None,
          "shape": f"{lead['rc_entries']} entries of a "
                   f"{POH_HASHES_PER_TICK} x {POH_TICKS_PER_SLOT} slot, one "
                   f"step a lane",
          "plain_shape": "8 lanes x 2 steps x 64 hashes",
          "chain_ms": lead["chain_ms"],
          "chain_hashes_per_s": lead["chain_hps"],
-         "chain_critical_path_ms": lead["chain_cp_ms"]},
+         "chain_critical_path_ms": lead["chain_cp_ms"],
+         "poh_dev_slot_s": lead["t_slot"],
+         "poh_dev_slot_chain_hashes": lead["slot_hashes"],
+         "poh_dev_slot_kernel_ms": lead["slot_kernel_ms"],
+         "poh_dev_slot_kernel_share": lead["slot_kernel_share"]},
         {"name": "mixin_tree", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/mixin_tree.cu",
          "replaces": "firedancer_tpu/ballet/entry.py:146 _mixin_roots",

@@ -1,14 +1,14 @@
-// SHA-256 for one lane per thread: the compression, and the fixed-length
-// forms the PoH chain and the merkle trees hash (a 32-byte message, a
-// 64-byte message, and a one-byte prefix before 64 bytes).
+// SHA-256 for one lane per thread: the compression, the compression of
+// a constant block, and the fixed-length form the merkle trees hash (a
+// one-byte prefix before 64 bytes).  poh_spans.cu builds the PoH chain's
+// 32- and 64-byte forms from these on a pair of warps.
 //
 // State and message are big-endian uint32 words, so a 32-byte digest is
 // itself the 8 message words of the next PoH hash: a chain never turns
-// words into bytes between hashes.  The constant blocks keep the
+// words into bytes between hashes.  The constant block keeps the
 // schedule of firedancer_tpu_torch/ops/sha256.py: the second block of a
 // 64-byte message is fully constant, so its 64 schedule words plus the
-// round constants are one table (S256_PAD64_WK); the back half of a
-// 32-byte message's only block is the constant tail S256_PAD32_TAIL.
+// round constants are one table (S256_PAD64_WK).
 //
 // The functions also compile as host C++ (FD_FN), so the arithmetic can
 // be checked on a machine without a GPU.
@@ -51,12 +51,6 @@ S256_CONST uint32_t S256_PAD64_WK[64] = {
     0x007f3e86u, 0x37088980u, 0xa507ea32u, 0x6fab9537u, 0x17406110u, 0x0d8cd6f1u, 0xcdaa3b6du, 0xc0bbbe37u,
     0x83613bdau, 0xdb48a363u, 0x0b02e931u, 0x6fd15ca7u, 0x521afacau, 0x31338431u, 0x6ed41a95u, 0x6d437890u,
     0xc39c91f2u, 0x9eccabbdu, 0xb5c9a0e6u, 0x532fb63cu, 0xd2c741c6u, 0x07237ea3u, 0xa4954b68u, 0x4c191d76u,
-};
-
-// message words 8..15 of a 32-byte message's only block: 0x80, zeros,
-// bit length 256
-S256_CONST uint32_t S256_PAD32_TAIL[8] = {
-    0x80000000u, 0, 0, 0, 0, 0, 0, 0x100u,
 };
 
 FD_FN uint32_t s256_rotr(uint32_t x, int n) {
@@ -132,36 +126,6 @@ FD_FN void s256_compress_wk(uint32_t h[8], const uint32_t *wk) {
 FD_FN void s256_init(uint32_t h[8]) {
 #pragma unroll
   for (int i = 0; i < 8; i++) h[i] = S256_H0[i];
-}
-
-// st = SHA-256(st): a 32-byte message given as its 8 words (one PoH
-// append).
-FD_FN void s256_fixed32(uint32_t st[8]) {
-  uint32_t w[16], h[8];
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    w[i] = st[i];
-    w[8 + i] = S256_PAD32_TAIL[i];
-  }
-  s256_init(h);
-  s256_compress(h, w);
-#pragma unroll
-  for (int i = 0; i < 8; i++) st[i] = h[i];
-}
-
-// st = SHA-256(st || mix): a 64-byte message (one PoH mixin).
-FD_FN void s256_fixed64(uint32_t st[8], const uint32_t mix[8]) {
-  uint32_t w[16], h[8];
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    w[i] = st[i];
-    w[8 + i] = mix[i];
-  }
-  s256_init(h);
-  s256_compress(h, w);
-  s256_compress_wk(h, S256_PAD64_WK);
-#pragma unroll
-  for (int i = 0; i < 8; i++) st[i] = h[i];
 }
 
 // out = SHA-256(p || x): a one-byte prefix before 64 bytes given as 16

@@ -12,7 +12,9 @@ lines (registers, shared memory, stack and spills of each entry and
 out-of-line function), with --sass also the static SASS instruction
 counts of each kernel entry by opcode (cuobjdump -sass: the code as
 compiled, not as executed) and of each loop in it (a backward branch and
-the instructions from its target to it), and times each call two ways:
+the instructions from its target to it), each with its shares of the
+integer pipe, the FMA pipe and the rest (PIPES) and its IMAD forms, and
+cut at its barriers (bar_segments), and times each call two ways:
   call ms    CUDA events around the whole wrapper call (median, min and
              max of 20 after 3 warm-ups): the host's enqueue, the
              allocations and the follow-on device ops included;
@@ -46,9 +48,13 @@ On inputs made from fixed seeds:
   reduce_recode, rlc_recode  at the 128-byte shapes, on the same
                signatures' S and digests and random z;
   poh_spans    one step a lane of CHAIN_HASHES plain hashes from random
-               starts, at 1 and 32 lanes (one warp) and at 1, 4, 8 and
-               16 warps an SM (one warp a block), with the hashes/s of a
-               lane and of all;
+               starts, at 1 and 32 lanes and at 32, 128, 256 and 512
+               lanes an SM, with the hashes/s of a lane and of all (and
+               of one lane its cycles a hash at the max SM clock); the
+               re-check of a SLOT_HPT x SLOT_TPS slot's entries (one step
+               a lane: 7 mixin entries of 1,562 hashes and a tick entry of
+               1,566 a tick, random starts and mixins); and one lane
+               through that whole slot (call ms only, SLOT_RUNS calls);
   mixin_tree   8 trees of 31 leaves (W 32, the poh_dev tile's shape) on
                random signatures.
 The last line is one JSON object: the label, the card's name and power
@@ -70,6 +76,15 @@ import numpy as np
 
 RUNS, M = 20, 8
 CHAIN_HASHES = 20_000
+# the Solana SDK's clock defaults: hashes a tick, ticks a slot
+SLOT_HPT, SLOT_TPS, SLOT_MIXINS, SLOT_RUNS = 12_500, 64, 7, 3
+# the pipe an opcode issues to on an SM sub-partition (sm_90): the
+# integer pipe, 16 lanes wide, or the FMA pipe, which also runs IMAD and
+# its forms; the rest (memory, barriers, branches, moves) is "other"
+PIPES = {"int": {"IADD3", "LOP3", "SHF", "LEA", "SEL", "ISETP", "PRMT",
+                 "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK", "SGXT", "IABS",
+                 "PLOP3"},
+         "fma": {"IMAD", "FFMA", "FMUL", "FADD"}}
 SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "dsm_tail_q": "dsm",
            "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
            "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode",
@@ -83,13 +98,13 @@ ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
            "poh_spans": "poh_spans_kernel", "mixin_tree": "mixin_tree_kernel"}
 
 
-def cuda_ms(torch, fn) -> list[float]:
-    """[median, min, max] ms of RUNS calls after 3 warm-ups."""
-    for _ in range(3):
+def cuda_ms(torch, fn, runs: int = RUNS, warmup: int = 3) -> list[float]:
+    """[median, min, max] ms of runs calls after the warm-ups."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -146,12 +161,11 @@ def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3,
     return a.elapsed_time(z) / runs, None, None, "events"
 
 
-def _sass(build, src: str) -> dict[str, list[tuple[int, str, str]]]:
-    """{function: [(address, opcode, instruction text)]} of csrc/<src>.cu's
-    library from cuobjdump -sass, the opcode without its modifiers; a
-    label's address is that of the instruction after it."""
-    lib = build.BUILD / build._src_hash() / f"lib{src}.so"
-    tool = Path(build.nvcc()).parent / "cuobjdump"
+def sass_of(lib, nvcc: str) -> dict[str, list[tuple[int, str, str]]]:
+    """{function: [(address, opcode, instruction text)]} of a library
+    from cuobjdump -sass, the opcode without its modifiers; a label's
+    address is that of the instruction after it."""
+    tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     fns, fn = {}, None
@@ -168,11 +182,49 @@ def _sass(build, src: str) -> dict[str, list[tuple[int, str, str]]]:
     return fns
 
 
+def _sass(build, src: str) -> dict[str, list[tuple[int, str, str]]]:
+    """sass_of csrc/<src>.cu's library."""
+    return sass_of(build.BUILD / build._src_hash() / f"lib{src}.so",
+                   build.nvcc())
+
+
 def _opcodes(instrs) -> dict[str, int]:
     ops = {}
     for _, op, _ in instrs:
         ops[op] = ops.get(op, 0) + 1
     return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def pipe_shares(instrs) -> dict[str, object]:
+    """The counts of instrs on the integer pipe, the FMA pipe and the
+    rest (PIPES), and the IMAD forms by their first modifier."""
+    out = {"int": 0, "fma": 0, "other": 0}
+    forms = {}
+    for _, op, text in instrs:
+        pipe = next((p for p, ops in PIPES.items() if op in ops), "other")
+        out[pipe] += 1
+        if op == "IMAD":
+            m = re.search(r"\bIMAD(\.[A-Z]+)?", text)
+            form = "IMAD" + (m.group(1) or "")
+            forms[form] = forms.get(form, 0) + 1
+    out["imad_forms"] = forms
+    return out
+
+
+def bar_segments(body) -> list[tuple[str, list]]:
+    """A loop body cut after each barrier instruction: [(the barrier's
+    text, or "end", the instructions up to and with it)].  In a kernel
+    whose warps hand work over at named barriers, the stretches between
+    them are each warp's work between two handovers."""
+    out, seg = [], []
+    for ins in body:
+        seg.append(ins)
+        if ins[1] == "BAR":
+            out.append((ins[2], seg))
+            seg = []
+    if seg:
+        out.append(("end", seg))
+    return out
 
 
 def sass_counts(build, src: str) -> dict[str, dict[str, int]]:
@@ -181,12 +233,13 @@ def sass_counts(build, src: str) -> dict[str, dict[str, int]]:
             if "kernel" in k}
 
 
-def sass_loops(build, src: str) -> dict[str, list[tuple[int, int, dict]]]:
-    """{kernel entry: [(first address, last address, {opcode: count})]}:
-    each backward branch of the entry and the instructions from its
-    target to it, the body of one trip of that loop."""
+def loops_of(fns) -> dict[str, list[tuple[int, int, list]]]:
+    """{kernel entry: [(first address, last address, instructions)]} of
+    sass_of's functions: each backward branch of the entry and the
+    instructions from its target to it, the body of one trip of that
+    loop."""
     out = {}
-    for k, instrs in _sass(build, src).items():
+    for k, instrs in fns.items():
         if "kernel" not in k:
             continue
         loops = []
@@ -194,10 +247,15 @@ def sass_loops(build, src: str) -> dict[str, list[tuple[int, int, dict]]]:
             m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
             if op == "BRA" and m and int(m.group(1), 16) <= addr:
                 lo = int(m.group(1), 16)
-                loops.append((lo, addr, _opcodes(
-                    [i for i in instrs if lo <= i[0] <= addr])))
+                loops.append((lo, addr,
+                              [i for i in instrs if lo <= i[0] <= addr]))
         out[k] = loops
     return out
+
+
+def sass_loops(build, src: str) -> dict[str, list[tuple[int, int, list]]]:
+    """loops_of csrc/<src>.cu's library."""
+    return loops_of(_sass(build, src))
 
 
 def main() -> int:
@@ -247,10 +305,16 @@ def main() -> int:
                 print(f"{args.label} {src}.cu sass {fn} total "
                       f"{sum(ops.values())} {json.dumps(ops)}")
             for fn, loops in sass_loops(build, src).items():
-                for lo, hi, ops in loops:
+                for lo, hi, body in loops:
                     print(f"{args.label} {src}.cu sass {fn} loop "
-                          f"{lo:#x}-{hi:#x} body {sum(ops.values())} "
-                          f"{json.dumps(ops)}")
+                          f"{lo:#x}-{hi:#x} body {len(body)} "
+                          f"{json.dumps(_opcodes(body))} pipes "
+                          f"{json.dumps(pipe_shares(body))}")
+                    segs = bar_segments(body)
+                    for bar, seg in segs if len(segs) > 1 else ():
+                        print(f"{args.label} {src}.cu sass {fn} loop "
+                              f"{lo:#x} to {seg[-1][0]:#x} ({bar}): "
+                              f"{len(seg)} {json.dumps(pipe_shares(seg))}")
 
     dev = torch.device("cuda", 0)
     times, dev_times, launches, others, methods = {}, {}, {}, {}, set()
@@ -277,9 +341,14 @@ def main() -> int:
                     timed(f"msm {n} {sel} nwin {nwin}", "msm",
                           lambda: ms.msm_lanes(win, pts, M, nwin, sel))
     if "poh_spans" in kernels:
-        from firedancer_tpu_torch.ballet.poh_engine import row_bytes
+        from firedancer_tpu_torch.ballet.poh_engine import (row_bytes,
+                                                            stamp_lanes)
         from firedancer_tpu_torch.ops import poh_spans as ps
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        clock_hz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0]) * 1e6
         rng = np.random.default_rng(13)
         for lanes in (1, 32, 32 * sms, 128 * sms, 256 * sms, 512 * sms):
             # a row: start | mixin | n (u32 LE) | has_mixin | active
@@ -293,9 +362,35 @@ def main() -> int:
             timed(key, "poh_spans",
                   lambda: ps.poh_spans(blob, 1, (CHAIN_HASHES,)))
             t = times[key][0]
-            print(f"{args.label} {key}: {CHAIN_HASHES / t * 1e3:.1f} "
-                  f"hashes/s a lane, {lanes * CHAIN_HASHES / t * 1e3:.1f} "
-                  f"in all")
+            print(f"{args.label} {key} ({lanes / sms:g} lanes an SM): "
+                  f"{CHAIN_HASHES / t * 1e3:.1f} hashes/s a lane, "
+                  f"{lanes * CHAIN_HASHES / t * 1e3:.1f} in all"
+                  + (f", {clock_hz * t / 1e3 / CHAIN_HASHES:.1f} cycles a "
+                     f"hash at {clock_hz / 1e6:.0f} MHz" if lanes == 1
+                     else ""))
+        # a slot's entries: SLOT_MIXINS mixin entries and a tick entry a
+        # tick; its re-check is one step a lane, the chain one lane
+        n_m = SLOT_HPT // (SLOT_MIXINS + 1)
+        n_t = SLOT_HPT - SLOT_MIXINS * n_m
+        spec = [(n_m, rng.bytes(32)) if k < SLOT_MIXINS else (n_t, None)
+                for _ in range(SLOT_TPS) for k in range(SLOT_MIXINS + 1)]
+        rc = np.zeros((len(spec), row_bytes(1)), np.uint8)
+        stamp_lanes(rc, [(rng.bytes(32), [e]) for e in spec])
+        rc_blob = torch.from_numpy(rc).to(dev)
+        timed(f"poh_spans recheck {len(spec)} entries", "poh_spans",
+              lambda: ps.poh_spans(rc_blob, 1, (SLOT_HPT,)))
+        sl = np.zeros((1, row_bytes(len(spec))), np.uint8)
+        stamp_lanes(sl, [(rng.bytes(32), spec)])
+        sl_blob = torch.from_numpy(sl).to(dev)
+        sl_caps = tuple(n for n, _ in spec)
+        key = f"poh_spans slot {SLOT_HPT} x {SLOT_TPS}"
+        times[key] = cuda_ms(torch, lambda: ps.poh_spans(
+            sl_blob, len(spec), sl_caps), SLOT_RUNS, 1)
+        t = times[key][0]
+        print(f"{args.label} {key}: {t:.3f} ms, "
+              f"{SLOT_HPT * SLOT_TPS / t * 1e3:.1f} hashes/s, "
+              f"{clock_hz * t / 1e3 / (SLOT_HPT * SLOT_TPS):.1f} cycles a "
+              f"hash at {clock_hz / 1e6:.0f} MHz")
     if "mixin_tree" in kernels:
         from firedancer_tpu_torch.ops import mixin_tree as mt
         rng = np.random.default_rng(14)

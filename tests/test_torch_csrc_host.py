@@ -15,9 +15,13 @@ dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate), the
 harness runs those threads in lockstep and passes what the warp's
 shuffles would through arrays; each point step of the four-rank chain is
 also held alone against its plain function.  The leader lane's lanes
-(csrc/sha256.cuh's fixed forms, the PoH lane of poh_spans.cu and the
-level rule of mixin_tree.cu) build into a second, smaller harness and
-are held against hashlib and the plain versions.  The launch, the grid
+(poh_spans.cu's hashes and lane body, its schedule warp's producer and
+its FMA-pipe forms of an add, a shift and a rotation, and the level
+rule of mixin_tree.cu) build into a second, smaller harness and are
+held against hashlib, ops/sha256.py and the plain versions; where the
+kernel splits a hash over a pair of warps, the harness runs the
+schedule warp's part, then the rounds warp's, as its barriers order
+them.  The launch, the grid
 and the memory layout are not checked here: chip_smoke.py checks those
 on the card.
 """
@@ -722,14 +726,28 @@ int main() {
     for (int i = 0; i < n; i++) {
       uint8_t b[64];
       rd(b, mode == 'f' ? 32 : 64);
-      uint32_t st[8], mix[8];
-      for (int j = 0; j < 8; j++) {
-        st[j] = s256_load_be(b + 4 * j);
-        mix[j] = s256_load_be(b + 32 + 4 * j);
-      }
-      if (mode == 'f') s256_fixed32(st); else s256_fixed64(st, mix);
+      uint32_t st[8];
+      for (int j = 0; j < 8; j++) st[j] = s256_load_be(b + 4 * j);
+      poh_hash(st, b + 32, mode == 'x');
       for (int j = 0; j < 8; j++) s256_store_be(b + 4 * j, st[j]);
       fwrite(b, 1, 32, stdout);
+    }
+  } else if (mode == 'r') {     // n word pairs: x + y on the FMA pipe
+    for (int i = 0; i < n; i++) {
+      uint32_t xy[2];
+      rd(xy, 8);
+      const uint32_t o = poh_add(xy[0], xy[1], true);
+      fwrite(&o, 4, 1, stdout);
+    }
+  } else if (mode == 's') {     // n blocks of 16 words: K + W of 16..63
+    for (int i = 0; i < n; i++) {
+      uint32_t w[16], kws[48];
+      rd(w, 64);
+      poh_schedule(w, [&](int c, const uint32_t *kw) {
+        for (int j = 0; j < 16; j++) kws[16 * c + j] = kw[j];
+        return 0u;
+      });
+      fwrite(kws, 4, 48, stdout);
     }
   } else if (mode == 'l') {     // k steps: caps, then the span rows
     std::vector<int> caps(k);
@@ -809,6 +827,41 @@ def test_sha256_fixed_lanes_match_hashlib_and_plain(harness256):
         assert bytes(x[i]) == hashlib.sha256(bytes(m[i])).digest()
 
 
+def test_poh_add_fma_matches_add(harness256):
+    """poh_spans.cu's FMA-pipe add, x + y as mad.lo(x, 1, y), on seeded
+    words and at the carries' edges."""
+    rng = np.random.default_rng(63)
+    xy = rng.integers(0, 2**32, (64, 2), np.uint64).astype(np.uint32)
+    xy[0] = (0, 0)
+    xy[1] = (2**32 - 1, 2**32 - 1)
+    xy[2] = (1, 2**31)
+    got = np.frombuffer(harness256(b"r", len(xy), 0, xy.tobytes()),
+                        np.uint32)
+    want = (xy[:, 0].astype(np.uint64) + xy[:, 1]) & np.uint64(2**32 - 1)
+    assert np.array_equal(got.astype(np.uint64), want)
+
+
+@pytest.mark.parametrize("block", ["append", "mixin"])
+def test_poh_schedule_matches_sha256_schedule(harness256, block):
+    """The schedule warp's producer: K_t + W_t of rounds 16-63 from a
+    block's 16 words, against ops/sha256.py's schedule: an append's block
+    (8 state words and the constant tail, which the kernel folds) and a
+    mixin's first block (16 variable words)."""
+    from firedancer_tpu_torch.ops import sha256 as s256
+    rng = np.random.default_rng(48)
+    w = rng.integers(0, 2**32, (24, 16), np.uint64).astype(np.uint32)
+    if block == "append":
+        w[:, 8:] = s256.PAD32_TAILW
+    w[0, :8] = 0
+    w[1, :8] = 2**32 - 1
+    got = np.frombuffer(harness256(b"s", len(w), 0, w.tobytes()),
+                        np.uint32).reshape(len(w), 48)
+    for i in range(len(w)):
+        sched = s256._np_schedule(w[i].tolist())
+        assert got[i].tolist() == [(sched[t] + s256.K[t]) & 0xFFFFFFFF
+                                   for t in range(16, 64)]
+
+
 def _span_rows(rng, lanes, steps, nmax):
     rows = np.zeros((lanes, 32 + 38 * steps), np.uint8)
     rows[:, :32] = rng.integers(0, 256, (lanes, 32))
@@ -837,15 +890,27 @@ def _host_lane(row, steps, caps):
     return b"".join(out)
 
 
-def test_poh_lane_matches_hashlib_and_plain(harness256):
-    """Kernel A's lane body: 0, 1 and cap hashes, n past the cap (the
-    loop stops at the cap), inactive steps, mixins, a negative n."""
+@pytest.mark.parametrize("case", ["edges", "chains"])
+def test_poh_lane_matches_hashlib_and_plain(harness256, case):
+    """Kernel A's lane body, the pair's schedule and rounds in the order
+    its barriers impose.  edges: 0, 1 and cap hashes, a step that ends
+    exactly at its cap, n past the cap (the loop stops at the cap),
+    inactive steps, mixins, a negative n.  chains: longer chains of
+    appends with a mixin at the end of some steps, under caps that stop
+    some of them."""
     from firedancer_tpu_torch.ops import poh_spans as ps
-    rng = np.random.default_rng(38)
-    steps, caps = 4, [0, 1, 6, 9]
-    rows = _span_rows(rng, 24, steps, 12)
-    for lane, n in enumerate((0, 1, 2, 7, 10, 40, 2**32 - 3)):   # s = 2
-        b = 32 + 38 * 2
+    if case == "edges":
+        rng = np.random.default_rng(38)
+        steps, caps, at = 4, [0, 1, 6, 9], 2
+        rows = _span_rows(rng, 24, steps, 12)
+        ns = (0, 1, 2, 7, 10, 40, 2**32 - 3)
+    else:
+        rng = np.random.default_rng(39)
+        steps, caps, at = 2, [40, 25], 1
+        rows = _span_rows(rng, 6, steps, 48)
+        ns = (41, 42, 26, 1)
+    for lane, n in enumerate(ns):                            # step at
+        b = 32 + 38 * at
         rows[lane, b + 32:b + 36] = np.frombuffer(
             np.uint32(n).tobytes(), np.uint8)
         rows[lane, b + 37] = 1

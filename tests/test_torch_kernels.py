@@ -352,6 +352,30 @@ def test_poh_spans_kernel_matches_plain_and_hashlib(cuda, lanes, steps):
             assert bytes(got[i, 32 * s:32 * s + 32].tolist()) == h
 
 
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_poh_spans_kernel_long_chains_match_hashlib(cuda, lanes):
+    """Chains of thousands of hashes, the lanes of a pair of warps of
+    different lengths, a mixin at the end of some: every hash is a round
+    of the pair's barriers."""
+    from firedancer_tpu_torch.ops import poh_spans as ps
+    rng = np.random.default_rng(4000 + lanes)
+    rows = np.zeros((lanes, ps.row_bytes(1)), np.uint8)
+    rows[:, :32] = rng.integers(0, 256, (lanes, 32))
+    rows[:, 32:64] = rng.integers(0, 256, (lanes, 32))
+    n = rng.integers(2000, 5000, lanes).astype("<u4")
+    rows[:, 64:68] = n.view(np.uint8).reshape(lanes, 4)
+    rows[:, 68] = np.arange(lanes) % 2
+    rows[:, 69] = 1
+    got = ps.poh_spans(torch.from_numpy(rows).to(cuda), 1, (4096,)).cpu()
+    for i in range(lanes):
+        h = bytes(rows[i, :32])
+        for _ in range(min(int(n[i]) - 1, 4096)):
+            h = hashlib.sha256(h).digest()
+        h = hashlib.sha256(h + bytes(rows[i, 32:64])
+                           if rows[i, 68] else h).digest()
+        assert bytes(got[i].tolist()) == h
+
+
 @pytest.mark.parametrize("B,W", [(3, 1), (33, 64), (8, 32), (2, 1024)])
 def test_mixin_tree_kernel_matches_plain(cuda, B, W):
     from firedancer_tpu_torch.ops import mixin_tree as mt
