@@ -1459,6 +1459,31 @@ class _LaunchTimer:
         return {name: tuple(v) for name, v in out.items()}
 
 
+def _launch_ms(torch, mod, name: str, fn, runs: int = RUNS):
+    """A kernel's own device ms a launch: CUDA events around each launch
+    of mod's kernel (_LaunchTimer) over runs calls of fn, after three
+    warm-ups.  None where fn launched nothing (CPU tensors run the plain
+    version)."""
+    for _ in range(3):
+        fn()
+    timer = _LaunchTimer(torch, {name: mod})
+    try:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        t1 = time.perf_counter()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        ms, n = timer.device_ms(t0, t1)[name]
+    finally:
+        timer.restore()
+    return ms / n if n else None
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
 def _sha256_ops(nums, has) -> tuple:
     """32-bit operations of a batch of PoH segments, (integer-pipe-only,
     adds): n - 1 appends and the last hash, a mixin or an append."""
@@ -2137,6 +2162,614 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     return out
 
 
+# ---- phase 16: the turbine shred lane ---------------------------------
+
+# the JAX defaults: [tiles.shred] sig_batch, [tiles.shred_recover] 32 data
+# + 32 code shreds a set and 8 sets a dispatch; a 32:32 set's proof is 6
+# nodes, so its protected span is 1139 - 20 * 6 bytes
+SHRED_K, SHRED_SZ, SHRED_BATCH_SETS, SIG_BATCH = 32, 1019, 8, 32
+LEAF_MAXLEN, PROOF_DEPTH = 1228 - 64, 15
+INT8_TENSOR_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core peak
+LEADER_SEED = bytes(range(32))
+OTHER_SEED = bytes(range(1, 33))
+# leaf lengths whose 26 + len sit on each SHA-256 padding edge (mod 64 =
+# 55, 56, 63, 0), the empty leaf and the longest
+WALK_EDGE_LENS = (0, 1, 29, 30, 37, 38, 93, 94, 101, 102, LEAF_MAXLEN)
+
+
+def shred_keys() -> dict:
+    """The lane's identities: the slot leader (the one staked node), this
+    validator and one turbine child (both unstaked)."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    return {"leader": ed.keypair_from_seed(LEADER_SEED)[0],
+            "other": ed.keypair_from_seed(OTHER_SEED)[0],
+            "me": ed.keypair_from_seed(bytes([7]) * 32)[0],
+            "child": ed.keypair_from_seed(bytes([9]) * 32)[0]}
+
+
+def fec_set(entry, slot, fec_idx, k, done=False, device=None):
+    """One signed k:k merkle FEC set of the leader (make_fec_set; its
+    parity on the GF(2) kernel on `device`)."""
+    from firedancer_tpu_torch.ballet import shred as sl
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    return sl.make_fec_set(entry, slot, 1, 1, fec_idx,
+                           lambda root: ed.sign(LEADER_SEED, root),
+                           data_cnt=k, code_cnt=k, slot_complete=done,
+                           torch_device=device)
+
+
+def corrupt_set(entry, slot, fec_idx, k, device=None) -> list:
+    """A leader-signed set whose parity disagrees with its data: code
+    shred 0 has a parity byte flipped and the last data shred carries no
+    DATA_COMPLETE flag, so all k data shreds and code shred 0 are present
+    when a resolver first finds the set ready, and its survivors
+    disagree.  Returns the 2k raw shreds."""
+    from firedancer_tpu_torch.ballet import bmtree
+    from firedancer_tpu_torch.ballet import shred as sl
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    fs = fec_set(entry, slot, fec_idx, k, device=device)
+    plen = sl.parse(fs.data_shreds[0]).merkle_proof_len
+    bodies = [bytearray(r[64:len(r) - 20 * plen])
+              for r in fs.data_shreds + fs.code_shreds]
+    bodies[k - 1][0x55 - 64] &= ~(sl.FLAG_DATA_COMPLETE
+                                  | sl.FLAG_SLOT_COMPLETE) & 0xFF
+    bodies[k][sl.CODE_HEADER_SZ - 64 + 10] ^= 0x5A
+    leaves = [bytes(b) for b in bodies]
+    levels = bmtree.np_tree(leaves, node_sz=20,
+                            leaf_prefix=bmtree.LEAF_PREFIX_LONG,
+                            node_prefix=bmtree.NODE_PREFIX_LONG)
+    sig = ed.sign(LEADER_SEED, sl.walk_merkle_root(
+        leaves[0], 0, bmtree.np_proof(levels, 0)))
+    return [sig + b + b"".join(bmtree.np_proof(levels, i))
+            for i, b in enumerate(leaves)]
+
+
+def forge(raw: bytes) -> bytes:
+    """A shred with one signature bit flipped."""
+    b = bytearray(raw)
+    b[10] ^= 1
+    return bytes(b)
+
+
+def legacy_shred(slot: int) -> bytes:
+    """A legacy data shred: it parses and has no merkle root."""
+    from firedancer_tpu_torch.ballet import shred as sl
+    b = bytearray(sl.DATA_HEADER_SZ + 16)
+    b[0x40] = sl.TYPE_LEGACY_DATA | 0x05
+    b[0x41:0x49] = slot.to_bytes(8, "little")
+    b[0x53:0x55] = (1).to_bytes(2, "little")
+    b[0x56:0x58] = len(b).to_bytes(2, "little")
+    return bytes(b)
+
+
+def lane_stream(slot, nsets, k, n_forged, burst, seed, device=None):
+    """A slot as turbine delivers it: nsets signed k:k sets (the last
+    with SLOT_COMPLETE), set i with 1 + 3i mod (k - 1) data shreds erased
+    (never the last, which carries DATA_COMPLETE) and delivered data
+    first, then code; a corrupt set (corrupt_set) of the slot before,
+    delivered after them (data, then code shred 0); then at least
+    n_forged forged copies of shreds that were not delivered (a forged
+    copy of a delivered shred would be dropped as a duplicate unverified),
+    as many as make the count a multiple of burst.  Returns (frags, the
+    entry batches, the delivered valid shreds, the forged count)."""
+    rng = np.random.default_rng(seed)
+    frags, entries, spare = [], [], []
+    for i in range(nsets):
+        entry = rng.integers(0, 256, 950 * k + 97 * i, np.uint8).tobytes()
+        entries.append(entry)
+        fs = fec_set(entry, slot, i * k, k, done=i == nsets - 1,
+                     device=device)
+        erased = set(rng.choice(k - 1, 1 + (3 * i) % (k - 1),
+                                replace=False).tolist())
+        frags += [r for j, r in enumerate(fs.data_shreds)
+                  if j not in erased] + fs.code_shreds
+        spare += [fs.data_shreds[j] for j in sorted(erased)]
+    bad = corrupt_set(b"c" * 900 * k, slot - 1, 0, k, device=device)
+    frags += bad[:k + 1]
+    spare += bad[k + 1:]
+    valid = list(frags)
+    n_forged += -(len(frags) + n_forged) % burst
+    frags += [forge(spare[int(j)]) for j in
+              rng.choice(len(spare), n_forged, replace=False)]
+    return frags, entries, valid, n_forged
+
+
+def turbine_cfg(keys: dict, child_port: int, spe: int = 432_000) -> dict:
+    """The shred tile's [turbine] table: the leader staked, this node
+    and a child unstaked, the child's contact on the loopback."""
+    return {"identity": keys["me"].hex(), "fanout": 200, "port": 0,
+            "slots_per_epoch": spe,
+            "stakes": {keys["leader"].hex(): [1000, "", 0],
+                       keys["me"].hex(): [0, "", 0],
+                       keys["child"].hex(): [0, "127.0.0.1", child_port]}}
+
+
+def _recover_bitmat(k: int, n: int, use: tuple) -> bytes:
+    """A pattern's reconstruction bit-matrix (pool worker)."""
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    return rs._recover_matrices(k, n, use)[1]
+
+
+def _walk_rows(shreds):
+    """batch_walk_roots' inputs for parsed shreds, as the batcher builds
+    them."""
+    B = len(shreds)
+    leaf = np.zeros((B, LEAF_MAXLEN), np.uint8)
+    proofs = np.zeros((B, PROOF_DEPTH, 20), np.uint8)
+    lens, idxs, depths = (np.zeros(B, np.int32) for _ in range(3))
+    for j, s in enumerate(shreds):
+        ld = s.merkle_leaf_data()
+        leaf[j, :len(ld)] = np.frombuffer(ld, np.uint8)
+        lens[j], idxs[j], depths[j] = len(ld), s.tree_index(), \
+            s.merkle_proof_len
+        for d, node in enumerate(s.proof_nodes()):
+            proofs[j, d] = np.frombuffer(node, np.uint8)
+    return leaf, lens, idxs, proofs, depths
+
+
+def _walk_ops(lens, depths) -> tuple:
+    """32-bit operations (integer-pipe-only, adds) of merkle walks by
+    _compress_ops, and the longest lane's compressions: a leaf's blocks
+    (the first from H0, its 6 prefix words constant; the last with a
+    constant bit length), then each level's two blocks (the node prefix
+    constant; the second block's first word variable)."""
+    node = _ops_sum((10, 0), _compress_ops(False, [False] * 6 + [True] * 10),
+                    _compress_ops(True, [True] + [False] * 15))
+    ops, longest = (0, 0), 0
+    for ln, d in zip(lens, depths):
+        nb = (26 + int(ln) + 9 + 63) // 64
+        for blk in range(nb):
+            w = [True] * 16
+            if blk == 0:
+                w[:6] = [False] * 6
+            if blk == nb - 1:
+                w[14:] = [False, False]
+            ops = _ops_sum(ops, _compress_ops(blk > 0, w))
+        ops = _ops_sum(ops, *([node] * int(d)))
+        longest = max(longest, nb + 2 * int(d))
+    return ops, longest
+
+
+def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
+                clock_hz, device=None, n_sets=32,
+                lane_sets=8, big_lanes=4096, workdir=None):
+    """Phase 16: the turbine shred lane at the JAX defaults.  (a) The
+    GF(2) kernel on bench.py::measure_shred_recover's ragged-erasure
+    32:32 sets (i % 32 erasures), 8 a dispatch, against its plain version
+    and the codewords; one corrupted survivor; mixed geometry with
+    padding, k = 1 and the protocol limit 67:67 through recover_batch
+    against the host model; encode at 32:32.  (b) The merkle walk kernel
+    on the 64 shreds of a signed 32:32 set against its plain version,
+    np_batch_walk_roots and the signed root, and on ragged lanes (depths
+    0-15, leaf lengths on the padding edges) at 1, 31, 32, 33 and
+    big_lanes lanes.  (c) _ShredSigBatcher "device" against "host" on one
+    32-shred burst of valid, forged, wrong-leader, unknown-leader, legacy
+    and duplicate shreds.  (d) shred -> store and shred -> shred_recover
+    -> sink in spawned processes, a slot of lane_sets sets with a
+    corrupted set and forged shreds published into the shred tile's net
+    in-link, the retransmits received by a child socket.  Each path runs
+    with the launch counts set to 0 just before it.  A kernel's device ms
+    is CUDA events around each of its launches (_launch_ms), as 15e
+    times its kernels.  device None is the card.  Returns the numbers of
+    the kernels record.  Raises on any failed check."""
+    import tempfile
+
+    import torch
+
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    from firedancer_tpu_torch.ballet import shred as sl
+    from firedancer_tpu_torch.ballet import bmtree
+    from firedancer_tpu_torch.disco import shred_dest as sd_mod
+    from firedancer_tpu_torch.disco import shred_tiles as st
+    from firedancer_tpu_torch.disco import topo as topo_mod
+    from firedancer_tpu_torch.disco.run import SupervisionPolicy, TopoRun
+    from firedancer_tpu_torch.disco.tiles import read_capture
+    from firedancer_tpu_torch.flamenco.leaders import leader_schedule
+    from firedancer_tpu_torch.ops import bmtree_walk as bw
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+    from firedancer_tpu_torch.tango.ring import tx_burst
+    from firedancer_tpu_torch.waltz.udpsock import UdpSock
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    tag = f"cs{os.getpid()}"
+    t_phase = time.perf_counter()
+    workdir = Path(workdir or tempfile.mkdtemp(prefix="fdtpu_phase16_"))
+    rng = np.random.default_rng(1600)
+    keys = shred_keys()
+    out = {}
+    k, n, sz = SHRED_K, 2 * SHRED_K, SHRED_SZ
+
+    # ---- (a) kernel C: 32 ragged-erasure sets, 8 a dispatch
+    data = [rng.integers(0, 256, (k, sz), np.uint8) for _ in range(n_sets)]
+    reset_counts()
+    parity = [rs.encode(d, k, torch_device=device) for d in data]
+    got = counts()
+    if got["gf2_recover"] != n_sets or not np.array_equal(
+            parity[0], rs.encode(data[0], k, device=False)):
+        raise AssertionError(f"phase 16a: encode at 32:32 differs from the "
+                             f"host model (launches {got})")
+    full = [np.vstack([d, p]) for d, p in zip(data, parity)]
+    sets = []
+    for i, cw in enumerate(full):
+        shreds = [cw[j] for j in range(n)]
+        for e in range(i % k):
+            shreds[(3 * e + i) % n] = None
+        sets.append((shreds, k, sz))
+    uses = [tuple([j for j, s in enumerate(sh) if s is not None][:k])
+            for sh, _, _ in sets]
+    bms = pool.starmap(_recover_bitmat, [(k, n, u) for u in uses])
+    row = rs.recover_blob_row_bytes(k, n, sz)
+    blobs, bitmats = [], []
+    for g in range(0, n_sets, SHRED_BATCH_SETS):
+        blob = np.zeros((SHRED_BATCH_SETS, row), np.uint8)
+        bm = np.zeros((SHRED_BATCH_SETS, 8 * n, 8 * k), np.int8)
+        for r in range(SHRED_BATCH_SETS):
+            shreds = sets[g + r][0]
+            for c, j in enumerate(uses[g + r]):
+                blob[r, c * sz:(c + 1) * sz] = shreds[j]
+            for j, s in enumerate(shreds):
+                if s is not None:
+                    blob[r, (k + j) * sz:(k + j + 1) * sz] = s
+                    blob[r, (k + n) * sz + j] = 1
+            bm[r] = np.frombuffer(bms[g + r], np.int8).reshape(8 * n, 8 * k)
+        blobs.append(torch.from_numpy(blob).to(dev))
+        bitmats.append(torch.from_numpy(bm).to(dev))
+    reset_counts()
+    verdicts = [gf2.recover_blob(b, m, k, n, sz)
+                for b, m in zip(blobs, bitmats)]
+    got = counts()
+    c_err = 0
+    for g, (v, b, m) in enumerate(zip(verdicts, blobs, bitmats)):
+        p = gf2.recover_blob_plain(b, m, k, n, sz)
+        if not torch.equal(v, p):
+            raise AssertionError(f"phase 16a: dispatch {g}: kernel differs "
+                                 f"from plain")
+        c_err = max(c_err, int((v.to(torch.int16) - p).abs().max()))
+        vh = v.cpu().numpy()
+        for r in range(SHRED_BATCH_SETS):
+            if not (vh[r, -1] == 1 and np.array_equal(
+                    vh[r, :-1].reshape(n, sz), full[g * SHRED_BATCH_SETS
+                                                    + r])):
+                raise AssertionError(f"phase 16a: set {g * 8 + r} did not "
+                                     f"recover its codeword")
+    if got["gf2_recover"] != len(blobs):
+        raise AssertionError(f"phase 16a: launches {got}")
+    # one corrupted survivor: that set's flag alone drops
+    bad = blobs[0].clone()
+    j = uses[3][-1]
+    bad[3, (k + j) * sz + 17] ^= 0x08
+    ok = gf2.recover_blob(bad, bitmats[0], k, n, sz)[:, -1].cpu().tolist()
+    if ok != [1, 1, 1, 0, 1, 1, 1, 1] or not torch.equal(
+            gf2.recover_blob(bad, bitmats[0], k, n, sz),
+            gf2.recover_blob_plain(bad, bitmats[0], k, n, sz)):
+        raise AssertionError(f"phase 16a: corrupted survivor: flags {ok}")
+    # mixed geometry with padding (8:8, 3:5 and 1:1 beside a 32:32 set,
+    # at sizes 1059, 33 and 1019) and the protocol limit 67:67, through
+    # recover_batch against the host model
+    small = []
+    for kk, pp, ss, drop in ((8, 8, 1059, (0, 3, 9)), (3, 5, 33, (0, 4)),
+                             (1, 1, sz, (0,))):
+        d = rng.integers(0, 256, (kk, ss), np.uint8)
+        cw = np.vstack([d, rs.encode(d, pp, device=False)])
+        small.append(([None if j in drop else cw[j]
+                       for j in range(kk + pp)], kk, ss))
+    d67 = rng.integers(0, 256, (67, 64), np.uint8)
+    cw67 = np.vstack([d67, rs.encode(d67, 67, torch_device=device)])
+    lim = ([None if j in (70, 99, 133) else cw67[j] for j in range(134)],
+           67, 64)
+    mixed = [sets[0], small[0], small[1], small[2], lim]
+    reset_counts()
+    got_m = rs.recover_batch(mixed, torch_device=device)
+    launched = counts()["gf2_recover"]
+    want_m = rs.recover_batch(mixed, device=False)
+    for i, (a, b) in enumerate(zip(got_m, want_m)):
+        if isinstance(a, ValueError) or not all(
+                np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"phase 16a: mixed set {i}: {a!r:.80}")
+    if launched != 1:
+        raise AssertionError(f"phase 16a: recover_batch launched {launched}")
+    # the timed shape: one dispatch of 8 sets
+    b0, m0 = blobs[0], bitmats[0]
+    c_ms = cuda_ms(lambda: gf2.recover_blob(b0, m0, k, n, sz))
+    c_dev = _launch_ms(torch, gf2, "gf2_recover",
+                       lambda: gf2.recover_blob(b0, m0, k, n, sz))
+    if device is None and not (c_dev or 0) > 0:
+        raise AssertionError(f"phase 16a: gf2_recover device ms {c_dev}")
+    c_plain = cuda_ms(lambda: gf2.recover_blob_plain(b0, m0, k, n, sz),
+                      PLAIN_RUNS, 1)
+    # the library yardstick: the product alone as one fp16 torch.bmm (0/1
+    # entries, sums <= 8 * 67, exact in fp16), on the unpacked survivors
+    surv = b0[:, :k * sz].reshape(SHRED_BATCH_SETS, k, sz)
+    bits16, bm16 = gf2._unpack(surv).half(), m0.half()
+    prod = (torch.bmm(bm16, bits16).to(torch.int64) & 1).reshape(
+        SHRED_BATCH_SETS, n, 8, sz)
+    sh8 = torch.arange(8, device=dev)[None, None, :, None]
+    if not torch.equal((prod << sh8).sum(2).to(torch.uint8).reshape(
+            SHRED_BATCH_SETS, -1), verdicts[0][:, :-1]):
+        raise AssertionError("phase 16a: the fp16 torch.bmm product differs")
+    c_lib = cuda_ms(lambda: torch.bmm(bm16, bits16))
+    c_bytes = b0.numel() + m0.numel() + SHRED_BATCH_SETS * (n * sz + 1)
+    c_ops = 2 * SHRED_BATCH_SETS * 8 * n * 8 * k * sz
+    c_bound = max((c_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (c_ops / INT8_TENSOR_OPS_PER_S * 1e3, "operations"))
+    note(f"phase 16a: gf2_recover: {n_sets} ragged-erasure 32:32 sets (i % "
+         f"32 erasures) in {len(blobs)} dispatches of {SHRED_BATCH_SETS} == "
+         f"plain == the codewords, ok all 1; encode 32:32 == host model; a "
+         f"corrupted survivor drops its set's flag alone; mixed geometry "
+         f"with padding, k = 1 and 67:67 through recover_batch == host "
+         f"model in 1 launch; {SHRED_BATCH_SETS} x 32:32 x {sz}: call "
+         f"{c_ms:.5f} ms, device {_ms_text(c_dev)} (CUDA events around "
+         f"each launch), plain {c_plain:.4f} ms, "
+         f"fp16 torch.bmm product alone {c_lib:.5f} ms, bound "
+         f"{c_bound[0]:.6f} ms ({c_bound[1]}: {c_ops} int8 operations at "
+         f"{INT8_TENSOR_OPS_PER_S / 1e12:.0f} T/s, {c_bytes} bytes); max "
+         f"error {c_err}")
+    out.update(c_err=c_err, c_ms=c_ms, c_dev=c_dev, c_plain=c_plain,
+               c_lib=c_lib, c_bound=c_bound)
+
+    # ---- (b) kernel D: a real set's 64 shreds, then ragged lanes
+    fs = fec_set(rng.integers(0, 256, 30_000, np.uint8).tobytes(), 9, 0, k,
+                 device=device)
+    raws = fs.data_shreds + fs.code_shreds
+    parsed = [sl.parse(r) for r in raws]
+    leaf, lens, idxs, proofs, depths = _walk_rows(parsed)
+    leaf_d = torch.from_numpy(leaf).to(dev)
+    proofs_d = torch.from_numpy(proofs).to(dev)
+    reset_counts()
+    roots = bmtree.batch_walk_roots(leaf_d, lens, idxs, proofs_d, depths)
+    got = counts()
+    plain = bw.bmtree_walk_plain(leaf_d, *[torch.from_numpy(x).to(dev) for x
+                                           in (lens, idxs)], proofs_d,
+                                 torch.from_numpy(depths).to(dev))
+    host = bmtree.np_batch_walk_roots(
+        [s.merkle_leaf_data() for s in parsed],
+        [s.tree_index() for s in parsed], [s.proof_nodes() for s in parsed])
+    if not (torch.equal(roots, plain) and got["bmtree_walk"] == 1
+            and [bytes(r) for r in roots.cpu().numpy()] == host
+            and set(host) == {fs.merkle_root}):
+        raise AssertionError(f"phase 16b: a 32:32 set's roots differ "
+                             f"(launches {got})")
+    # ragged lanes: the kernel at each lane count on its own rows, the
+    # plain version once over all of them (it costs the same at 1 and at
+    # 4,193 lanes: a few thousand launches a compression)
+    sizes = (1, 31, 32, 33, big_lanes)
+    T = sum(sizes)
+    lf = rng.integers(0, 256, (T, LEAF_MAXLEN), np.uint8)
+    ln = rng.integers(0, LEAF_MAXLEN + 1, T).astype(np.int32)
+    ix = rng.integers(0, 1 << 15, T).astype(np.int32)
+    pf = rng.integers(0, 256, (T, PROOF_DEPTH, 20), np.uint8)
+    dp = np.zeros(T, np.int32)
+    at = 0
+    for B in sizes:
+        edge = list(WALK_EDGE_LENS)[:B]
+        ln[at:at + len(edge)] = edge
+        dp[at:at + B] = np.arange(B) % (PROOF_DEPTH + 1)
+        at += B
+    lf_d, pf_d = torch.from_numpy(lf).to(dev), torch.from_numpy(pf).to(dev)
+    pr = bw.bmtree_walk_plain(lf_d, *[torch.from_numpy(x).to(dev)
+                                      for x in (ln, ix)], pf_d,
+                              torch.from_numpy(dp).to(dev))
+    d_err, at = 0, 0
+    for B in sizes:
+        rows = slice(at, at + B)
+        kr = bw.bmtree_walk(lf_d[rows], ln[rows], ix[rows], pf_d[rows],
+                            dp[rows])
+        h = min(B, 64)
+        if not torch.equal(kr, pr[rows]) or [
+                bytes(r) for r in kr[:h].cpu().numpy()] != \
+                bmtree.np_batch_walk_roots(
+                    [lf[at + i, :ln[at + i]] for i in range(h)],
+                    ix[rows][:h].tolist(),
+                    [list(pf[at + i, :dp[at + i]]) for i in range(h)]):
+            raise AssertionError(f"phase 16b: {B} ragged lanes differ")
+        d_err = max(d_err, int((kr.to(torch.int16) - pr[rows]).abs().max()))
+        at += B
+    # the timed shape: one admission burst, sig_batch lanes of the set
+    bl = (leaf_d[:SIG_BATCH], lens[:SIG_BATCH], idxs[:SIG_BATCH],
+          proofs_d[:SIG_BATCH], depths[:SIG_BATCH])
+    bl_plain = (bl[0], *[torch.from_numpy(x).to(dev) for x in bl[1:3]],
+                bl[3], torch.from_numpy(bl[4]).to(dev))
+    d_ms = cuda_ms(lambda: bw.bmtree_walk(*bl))
+    d_dev = _launch_ms(torch, bw, "bmtree_walk", lambda: bw.bmtree_walk(*bl))
+    if device is None and not (d_dev or 0) > 0:
+        raise AssertionError(f"phase 16b: bmtree_walk device ms {d_dev}")
+    d_plain = cuda_ms(lambda: bw.bmtree_walk_plain(*bl_plain), 1, 0)
+    w_ops, longest = _walk_ops(bl[1], bl[4])
+    d_bytes = SIG_BATCH * (LEAF_MAXLEN + PROOF_DEPTH * 20 + 12 + 32)
+    d_issue = _sha256_bound_ms(w_ops, int_ops_per_s)
+    d_cp = longest * 64 * SHA256_ROUND_DEPTH / clock_hz * 1e3
+    d_bound = max((d_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (max(d_issue, d_cp), "operations"))
+    d_term = "critical path" if d_cp >= d_issue else "issue"
+    note(f"phase 16b: bmtree_walk: the 64 shreds of a signed 32:32 set "
+         f"(depth {int(depths[0])}) == plain == np_batch_walk_roots == the "
+         f"signed root in 1 launch; ragged lanes (depths 0-"
+         f"{PROOF_DEPTH}, leaf lengths {list(WALK_EDGE_LENS)}) == plain at "
+         f"1, 31, 32, 33 and {big_lanes} lanes, == hashlib on the first "
+         f"64; {SIG_BATCH} lanes of the set: call {d_ms:.5f} ms, device "
+         f"{_ms_text(d_dev)}, plain {d_plain:.4f} ms, bound "
+         f"{d_bound[0]:.6f} ms"
+         f" ({d_bound[1]}, set by the {d_term}: the issue bound "
+         f"{d_issue:.6f} ms of {w_ops[0]} integer-pipe and {w_ops[1]} add "
+         f"operations, the critical path {d_cp:.6f} ms of the longest "
+         f"lane's {longest} compressions x 64 rounds x {SHA256_ROUND_DEPTH} "
+         f"dependent operations at {clock_hz / 1e6:.0f} MHz; {d_bytes} "
+         f"bytes); max error {d_err}")
+    out.update(d_err=d_err, d_ms=d_ms, d_dev=d_dev, d_plain=d_plain,
+               d_bound=d_bound, d_term=d_term)
+
+    # ---- (c) the batcher: "device" against "host" on one burst
+    burst = [(raws[i], keys["leader"]) for i in range(26)]
+    burst += [(forge(raws[26]), keys["leader"]), (raws[27], keys["other"]),
+              (raws[28], None), (legacy_shred(9), keys["leader"]),
+              (raws[0], keys["leader"]), (raws[29], keys["leader"])]
+    dev_b = st._ShredSigBatcher(batch=SIG_BATCH, backend="device",
+                                device=device)
+    dev_b.warm()
+    host_b = st._ShredSigBatcher(batch=SIG_BATCH, backend="host")
+    verdicts = []
+    for b in (dev_b, host_b):
+        for i, (raw, leader) in enumerate(burst):
+            b.add(sl.parse(raw), raw, i, leader)
+        if b is dev_b:
+            reset_counts()
+        verdicts.append([(t, ok) for _, _, t, ok in b.flush()])
+        if b is dev_b:
+            got_c = counts()
+    want = [True] * 26 + [False] * 4 + [True, True]
+    if not (verdicts[0] == verdicts[1]
+            and [ok for _, ok in verdicts[0]] == want
+            and got_c["bmtree_walk"] == got_c["sha512_ram"]
+            == got_c["verify_tail"] == 1):
+        raise AssertionError(f"phase 16c: device {verdicts[0]}, host "
+                             f"{verdicts[1]}, launches {got_c}")
+    note(f"phase 16c: _ShredSigBatcher(batch {SIG_BATCH}) device == host on "
+         f"one burst (26 valid, a forged signature, the wrong leader, an "
+         f"unknown leader, a legacy shred, a duplicate, 1 valid): "
+         f"{sum(want)} pass; one flush launched bmtree_walk, sha512_ram and "
+         f"verify_tail once each")
+
+    # ---- (d) the lane in processes
+    slot = 40
+    frags, entries, valid, n_forged = lane_stream(
+        slot, lane_sets, k, 6, SIG_BATCH, 1601, device=device)
+    child = UdpSock(bind_ip="127.0.0.1")
+    cap = workdir / "payloads.cap"
+    ext = {"device": device or ""}
+    spec = (topo_mod.TopoBuilder(f"{tag}s", wksp_mb=64)
+            .link("net", depth=1024, mtu=1280)
+            .link("s_store", depth=1024, mtu=1280)
+            .link("s_rec", depth=1024, mtu=1280)
+            .link("r_sink", depth=64, mtu=32768)
+            .tile("n", "sink", outs=["net"])
+            .tile("shred", "shred", ins=["net"], outs=["s_store", "s_rec"],
+                  net_ins=["net"], turbine=turbine_cfg(keys, child.port),
+                  sig_backend="device", **ext)
+            .tile("store", "store", ins=["s_store"], max_slots=1, **ext)
+            .tile("rec", "shred_recover", ins=["s_rec"], outs=["r_sink"],
+                  **ext)
+            .tile("sink", "sink", ins=["r_sink"], capture_path=str(cap))
+            .build())
+    _shm_check(spec.wksp_mb << 20, note)
+    old_env = {k: os.environ.get(k)
+               for k in ("OMP_NUM_THREADS", "FDTPU_DRAIN_DIR")}
+    os.environ["OMP_NUM_THREADS"] = "1"
+    # each tile's drain manifest; shred's and shred_recover's record their
+    # kernel launches
+    os.environ["FDTPU_DRAIN_DIR"] = str(workdir / "drain")
+    try:
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy(drain_timeout_s=120.0))
+        try:
+            run.wait_ready(timeout=300)
+            t_boot = time.perf_counter() - t0
+            lnk = run.jt.links["net"]
+            lens = np.array([len(f) for f in frags], np.int32)
+            offs = np.zeros(len(frags), np.int64)
+            np.cumsum(lens[:-1], out=offs[1:])
+            t0 = time.perf_counter()
+            tx_burst(lnk.mcache, lnk.dcache, lnk.dcache.chunk0,
+                     b"".join(frags), offs, lens,
+                     np.zeros(len(frags), np.uint64))
+            lnk = None
+
+            def lane_done():
+                rm, sm = run.metrics("rec"), run.metrics("store")
+                return (rm["fec_complete_cnt"] + rm["fec_fail_cnt"]
+                        == lane_sets + 1 and sm["complete_slot"] == slot
+                        and run.metrics("sink")["frag_cnt"] == lane_sets)
+
+            _wait_for(lane_done, 300, "every set recovered and the slot "
+                      "stored", run)
+            t_lane = time.perf_counter() - t0
+            got_udp = []
+
+            def retransmitted():
+                got_udp.extend(p.payload for p in child.recv_burst())
+                return (len(got_udp)
+                        >= run.metrics("shred")["turbine_tx_cnt"])
+
+            _wait_for(retransmitted, 60, "the retransmits", run)
+            if not run.drain():
+                raise AssertionError("phase 16d: drain() did not drain "
+                                     "every tile")
+            shm, rm = run.metrics("shred"), run.metrics("rec")
+            sm = run.metrics("store")
+            st_s = run._load_drain_manifest("shred")["tile_state"]
+            st_r = run._load_drain_manifest("rec")["tile_state"]
+        finally:
+            run.close()
+            child.close()
+    finally:
+        for key, val in old_env.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    if set(run.exitcodes.values()) != {0}:
+        raise AssertionError(f"phase 16d: exit codes {run.exitcodes}")
+    payloads = [p for _, p in read_capture(str(cap))]
+    # the retransmits the tree asks for: this node's children of every
+    # admitted shred, by the tile's own stake table
+    ci = sd_mod.StakeCI(keys["me"], 432_000)
+    for pk, (stake, ip, port) in turbine_cfg(keys, child.port)[
+            "stakes"].items():
+        if ip:
+            ci.set_contact(bytes.fromhex(pk), ip, port)
+    sched = leader_schedule(0, {keys["leader"]: 1000}, 432_000)
+    ci.set_stakes(0, {bytes.fromhex(pk): v[0] for pk, v in turbine_cfg(
+        keys, child.port)["stakes"].items()})
+    sdest = ci.sdest_for(slot, lambda s: sched[s])
+    want_udp = sorted(
+        r for r in valid for i in sdest.compute_children([sl.parse(r)],
+                                                         200)[0]
+        if sdest.idx_to_dest(i).pubkey == keys["child"])
+    launches = {"gf2_recover": st_r["launches"].get("gf2_recover", 0),
+                "bmtree_walk": st_s["launches"].get("bmtree_walk", 0)}
+    on_card = device is None
+    if not (payloads == entries and rm["fec_fail_cnt"] == 1
+            and rm["fec_host_fallback_cnt"] == 0
+            and shm["shred_sig_fail_cnt"] == n_forged
+            and shm["shred_rx_cnt"] == len(valid)
+            and sm["complete_slot"] == slot
+            and sorted(got_udp) == want_udp and want_udp
+            and len(got_udp) == shm["turbine_tx_cnt"]
+            and (not on_card or (
+                launches["gf2_recover"] == st_r["fec_dispatch_cnt"] + 1
+                and st_s["launches"]["bmtree_walk"]
+                == st_s["launches"]["sha512_ram"]
+                == st_s["launches"]["verify_tail"]
+                == st_s["sig_batch_cnt"] > 0))):
+        raise AssertionError(
+            f"phase 16d: {len(payloads)} payloads of {len(entries)} (equal "
+            f"{payloads == entries}), recover {rm}, shred {shm}, store {sm},"
+            f" udp {len(got_udp)} of {len(want_udp)} wanted, at the drain "
+            f"{st_s} / {st_r}")
+    note(f"phase 16d: shred -> store, shred -> shred_recover -> sink in "
+         f"processes (sig_backend device, sig_batch {SIG_BATCH}, "
+         f"{SHRED_BATCH_SETS} sets a dispatch): {len(frags)} frags into the "
+         f"net in-link ({lane_sets} signed 32:32 sets of slot {slot} with "
+         f"ragged erasures, a corrupted set of slot {slot - 1}, {n_forged} "
+         f"forged shreds); the sink's {len(payloads)} payloads == the entry "
+         f"batches; fec_fail {rm['fec_fail_cnt']}, host fallback "
+         f"{rm['fec_host_fallback_cnt']}, fec dispatches "
+         f"{rm['fec_dispatch_cnt']}; shred_sig_fail "
+         f"{shm['shred_sig_fail_cnt']}, admitted {shm['shred_rx_cnt']}, "
+         f"bursts {shm['sig_batch_cnt']} ({shm['sig_deadline_flush_cnt']} "
+         f"by age); store complete_slot {sm['complete_slot']}; the child "
+         f"socket received the {len(got_udp)} retransmits the tree asks "
+         f"for; launches in the tiles' processes (drain manifests): "
+         f"gf2_recover {launches['gf2_recover']} == fec dispatches "
+         f"{st_r['fec_dispatch_cnt']} + the warm-up, bmtree_walk "
+         f"{st_s['launches'].get('bmtree_walk')} == sha512_ram == "
+         f"verify_tail == bursts {st_s['sig_batch_cnt']} since the warm-up; "
+         f"every tile exited 0; boot {t_boot:.3f} s, the slot through the "
+         f"lane in {t_lane:.3f} s")
+    out.update(launches=launches)
+    note(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2150,7 +2783,9 @@ def main() -> int:
         from firedancer_tpu_torch.ops import decompress as dc
         from firedancer_tpu_torch.ops import dsm
         from firedancer_tpu_torch.ops import ed25519 as ed
+        from firedancer_tpu_torch.ops import bmtree_walk as bw
         from firedancer_tpu_torch.ops import f25519 as fe
+        from firedancer_tpu_torch.ops import gf2_recover as gf2
         from firedancer_tpu_torch.ops import mixin_tree as mt
         from firedancer_tpu_torch.ops import msm as ms
         from firedancer_tpu_torch.ops import poh_spans as ps
@@ -2197,12 +2832,13 @@ def main() -> int:
     def dev_ms(fn, entry: str) -> float:
         """The kernel entry's device ms a call (torch.profiler over RUNS
         calls: tools/kernel_time.py device_ms); CUDA events around RUNS
-        back-to-back calls where three traces held none of its launches."""
+        back-to-back calls where three traces held under half a launch a
+        call of it."""
         ms, _, _, how = device_ms(torch, fn, entry, RUNS)
         if how != "profiler":
-            note(f"{entry}: three profiler traces held none of its launches;"
-                 f" its device ms {ms:.5f} is by CUDA events around {RUNS} "
-                 f"back-to-back calls")
+            note(f"{entry}: three profiler traces held under half a launch "
+                 f"a call of it; its device ms {ms:.5f} is by CUDA events "
+                 f"around {RUNS} back-to-back calls")
         if not ms > 0:
             raise AssertionError(f"{entry}: device time {ms} ms")
         return ms
@@ -2401,7 +3037,8 @@ def main() -> int:
                "dsm_tail_q": dsm.dsm_tail_q,
                "double_scalar_mul_base": dsm.double_scalar_mul_base,
                "rlc_recode": rl.rlc_recode, "poh_spans": ps.poh_spans,
-               "mixin_tree": mt.mixin_tree}
+               "mixin_tree": mt.mixin_tree, "gf2_recover": gf2.gf2_recover,
+               "bmtree_walk": bw.bmtree_walk}
 
     def reset_counts():
         for fn in counted.values():
@@ -3186,6 +3823,11 @@ def main() -> int:
         lead = leader_phase(pool, reset_counts, counts, note, cuda_ms,
                             dev_ms, int_ops_per_s, clock_mhz * 1e6,
                             hpt=POH_HASHES_PER_TICK, tps=POH_TICKS_PER_SLOT)
+        # ---- phase 16: the turbine shred lane: the GF(2) and merkle walk
+        # kernels, the admission batcher, shred -> store and shred ->
+        # shred_recover -> sink in processes
+        shred = shred_phase(pool, reset_counts, counts, note, cuda_ms,
+                            int_ops_per_s, clock_mhz * 1e6)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels
@@ -3277,6 +3919,33 @@ def main() -> int:
          "device_ms": lead["m_dev"], "plain_ms": lead["m_plain"],
          "bound_ms": lead["m_bound"][0], "bound_by": lead["m_bound"][1],
          "library_ms": None, "shape": "8 trees x 31 leaves (W 32)"}]
+    # the shred lane's hand kernels (the JAX package compiles the GF(2)
+    # product and the proof walk with XLA); launches from phase 16d's
+    # tiles, times at the default dispatch shapes
+    kernels += [
+        {"name": "gf2_recover", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/gf2_recover.cu",
+         "replaces": "firedancer_tpu/ballet/reedsol.py:292 "
+                     "_recover_batch_core, :334 recover_blob, :157 "
+                     "_encode_device",
+         "launches": shred["launches"]["gf2_recover"],
+         "max_abs_err": shred["c_err"], "ms": shred["c_ms"],
+         "device_ms": shred["c_dev"], "plain_ms": shred["c_plain"],
+         "bound_ms": shred["c_bound"][0], "bound_by": shred["c_bound"][1],
+         "library_ms": shred["c_lib"],
+         "library": "torch.bmm fp16, the product alone",
+         "device_ms_by": "CUDA events around each launch",
+         "shape": f"{SHRED_BATCH_SETS} sets x 32:32 x {SHRED_SZ} bytes"},
+        {"name": "bmtree_walk", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/bmtree_walk.cu",
+         "replaces": "firedancer_tpu/ballet/bmtree.py:84 batch_walk_roots",
+         "launches": shred["launches"]["bmtree_walk"],
+         "max_abs_err": shred["d_err"], "ms": shred["d_ms"],
+         "device_ms": shred["d_dev"], "plain_ms": shred["d_plain"],
+         "bound_ms": shred["d_bound"][0], "bound_by": shred["d_bound"][1],
+         "bound_term": shred["d_term"], "library_ms": None,
+         "device_ms_by": "CUDA events around each launch",
+         "shape": f"{SIG_BATCH} shreds of a 32:32 set (depth 6)"}]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3286,5 +3955,59 @@ def main() -> int:
     return 0
 
 
+def shred_only() -> int:
+    """Phase 16 alone: python3 chip_smoke.py --phase 16.  Builds the
+    kernels, runs shred_phase on the card and prints its numbers; no
+    {"ok": ...} line, which only the whole run prints."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from firedancer_tpu_torch.kernels import build
+        from firedancer_tpu_torch.ops import bmtree_walk as bw
+        from firedancer_tpu_torch.ops import gf2_recover as gf2
+        from firedancer_tpu_torch.ops import sha512_kernel as sk
+        from firedancer_tpu_torch.ops import verify_tail as vt
+        from firedancer_tpu_torch.tools import kernel_time as kt
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing: {exc}",
+              file=sys.stderr)
+        return 2
+    card = smi("name,power.limit")
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"card: {card}")
+    logs = build.build_all()
+    for name in ("gf2_recover", "bmtree_walk"):
+        for line in logs[name].splitlines():
+            if "Used" in line:
+                print(f"  {name}.cu ptxas: {line.split(':', 1)[1].strip()}")
+    counted = (gf2.gf2_recover, bw.bmtree_walk, sk.sha512_ram,
+               vt.verify_tail)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {fn.__name__: fn.launches for fn in counted}
+
+    def note(msg: str):
+        print(f"{msg}  [{card}]", flush=True)
+
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        out = shred_phase(
+            pool, reset_counts, counts, note,
+            lambda fn, runs=RUNS, warmup=3: kt.cuda_ms(torch, fn, runs,
+                                                       warmup)[0],
+            sms * INT32_LANES_PER_SM * clock_hz, clock_hz)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase", "16"]:
+        sys.exit(shred_only())
     sys.exit(main())

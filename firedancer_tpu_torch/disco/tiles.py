@@ -12,8 +12,9 @@ TileSpec.kind.  The verify-bench data plane is
 
 with the port's VerifyTile (disco/verify_tile.py) dispatching to the card;
 the leader-bench topology adds the leader_pack and poh_dev tiles
-(disco/leader_tiles.py).  The net, quic, bank and later tiles are not
-ported yet; neither are the source's executable transfers, stream
+(disco/leader_tiles.py), and the follower's turbine shred lane the
+shred, shred_recover and store tiles (disco/shred_tiles.py).  The net,
+quic, bank and later tiles are not ported yet; neither are the source's executable transfers, stream
 adoption and blockhash feedback, nor the dedup tile's sharded tcache and
 restart preload: those options raise NotImplementedError.
 """
@@ -26,6 +27,7 @@ from ..ballet import txn as txn_lib
 from ..tango.tcache import NativeTCache
 from .leader_tiles import LeaderPackTile, PohDevTile
 from .pipeline import LAT_PRIO_BIT
+from .shred_tiles import ShredRecoverTile, ShredTile, StoreTile
 from .verify_tile import VerifyTile
 
 
@@ -375,4 +377,7 @@ TILES: dict[str, type] = {
     "sink": SinkTile,
     "leader_pack": LeaderPackTile,
     "poh_dev": PohDevTile,
+    "shred": ShredTile,
+    "shred_recover": ShredRecoverTile,
+    "store": StoreTile,
 }

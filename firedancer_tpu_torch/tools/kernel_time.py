@@ -3,8 +3,8 @@
 
     python3 firedancer_tpu_torch/tools/kernel_time.py [--root DIR]
         [--label L] [--kernels msm,verify_tail,dsm_tail_q,dsm_base,
-        sha512,decompress,reduce_recode,rlc_recode,poh_spans,mixin_tree]
-        [--lanes N,...] [--sass]
+        sha512,decompress,reduce_recode,rlc_recode,poh_spans,mixin_tree,
+        gf2_recover,bmtree_walk] [--lanes N,...] [--sass]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
@@ -56,7 +56,15 @@ On inputs made from fixed seeds:
                1,566 a tick, random starts and mixins); and one lane
                through that whole slot (call ms only, SLOT_RUNS calls);
   mixin_tree   8 trees of 31 leaves (W 32, the poh_dev tile's shape) on
-               random signatures.
+               random signatures;
+  gf2_recover  recover_blob at the shred_recover tile's dispatch, 8
+               32:32 sets of 1,019 bytes with i % 32 erasures
+               (bench.py::measure_shred_recover's), and the yardstick
+               beside it: the product alone as one float16 torch.bmm on
+               the unpacked survivors (call ms only);
+  bmtree_walk  the shred tile's admission burst, 32 shreds of a signed
+               32:32 set (depth 6), and 4096 random lanes of every leaf
+               length and depth.
 The last line is one JSON object: the label, the card's name and power
 limit (nvidia-smi), the call times in ms, the device times in ms, the
 launches and the other device ops a call, and the device-time method.
@@ -88,14 +96,16 @@ PIPES = {"int": {"IADD3", "LOP3", "SHF", "LEA", "SEL", "ISETP", "PRMT",
 SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "dsm_tail_q": "dsm",
            "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
            "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode",
-           "poh_spans": "poh_spans", "mixin_tree": "mixin_tree"}
+           "poh_spans": "poh_spans", "mixin_tree": "mixin_tree",
+           "gf2_recover": "gf2_recover", "bmtree_walk": "bmtree_walk"}
 # each kernel's entry, as the profiler names its device events
 ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
            "dsm_tail_q": "dsm_tail_q_kernel", "dsm_base": "dsm_base_kernel",
            "sha512": "sha512_ram_kernel", "decompress": "decompress_kernel",
            "reduce_recode": "reduce_recode_kernel",
            "rlc_recode": "rlc_recode_kernel",
-           "poh_spans": "poh_spans_kernel", "mixin_tree": "mixin_tree_kernel"}
+           "poh_spans": "poh_spans_kernel", "mixin_tree": "mixin_tree_kernel",
+           "gf2_recover": "gf2_kernel", "bmtree_walk": "bmtree_walk_kernel"}
 
 
 def cuda_ms(torch, fn, runs: int = RUNS, warmup: int = 3) -> list[float]:
@@ -122,10 +132,11 @@ def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3,
     key_averages() over runs calls after the warm-ups; the entry's
     launches and the other device ops a call.  The trace may miss an
     event at its edge (19 of 20 seen), so ms is the mean of the launches
-    it holds times the launches a call.  A trace that holds none of the
-    entry's launches, or no device time at all, is taken again, up to
-    tries traces; after that, ms is CUDA events around runs
-    back-to-back calls over runs, and the counts are None."""
+    it holds times the launches a call.  A trace that holds fewer than
+    half a launch a call of the entry (none, rounded), or no device time
+    at all, is taken again, up to tries traces; after that, ms is CUDA
+    events around runs back-to-back calls over runs, and the counts are
+    None."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -147,8 +158,8 @@ def device_ms(torch, fn, entry: str, runs: int = RUNS, warmup: int = 3,
                 seen += e.count
             else:
                 other += e.count
-        if seen and us > 0:
-            per_call = round(seen / runs)
+        per_call = round(seen / runs)
+        if per_call and us > 0:
             return (us / seen * per_call / 1e3, per_call,
                     round(other / runs), "profiler")
     a = torch.cuda.Event(enable_timing=True)
@@ -399,6 +410,64 @@ def main() -> int:
         widths = torch.full((8,), 31, dtype=torch.int32, device=dev)
         timed("mixin_tree 8 x 31", "mixin_tree",
               lambda: mt.mixin_tree(sigs, widths))
+    if "gf2_recover" in kernels:
+        from firedancer_tpu_torch.ballet import reedsol as rs
+        from firedancer_tpu_torch.ops import gf2_recover as gf2
+        k, n, sz, B = 32, 64, 1019, 8
+        rng = np.random.default_rng(15)
+        blob = np.zeros((B, rs.recover_blob_row_bytes(k, n, sz)), np.uint8)
+        bm = np.zeros((B, 8 * n, 8 * k), np.int8)
+        # random rows, not codewords: the kernel's time does not depend
+        # on the bytes, only on the shapes
+        for i in range(B):
+            surv = rng.integers(0, 256, (n, sz), np.uint8)
+            gone = {(3 * e + i) % n for e in range(i % k)}
+            have = [j for j in range(n) if j not in gone]
+            use = tuple(have[:k])
+            blob[i, :k * sz] = surv[list(use)].reshape(-1)
+            for j in have:
+                blob[i, (k + j) * sz:(k + j + 1) * sz] = surv[j]
+                blob[i, (k + n) * sz + j] = 1
+            bm[i] = rs._recover_bitmat(k, n, use)
+        blob_d = torch.from_numpy(blob).to(dev)
+        bm_d = torch.from_numpy(bm).to(dev)
+        timed("gf2_recover 8 x 32:32", "gf2_recover",
+              lambda: gf2.recover_blob(blob_d, bm_d, k, n, sz))
+        bits16 = gf2._unpack(blob_d[:, :k * sz].reshape(B, k, sz)).half()
+        bm16 = bm_d.half()
+        times["gf2_recover torch.bmm fp16 product"] = cuda_ms(
+            torch, lambda: torch.bmm(bm16, bits16))
+    if "bmtree_walk" in kernels:
+        from firedancer_tpu_torch.ballet import shred as sl
+        from firedancer_tpu_torch.ops import bmtree_walk as bw
+        rng = np.random.default_rng(16)
+        fs = sl.make_fec_set(rng.bytes(30_000), 9, 1, 1, 0,
+                             lambda root: ed.sign(bytes(32), root),
+                             torch_device=dev)
+        shreds = [sl.parse(r) for r in fs.data_shreds[:32]]
+        leaf = np.zeros((32, 1164), np.uint8)
+        proofs = np.zeros((32, 15, 20), np.uint8)
+        lens, idxs, deps = (np.zeros(32, np.int32) for _ in range(3))
+        for j, s_ in enumerate(shreds):
+            ld = s_.merkle_leaf_data()
+            leaf[j, :len(ld)] = np.frombuffer(ld, np.uint8)
+            lens[j], idxs[j] = len(ld), s_.tree_index()
+            deps[j] = s_.merkle_proof_len
+            for d, node in enumerate(s_.proof_nodes()):
+                proofs[j, d] = np.frombuffer(node, np.uint8)
+        lf = torch.from_numpy(leaf).to(dev)
+        pf = torch.from_numpy(proofs).to(dev)
+        timed("bmtree_walk 32 shreds of a 32:32 set", "bmtree_walk",
+              lambda: bw.bmtree_walk(lf, lens, idxs, pf, deps))
+        lf4 = torch.from_numpy(rng.integers(0, 256, (4096, 1164),
+                                            np.uint8)).to(dev)
+        pf4 = torch.from_numpy(rng.integers(0, 256, (4096, 15, 20),
+                                            np.uint8)).to(dev)
+        ln4 = rng.integers(0, 1165, 4096).astype(np.int32)
+        ix4 = rng.integers(0, 1 << 15, 4096).astype(np.int32)
+        dp4 = (np.arange(4096) % 16).astype(np.int32)
+        timed("bmtree_walk 4096 random lanes", "bmtree_walk",
+              lambda: bw.bmtree_walk(lf4, ln4, ix4, pf4, dp4))
     shapes = ([(int(n), 128) for n in args.lanes.split(",")] if args.lanes
               else [(4096, 128), (32768, 128), (4096, 1232)])
     wide_only = {"verify_tail", "sha512"}

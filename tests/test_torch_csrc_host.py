@@ -941,3 +941,152 @@ def test_mixin_tree_level_rule_matches_np_tree(harness256, W):
     for i, w in enumerate(widths):
         leaves = [bytes(sigs[i, j]) for j in range(w)]
         assert bytes(got[i]) == bmtree.np_tree(leaves)[-1][0]
+
+
+# -- the shred lane's lanes (csrc/gf2_recover.cu, bmtree_walk.cu), in a
+# harness of their own -------------------------------------------------------
+
+HARNESS_SHRED = r"""
+#include "gf2_recover.cu"
+#include "bmtree_walk.cu"
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+static void rd(void *p, size_t n) {
+  if (fread(p, 1, n, stdin) != n) exit(2);
+}
+int main() {
+  char mode; int n, k;
+  rd(&mode, 1); rd(&n, 4); rd(&k, 4);
+  if (mode == 'g') {     // n sets of K = k: N, S, then surv, bitmat, ref,
+    int N, S;            // have; out: each set's full rows, then its ok
+    rd(&N, 4); rd(&S, 4);
+    std::vector<uint8_t> surv((size_t)n * k * S), ref((size_t)n * N * S),
+        have((size_t)n * N), full((size_t)n * N * S), ok(n);
+    std::vector<uint32_t> bm((size_t)n * 8 * N * 2 * k);
+    rd(surv.data(), surv.size());
+    rd(bm.data(), 4 * bm.size());
+    rd(ref.data(), ref.size());
+    rd(have.data(), have.size());
+    const int KW = (k + 3) / 4;
+    std::vector<uint32_t> rows((size_t)8 * N * KW), col(KW);
+    for (int b = 0; b < n; b++) {
+      // the block's shared-memory fill, then each column's thread
+      for (int q = 0; q < 8 * N * KW; q++)
+        rows[q] = gf2_row_word(&bm[((size_t)b * 8 * N + q / KW) * 2 * k],
+                               k, q % KW);
+      int bad = 0;
+      for (int s = 0; s < S; s++) {
+        for (int w = 0; w < KW; w++)
+          col[w] = gf2_col_word(&surv[(size_t)b * k * S], S, k, s, w);
+        for (int r = 0; r < N; r++) {
+          const uint32_t v = gf2_out_byte(rows.data(), KW, r, col.data());
+          full[((size_t)b * N + r) * S + s] = (uint8_t)v;
+          if (have[(size_t)b * N + r])
+            bad |= v != ref[((size_t)b * N + r) * S + s];
+        }
+      }
+      ok[b] = !bad;
+    }
+    fwrite(full.data(), 1, full.size(), stdout);
+    fwrite(ok.data(), 1, ok.size(), stdout);
+  } else {               // 'w': n lanes of maxlen k: D, then each lane's
+    int D;               // len, idx, depth, row and proof; out: the roots
+    rd(&D, 4);
+    std::vector<uint8_t> row(k), proof((size_t)20 * D);
+    for (int i = 0; i < n; i++) {
+      int lid[3];
+      rd(lid, 12);
+      rd(row.data(), row.size());
+      rd(proof.data(), proof.size());
+      uint8_t root[32];
+      bmw_lane(root, row.data(), lid[0], lid[1], proof.data(), lid[2]);
+      fwrite(root, 1, 32, stdout);
+    }
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness_shred(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    d = tmp_path_factory.mktemp("csrc_host_shred")
+    (d / "harness.cpp").write_text(HARNESS_SHRED)
+    exe = d / "harness"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror",
+                    "-Wno-unknown-pragmas", f"-I{CSRC}", "-o", str(exe),
+                    str(d / "harness.cpp")], check=True, capture_output=True,
+                   timeout=300)
+
+    def run(mode: bytes, n: int, k: int, payload: bytes) -> bytes:
+        return subprocess.run(
+            [str(exe)], input=mode + struct.pack("<ii", n, k) + payload,
+            capture_output=True, check=True, timeout=300).stdout
+    return run
+
+
+@pytest.mark.parametrize("K,N,S", [(1, 2, 5), (3, 8, 33), (32, 64, 1019),
+                                   (67, 134, 9)])
+def test_gf2_lane_matches_plain_and_host_model(harness_shred, K, N, S):
+    """Kernel C's packing of the bit-matrix and of a byte column, its
+    output byte and its ok rule, over 3 sets of K survivors: against the
+    plain version (and, for real reconstruction matrices, reedsol's
+    table model).  The second set carries one corrupted survivor, the
+    third a random bit-matrix with odd int8 entries."""
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+    rng = np.random.default_rng(K + N)
+    use = tuple(sorted(rng.choice(N, K, replace=False).tolist()))
+    data = rng.integers(0, 256, (K, S), np.uint8)
+    cw = np.concatenate([data, rs.encode(data, N - K, device=False)])
+    surv = np.stack([cw[list(use)]] * 3)
+    bm = np.stack([rs._recover_bitmat(K, N, use)] * 2
+                  + [rng.integers(-128, 128, (8 * N, 8 * K), np.int8)])
+    ref = np.stack([cw] * 3)
+    ref[1, use[-1], S // 2] ^= 0x20
+    have = np.zeros((3, N), np.uint8)
+    have[:, list(use)] = 1
+    out = harness_shred(b"g", 3, K, struct.pack("<ii", N, S)
+                        + surv.tobytes() + bm.tobytes() + ref.tobytes()
+                        + have.tobytes())
+    full = np.frombuffer(out[:3 * N * S], np.uint8).reshape(3, N, S)
+    ok = np.frombuffer(out[3 * N * S:], np.uint8)
+    pf, pok = gf2.gf2_recover_plain(torch.from_numpy(surv),
+                                    torch.from_numpy(bm),
+                                    torch.from_numpy(ref),
+                                    torch.from_numpy(have.astype(bool)))
+    assert np.array_equal(full, pf.numpy())
+    assert ok.tolist() == pok.numpy().astype(np.uint8).tolist()
+    assert np.array_equal(full[0], cw) and ok[:2].tolist() == [1, 0]
+
+
+def test_bmtree_walk_lane_matches_plain_and_hashlib(harness_shred):
+    """Kernel D's lane: the padded leaf blocks and the node levels, at
+    every depth 0-15 and the leaf lengths on each SHA-256 padding edge
+    (26 + len mod 64 = 55, 56, 63, 0), against the plain version and
+    np_batch_walk_roots."""
+    from firedancer_tpu_torch.ballet import bmtree as bm
+    from firedancer_tpu_torch.ops import bmtree_walk as bw
+    rng = np.random.default_rng(16)
+    B, ml, D = 24, 1164, 15
+    leaf = rng.integers(0, 256, (B, ml), np.uint8)
+    lens = rng.integers(0, ml + 1, B).astype(np.int32)
+    lens[:11] = [0, 1, 29, 30, 37, 38, 93, 94, 101, 102, 1164]
+    idxs = rng.integers(0, 1 << 15, B).astype(np.int32)
+    proofs = rng.integers(0, 256, (B, D, 20), np.uint8)
+    depths = (np.arange(B) % (D + 1)).astype(np.int32)
+    payload = struct.pack("<i", D) + b"".join(
+        struct.pack("<iii", lens[i], idxs[i], depths[i]) + leaf[i].tobytes()
+        + proofs[i].tobytes() for i in range(B))
+    got = np.frombuffer(harness_shred(b"w", B, ml, payload),
+                        np.uint8).reshape(B, 32)
+    plain = bw.bmtree_walk(torch.from_numpy(leaf), lens, idxs,
+                           torch.from_numpy(proofs), depths)
+    assert got.tolist() == plain.tolist()
+    assert [bytes(r) for r in got] == bm.np_batch_walk_roots(
+        [leaf[i, :lens[i]] for i in range(B)], idxs.tolist(),
+        [list(proofs[i, :depths[i]]) for i in range(B)])

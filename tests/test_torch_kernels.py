@@ -387,3 +387,78 @@ def test_mixin_tree_kernel_matches_plain(cuda, B, W):
     got = mt.mixin_tree(sigs.to(cuda), widths.to(cuda)).cpu()
     assert mt.mixin_tree.launches == before + 1
     assert torch.equal(got, mt.mixin_tree_plain(sigs, widths))
+
+
+def _recover_sets(rng, B, K, N, S):
+    """B sets of K survivors with their reconstruction bit-matrices; set
+    1 (when B > 1) has one survivor corrupted."""
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    surv = np.zeros((B, K, S), np.uint8)
+    bm = np.zeros((B, 8 * N, 8 * K), np.int8)
+    ref = np.zeros((B, N, S), np.uint8)
+    have = np.zeros((B, N), bool)
+    for b in range(B):
+        use = tuple(sorted(rng.choice(N, K, replace=False).tolist()))
+        data = rng.integers(0, 256, (K, S), np.uint8)
+        cw = np.concatenate([data, rs.encode(data, N - K, device=False)])
+        surv[b] = cw[list(use)]
+        bm[b] = rs._recover_bitmat(K, N, use)
+        ref[b] = cw
+        have[b, list(use)] = True
+    if B > 1:
+        ref[1, np.flatnonzero(have[1])[-1], S - 1] ^= 1
+    return [torch.from_numpy(a) for a in (surv, bm, ref, have)]
+
+
+@pytest.mark.parametrize("B,K,N,S", [(8, 32, 64, 1019), (3, 1, 2, 1119),
+                                     (2, 67, 134, 130), (5, 5, 9, 1)])
+def test_gf2_recover_kernel_matches_plain(cuda, B, K, N, S):
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+    args = _recover_sets(np.random.default_rng(B * K + S), B, K, N, S)
+    before = gf2.gf2_recover.launches
+    full, ok = gf2.gf2_recover(*[a.to(cuda) for a in args])
+    assert gf2.gf2_recover.launches == before + 1
+    pf, pok = gf2.gf2_recover_plain(*args)
+    assert torch.equal(full.cpu(), pf) and torch.equal(ok.cpu(), pok)
+    assert ok.cpu().tolist() == [b != 1 for b in range(B)]
+
+
+def test_gf2_recover_blob_and_encode_match_plain(cuda):
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+    surv, bm, ref, have = _recover_sets(np.random.default_rng(3), 8, 32,
+                                        64, 1019)
+    blob = torch.cat([surv.reshape(8, -1), ref.reshape(8, -1),
+                      have.to(torch.uint8)], 1)
+    got = gf2.recover_blob(blob.to(cuda), bm.to(cuda), 32, 64, 1019)
+    assert torch.equal(got.cpu(), gf2.recover_blob_plain(blob, bm, 32, 64,
+                                                         1019))
+    data = surv[0].numpy()
+    par = rs.encode(data, 32)
+    assert np.array_equal(par, rs.encode(data, 32, device=False))
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 4096])
+def test_bmtree_walk_kernel_matches_plain(cuda, B):
+    from firedancer_tpu_torch.ballet import bmtree as bm
+    from firedancer_tpu_torch.ops import bmtree_walk as bw
+    rng = np.random.default_rng(B)
+    ml, D = 1164, 15
+    leaf = torch.from_numpy(rng.integers(0, 256, (B, ml), np.uint8))
+    lens = rng.integers(0, ml + 1, B).astype(np.int32)
+    edge = [0, 1, 29, 30, 37, 38, 93, 94, 101, 102, 1164][:B]
+    lens[:len(edge)] = edge
+    idxs = rng.integers(0, 1 << 15, B).astype(np.int32)
+    proofs = torch.from_numpy(rng.integers(0, 256, (B, D, 20), np.uint8))
+    depths = (np.arange(B) % (D + 1)).astype(np.int32)
+    before = bw.bmtree_walk.launches
+    got = bw.bmtree_walk(leaf.to(cuda), lens, idxs, proofs.to(cuda),
+                         depths).cpu()
+    assert bw.bmtree_walk.launches == before + 1
+    assert torch.equal(got, bw.bmtree_walk_plain(
+        leaf, torch.from_numpy(lens), torch.from_numpy(idxs), proofs,
+        torch.from_numpy(depths)))
+    k = min(B, 40)
+    assert [bytes(r) for r in got[:k].numpy()] == bm.np_batch_walk_roots(
+        [leaf[i, :lens[i]].numpy() for i in range(k)], idxs[:k].tolist(),
+        [list(proofs[i, :depths[i]].numpy()) for i in range(k)])
