@@ -8,7 +8,9 @@ against its plain torch version on the card.  The strict path, in its
 three layouts: the real conformance corpora and the serving buckets
 through SigVerifier.dispatch_blob, fused (sha512 and verify_tail
 kernels), split (sha512, decompress, reduce_recode and dsm_tail_q) and
-unfused (sha512, decompress and double_scalar_mul_base).  The RLC
+unfused (sha512, decompress and double_scalar_mul_base), each ending
+with the r_check kernel (the finish), which is also held against its
+plain version on its edge lanes at 1, 4096, 4097 and 32768 lanes.  The RLC
 batch-verify path: clean buckets through SigVerifier(mode="rlc") with
 both MSM selects, a batch with one forgery through the strict descent,
 and the corpora in rlc mode: through the descent, and each vector that
@@ -20,7 +22,9 @@ against serial dispatch_blob, and the port's VerifyTile at the default
 bucket ladder, wire txns of every outcome through the native burst parse
 and packed-row fills, its accepted set against the host verifier's, once
 with [ingest] native_hostpath 1 (the packed rows through the C host path)
-and once with 0 (the NumPy finish) (sha512 and verify_tail kernels).
+and once with 0 (the NumPy finish) (sha512, verify_tail and r_check
+kernels), the engine also with the card stalled before and after each
+dispatch.
 Then the topology runtime (phase 14): the port's Mux runs the
 VerifyTile in process on packed-wire frags with the card stalled after
 each dispatch (each frag's flow credit held until its verdict, the
@@ -99,6 +103,11 @@ RLC_OPS = SC_REDUCE_OPS + 8 + 2 * SC_MUL_OPS + 64 + 32 + 22
 # chain, 64 windows of four doublings (16 S + 13 M), a Niels add (8 M)
 # and an affine add without T (6 M): 1024 S + 1728 M; the y-compare 1 M.
 TAIL_SQR, TAIL_MUL = 257 + 1024, 18 + 72 + 1728 + 1
+# Field products of one lane of the finish (csrc/r_check.cu), ok_y form:
+# the inverse (fe_inv: 254 squarings, 11 products) and x = X / Z (1 M);
+# the qy form adds Y / Z (1 M).  The canonical reductions and the byte
+# unpacking are not counted, so the bound is a lower bound.
+RC_SQR, RC_MUL = 254, 12
 # 64-bit operations of one SHA-512 block (80 rounds of 26, 64 schedule
 # steps of 13), each two 32-bit instructions on this card
 SHA_OPS_PER_BLOCK = 2 * (80 * 26 + 64 * 13)
@@ -225,6 +234,74 @@ MSM_M = 8
 # ~0.1 s on an H100, longer than the host takes to pack and launch a
 # 4096-row dispatch
 STALL_CYCLES = 200_000_000
+
+
+def r_check_edges(seed: int = 41) -> list:
+    """The finish's edge lanes (csrc/r_check.cu), each ((qx, qz, qy) raw
+    limbs, ok_y, R as an int), with both ok_y values: Z = 0; Z's limbs
+    those of p (zero mod p, limbs not); R's y >= p, with the right and
+    the wrong sign bit (accepted mod p with the right one); R's y with
+    no point (off the curve); each of the five small-order y values {0,
+    1, -1, y8_0, y8_1} with either sign bit (x = 0 with the sign bit set
+    among them, y = +-1); the largest TIGHT limbs (even limbs 2^26 - 1,
+    odd 2^25 + 2^15 - 1) and the limbs of p in X, Y and Z.  Q is a
+    point scaled by a random lambda (Z != 1) where it is one."""
+    from firedancer_tpu_torch.ops import curve25519 as cv
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops import f25519 as fe
+    p = fe.P
+    p_limbs = [(p >> o) & ((1 << w) - 1) for o, w in zip(fe.OFFS, fe.WIDTHS)]
+    max_tight = [(1 << 26) - 1 if i % 2 == 0 else (1 << 25) + (1 << 15) - 1
+                 for i in range(fe.NLIMB)]
+    rng = np.random.default_rng(seed)
+
+    def affine(y: int):
+        pt = ed._decompress_host(y.to_bytes(32, "little"))
+        if pt is None:
+            return None
+        zi = pow(pt[2], p - 2, p)
+        return pt[0] * zi % p, pt[1] * zi % p
+
+    def scaled(x: int, y: int) -> list:
+        lam = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+        return [fe.int_to_limbs(v * lam % p) for v in (x, 1, y)]
+
+    y0 = next(y for y in range(2, 64) if affine(y) is not None)
+    off = next(y for y in range(2, 64) if affine(y) is None)
+    x0 = affine(y0)[0]
+    sign = (x0 & 1) << 255
+    good = scaled(x0, y0)
+    rows = []
+    for ok_y in (True, False):
+        rows += [([good[0], [0] * 10, good[2]], ok_y, y0 | sign),
+                 ([good[0], p_limbs, good[2]], ok_y, y0 | sign),
+                 (good, ok_y, (p + y0) | sign),
+                 (good, ok_y, (p + y0) | (sign ^ 1 << 255)),
+                 (good, ok_y, y0 | sign),
+                 (good, ok_y, off | sign),
+                 ([max_tight] * 3, ok_y, y0 | sign),
+                 ([max_tight, p_limbs, max_tight], ok_y, y0),
+                 ([p_limbs, max_tight, p_limbs], ok_y, p)]
+        for yv in (0, 1, p - 1, cv.ORDER8_Y0, cv.ORDER8_Y1):
+            for sgn in (0, 1 << 255):
+                rows.append((scaled(affine(yv)[0], yv), ok_y, yv | sgn))
+    return rows
+
+
+def write_r_edges(qx, qz, qy, ok_y, r) -> int:
+    """Writes r_check_edges() over the first lanes of the finish's inputs
+    (Q's (10, n) planes, ok_y (n,), R's (n, 32) rows), in place, as many
+    as there are lanes.  Returns how many."""
+    import torch
+    edges = r_check_edges()[:r.shape[0]]
+    k = len(edges)
+    for j, plane in enumerate((qx, qz, qy)):
+        plane[:, :k] = torch.tensor([[int(v) for v in e[0][j]]
+                                     for e in edges]).T.to(plane.device)
+    ok_y[:k] = torch.tensor([e[1] for e in edges]).to(ok_y)
+    r[:k] = torch.tensor([list(e[2].to_bytes(32, "little"))
+                          for e in edges], dtype=torch.uint8).to(r.device)
+    return k
 
 
 def smi(query: str) -> str:
@@ -408,16 +485,17 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
         raise AssertionError(f"engine: {guard.returns} blob returns for "
                              f"{n_batches} dispatches")
     if not (launches["sha512_ram"] == launches["verify_tail"]
-            == eng.dispatches == n_batches):
+            == launches["r_check"] == eng.dispatches == n_batches):
         raise AssertionError(f"engine: launches {launches} for "
                              f"{eng.dispatches} dispatches")
     if not 0 < sum(int(s.sum()) for s in serial) < n_batches * b:
         raise AssertionError("engine: the batches are not mixed")
     note(f"engine {b}x{ml}, make_ingest(nbuf=3, depth=2): bits == serial "
          f"dispatch_blob on all {n_batches} x {b} rows ({n_invalid} batches "
-         f"with corrupted signatures, 1 adversarial); sha512 and "
-         f"verify_tail launches {launches['sha512_ram']} and "
-         f"{launches['verify_tail']} == dispatches; stats {eng.stats()}")
+         f"with corrupted signatures, 1 adversarial); sha512, "
+         f"verify_tail and r_check launches {launches['sha512_ram']}, "
+         f"{launches['verify_tail']} and {launches['r_check']} == "
+         f"dispatches; stats {eng.stats()}")
     if cuda:
         # what syncs the host to the card inside one dispatch: copies
         # from pageable host memory wait for the stream before they start
@@ -489,6 +567,60 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
              f"{sguard.returns} blob returns, {sguard.waited} waited on a "
              f"pending verdict; "
              f"{t_stall:.4f} ms a batch wall; stats {stalled.stats()}")
+
+    if cuda:
+        # the same batches with the card stalled before each dispatch: the
+        # host returns from dispatch_blob while the blob's upload still
+        # waits behind the stall (one launch a stage, none of which
+        # blocks), so only the rule that a blob goes back to the free
+        # ring once its verdict is on the host keeps the next fill from
+        # overwriting rows the card has not read
+        ahead = sv.make_ingest(nbuf=3, depth=2)
+        aguard = _ReleaseGuard()
+        _guard_engine(ahead, aguard)
+
+        t_ret = []
+
+        def stall_first(buf):
+            torch.cuda._sleep(STALL_CYCLES)
+            t1 = time.perf_counter()
+            v = sv.dispatch_blob(buf)
+            t_ret.append((time.perf_counter() - t1) * 1e3)
+            return v
+        ahead.desc = dataclasses.replace(ahead.desc, dispatch=stall_first)
+        reset_counts()
+        t0 = time.perf_counter()
+        got, apend = [], 0
+        for x in batches:
+            got += ahead.submit(*x)
+            apend += not ahead._inflight[-1][0].is_ready()
+        got += ahead.drain()
+        t_ahead = (time.perf_counter() - t0) * 1e3 / n_batches
+        launches = counts()
+        if len(got) != n_batches or any(
+                not np.array_equal(g, s) for g, s in zip(got, serial)):
+            raise AssertionError("engine, card stalled before each "
+                                 "dispatch: bits differ from serial "
+                                 "dispatch_blob")
+        if aguard.returns != n_batches or not aguard.waited:
+            raise AssertionError(
+                f"engine, card stalled before each dispatch: "
+                f"{aguard.returns} blob returns, {aguard.waited} waited on "
+                f"a pending verdict")
+        if not (launches["sha512_ram"] == launches["verify_tail"]
+                == launches["r_check"] == ahead.dispatches == n_batches):
+            raise AssertionError(f"engine, card stalled before each "
+                                 f"dispatch: launches {launches} for "
+                                 f"{ahead.dispatches} dispatches")
+        note(f"engine, card stalled {STALL_CYCLES} cycles before each "
+             f"dispatch: bits == serial dispatch_blob; pending right after "
+             f"submit in {apend} of {n_batches}; dispatch_blob returned "
+             f"after {statistics.median(t_ret):.3f} ms (median; max "
+             f"{max(t_ret):.3f} ms), its upload still queued behind the "
+             f"stall; {aguard.returns} blob returns, "
+             f"{aguard.waited} waited on a pending verdict; sha512, "
+             f"verify_tail and r_check launches == {n_batches} dispatches; "
+             f"{t_ahead:.4f} ms a batch wall; stats {ahead.stats()}")
 
     # ---- (b) the pipeline through the port's VerifyTile at the ladder
     rng = np.random.default_rng(1310)
@@ -652,7 +784,7 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
             raise AssertionError(f"{tag_}: {n_mtu_ok} of {n_mtu} full-MTU "
                                  f"txns accepted")
         if not (launches["sha512_ram"] == launches["verify_tail"]
-                == snap["batches"]):
+                == launches["r_check"] == snap["batches"]):
             raise AssertionError(f"{tag_}: launches {launches} for "
                                  f"{snap['batches']} dispatches")
         if snap["compile_cnt"]:
@@ -684,9 +816,10 @@ def serving_phase(pool, reset_counts, counts, note, device=None,
              f"txns rerouted through submit(); {fills} packed fills of "
              f"{fill_rows} rows ({fill_valid} valid each): "
              f"{len(r['got_wires'])} == host oracle, host path calls "
-             f"{r['hp_calls'] or 'none (NumPy finish)'}; sha512 and "
-             f"verify_tail launches {launches['sha512_ram']} and "
-             f"{launches['verify_tail']} == {snap['batches']} dispatches; "
+             f"{r['hp_calls'] or 'none (NumPy finish)'}; sha512, "
+             f"verify_tail and r_check launches {launches['sha512_ram']}, "
+             f"{launches['verify_tail']} and {launches['r_check']} == "
+             f"{snap['batches']} dispatches; "
              f"compile_cnt {snap['compile_cnt']}; {r['returns']} bucket "
              f"blob returns, each after its verdict was ready, "
              f"{r['waited']} of them waited on a pending verdict; "
@@ -1158,7 +1291,7 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
                                              4 * rows - len(want), 0, 0):
                 raise AssertionError(f"phase 14a: counters {snap}")
             if not (launches["sha512_ram"] == launches["verify_tail"]
-                    == stalled.dispatches == 4):
+                    == launches["r_check"] == stalled.dispatches == 4):
                 raise AssertionError(f"phase 14a: launches {launches} for "
                                      f"{stalled.dispatches} dispatches")
             # what each packed frag's dispatch copied to the card: the
@@ -1178,9 +1311,10 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
                  f"published {len(got)} == host verifier; counters txn_in "
                  f"{snap['txn_in_cnt']} pass {snap['verify_pass_cnt']} fail "
                  f"{snap['verify_fail_cnt']} torn {snap['torn_drop_cnt']} "
-                 f"compile {snap['compile_cnt']}; sha512 and verify_tail "
-                 f"launches {launches['sha512_ram']} and "
-                 f"{launches['verify_tail']} == {stalled.dispatches} "
+                 f"compile {snap['compile_cnt']}; sha512, verify_tail and "
+                 f"r_check launches {launches['sha512_ram']}, "
+                 f"{launches['verify_tail']} and {launches['r_check']} == "
+                 f"{stalled.dispatches} "
                  f"dispatches; DRAINED with manifest cursors {man['cursors']};"
                  f" boot {t_boot_a:.3f} s, 4 frags {t_a:.3f} s")
             note(f"phase 14a: uploads counted at SigVerifier._to_device: "
@@ -2242,16 +2376,19 @@ def legacy_shred(slot: int) -> bytes:
     return bytes(b)
 
 
-def lane_stream(slot, nsets, k, n_forged, burst, seed, device=None):
+def lane_stream(slot, nsets, k, n_forged, burst, seed, device=None,
+                live_corrupt=False):
     """A slot as turbine delivers it: nsets signed k:k sets (the last
     with SLOT_COMPLETE), set i with 1 + 3i mod (k - 1) data shreds erased
     (never the last, which carries DATA_COMPLETE) and delivered data
     first, then code; a corrupt set (corrupt_set) of the slot before,
-    delivered after them (data, then code shred 0); then at least
-    n_forged forged copies of shreds that were not delivered (a forged
-    copy of a delivered shred would be dropped as a duplicate unverified),
-    as many as make the count a multiple of burst.  Returns (frags, the
-    entry batches, the delivered valid shreds, the forged count)."""
+    delivered after them (data, then code shred 0); with live_corrupt,
+    one more of the slot after, delivered the same way, which a store
+    keeping one slot takes in; then at least n_forged forged copies of
+    shreds that were not delivered (a forged copy of a delivered shred
+    would be dropped as a duplicate unverified), as many as make the
+    count a multiple of burst.  Returns (frags, the entry batches, the
+    delivered valid shreds, the forged count)."""
     rng = np.random.default_rng(seed)
     frags, entries, spare = [], [], []
     for i in range(nsets):
@@ -2264,9 +2401,10 @@ def lane_stream(slot, nsets, k, n_forged, burst, seed, device=None):
         frags += [r for j, r in enumerate(fs.data_shreds)
                   if j not in erased] + fs.code_shreds
         spare += [fs.data_shreds[j] for j in sorted(erased)]
-    bad = corrupt_set(b"c" * 900 * k, slot - 1, 0, k, device=device)
-    frags += bad[:k + 1]
-    spare += bad[k + 1:]
+    for bad_slot in (slot - 1, slot + 1)[:1 + live_corrupt]:
+        bad = corrupt_set(b"c" * 900 * k, bad_slot, 0, k, device=device)
+        frags += bad[:k + 1]
+        spare += bad[k + 1:]
     valid = list(frags)
     n_forged += -(len(frags) + n_forged) % burst
     frags += [forge(spare[int(j)]) for j in
@@ -2346,8 +2484,10 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     32-shred burst of valid, forged, wrong-leader, unknown-leader, legacy
     and duplicate shreds.  (d) shred -> store and shred -> shred_recover
     -> sink in spawned processes, a slot of lane_sets sets with a
-    corrupted set and forged shreds published into the shred tile's net
-    in-link, the retransmits received by a child socket.  Each path runs
+    corrupted set in the slot before and one in the live slot after (the
+    store drops it, counts it once and exits 0) and forged shreds
+    published into the shred tile's net in-link, the retransmits
+    received by a child socket.  Each path runs
     with the launch counts set to 0 just before it.  A kernel's device ms
     is CUDA events around each of its launches (_launch_ms), as 15e
     times its kernels.  device None is the card.  Returns the numbers of
@@ -2620,19 +2760,20 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     if not (verdicts[0] == verdicts[1]
             and [ok for _, ok in verdicts[0]] == want
             and got_c["bmtree_walk"] == got_c["sha512_ram"]
-            == got_c["verify_tail"] == 1):
+            == got_c["verify_tail"] == got_c["r_check"] == 1):
         raise AssertionError(f"phase 16c: device {verdicts[0]}, host "
                              f"{verdicts[1]}, launches {got_c}")
     note(f"phase 16c: _ShredSigBatcher(batch {SIG_BATCH}) device == host on "
          f"one burst (26 valid, a forged signature, the wrong leader, an "
          f"unknown leader, a legacy shred, a duplicate, 1 valid): "
-         f"{sum(want)} pass; one flush launched bmtree_walk, sha512_ram and "
-         f"verify_tail once each")
+         f"{sum(want)} pass; one flush launched bmtree_walk, sha512_ram, "
+         f"verify_tail and r_check once each")
 
     # ---- (d) the lane in processes
     slot = 40
     frags, entries, valid, n_forged = lane_stream(
-        slot, lane_sets, k, 6, SIG_BATCH, 1601, device=device)
+        slot, lane_sets, k, 6, SIG_BATCH, 1601, device=device,
+        live_corrupt=True)
     child = UdpSock(bind_ip="127.0.0.1")
     cap = workdir / "payloads.cap"
     ext = {"device": device or ""}
@@ -2676,7 +2817,8 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
             def lane_done():
                 rm, sm = run.metrics("rec"), run.metrics("store")
                 return (rm["fec_complete_cnt"] + rm["fec_fail_cnt"]
-                        == lane_sets + 1 and sm["complete_slot"] == slot
+                        == lane_sets + 2 and sm["complete_slot"] == slot
+                        and sm["shred_store_cnt"] == len(valid)
                         and run.metrics("sink")["frag_cnt"] == lane_sets)
 
             _wait_for(lane_done, 300, "every set recovered and the slot "
@@ -2697,6 +2839,7 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
             sm = run.metrics("store")
             st_s = run._load_drain_manifest("shred")["tile_state"]
             st_r = run._load_drain_manifest("rec")["tile_state"]
+            st_st = run._load_drain_manifest("store")["tile_state"]
         finally:
             run.close()
             child.close()
@@ -2727,7 +2870,10 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     launches = {"gf2_recover": st_r["launches"].get("gf2_recover", 0),
                 "bmtree_walk": st_s["launches"].get("bmtree_walk", 0)}
     on_card = device is None
-    if not (payloads == entries and rm["fec_fail_cnt"] == 1
+    if not (payloads == entries and rm["fec_fail_cnt"] == 2
+            and st_st == {"corrupt_set_cnt": 1}
+            and sm["shred_store_cnt"] == len(valid)
+            and sm["parse_fail_cnt"] == 0
             and rm["fec_host_fallback_cnt"] == 0
             and shm["shred_sig_fail_cnt"] == n_forged
             and shm["shred_rx_cnt"] == len(valid)
@@ -2739,30 +2885,35 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
                 and st_s["launches"]["bmtree_walk"]
                 == st_s["launches"]["sha512_ram"]
                 == st_s["launches"]["verify_tail"]
+                == st_s["launches"]["r_check"]
                 == st_s["sig_batch_cnt"] > 0))):
         raise AssertionError(
             f"phase 16d: {len(payloads)} payloads of {len(entries)} (equal "
             f"{payloads == entries}), recover {rm}, shred {shm}, store {sm},"
             f" udp {len(got_udp)} of {len(want_udp)} wanted, at the drain "
-            f"{st_s} / {st_r}")
+            f"{st_s} / {st_r} / {st_st}")
     note(f"phase 16d: shred -> store, shred -> shred_recover -> sink in "
          f"processes (sig_backend device, sig_batch {SIG_BATCH}, "
          f"{SHRED_BATCH_SETS} sets a dispatch): {len(frags)} frags into the "
          f"net in-link ({lane_sets} signed 32:32 sets of slot {slot} with "
-         f"ragged erasures, a corrupted set of slot {slot - 1}, {n_forged} "
-         f"forged shreds); the sink's {len(payloads)} payloads == the entry "
+         f"ragged erasures, a corrupted set of slot {slot - 1} and one of "
+         f"the live slot {slot + 1}, {n_forged} forged shreds); the sink's "
+         f"{len(payloads)} payloads == the entry "
          f"batches; fec_fail {rm['fec_fail_cnt']}, host fallback "
          f"{rm['fec_host_fallback_cnt']}, fec dispatches "
          f"{rm['fec_dispatch_cnt']}; shred_sig_fail "
          f"{shm['shred_sig_fail_cnt']}, admitted {shm['shred_rx_cnt']}, "
          f"bursts {shm['sig_batch_cnt']} ({shm['sig_deadline_flush_cnt']} "
-         f"by age); store complete_slot {sm['complete_slot']}; the child "
+         f"by age); store complete_slot {sm['complete_slot']}, "
+         f"{sm['shred_store_cnt']} shreds stored, the live slot's corrupt "
+         f"set dropped and counted once ({st_st}); the child "
          f"socket received the {len(got_udp)} retransmits the tree asks "
          f"for; launches in the tiles' processes (drain manifests): "
          f"gf2_recover {launches['gf2_recover']} == fec dispatches "
          f"{st_r['fec_dispatch_cnt']} + the warm-up, bmtree_walk "
          f"{st_s['launches'].get('bmtree_walk')} == sha512_ram == "
-         f"verify_tail == bursts {st_s['sig_batch_cnt']} since the warm-up; "
+         f"verify_tail == r_check == bursts {st_s['sig_batch_cnt']} since "
+         f"the warm-up; "
          f"every tile exited 0; boot {t_boot:.3f} s, the slot through the "
          f"lane in {t_lane:.3f} s")
     out.update(launches=launches)
@@ -2789,6 +2940,7 @@ def main() -> int:
         from firedancer_tpu_torch.ops import mixin_tree as mt
         from firedancer_tpu_torch.ops import msm as ms
         from firedancer_tpu_torch.ops import poh_spans as ps
+        from firedancer_tpu_torch.ops import r_check as rck
         from firedancer_tpu_torch.ops import reduce_recode as rr
         from firedancer_tpu_torch.ops import rlc_recode as rl
         from firedancer_tpu_torch.ops import scalar25519 as sc
@@ -3032,7 +3184,7 @@ def main() -> int:
     verifiers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m))
                  for b, m, *_ in buckets}
     counted = {"sha512_ram": sk.sha512_ram, "verify_tail": vt.verify_tail,
-               "decompress": dc.decompress,
+               "r_check": rck.r_check, "decompress": dc.decompress,
                "reduce_recode": rr.reduce_recode,
                "dsm_tail_q": dsm.dsm_tail_q,
                "double_scalar_mul_base": dsm.double_scalar_mul_base,
@@ -3062,8 +3214,10 @@ def main() -> int:
                                  f"{int((res != expect).sum())} bits wrong")
         print(f"dispatch_blob {batch}x{bml}: {int(res.sum())} accept, "
               f"{batch - int(res.sum())} reject, as constructed")
-    if min(launches["sha512_ram"], launches["verify_tail"]) < 1:
-        raise AssertionError(f"a kernel did not carry the path: {launches}")
+    if not (launches["sha512_ram"] == launches["verify_tail"]
+            == launches["r_check"] == len(buckets)):
+        raise AssertionError(f"launches {launches} for {len(buckets)} "
+                             f"dispatches")
     print(f"launches on the strict path: {launches}")
     # each kernel against its plain version at every shape the path gave it
     for batch, bml, blob_np, *_ in buckets:
@@ -3095,9 +3249,9 @@ def main() -> int:
           f"constructed ({time.perf_counter() - t0:.1f} s)")
     layout_launches, layout_vers = {}, {}
     want_kernels = {"split": ("sha512_ram", "decompress", "reduce_recode",
-                              "dsm_tail_q"),
+                              "dsm_tail_q", "r_check"),
                     "unfused": ("sha512_ram", "decompress",
-                                "double_scalar_mul_base")}
+                                "double_scalar_mul_base", "r_check")}
     for tail, kerns in want_kernels.items():
         vers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m),
                                       strict_tail=tail)
@@ -3169,7 +3323,7 @@ def main() -> int:
         digest = sk.sha512_ram(m_, r_, a_, ln_)
         for i, v in enumerate(d_edges[:max(0, n - edges_at)]):
             digest[edges_at + i] = torch.tensor(list(v), dtype=torch.uint8)
-        y_r = ed._parse_r_bytes(r_)[0]
+        y_r = rck._parse_r_bytes(r_)[0]
         return s_, digest, z_d, a_pt, y_r
 
     new_err = dict.fromkeys(("reduce_recode", "dsm_tail_q",
@@ -3253,6 +3407,37 @@ def main() -> int:
           f"plain at {', '.join(map(str, chain_counts))} lanes (ok bits, "
           f"canonical X, Y, Z, T; top windows that carry out), max error "
           f"{chain_err}")
+
+    # ---- phase 5c: the finish (r_check kernel) vs plain, bit for bit, in
+    # both forms: ok_y with the fused tail's X and Z, qy with the unfused
+    # layout's X, Y and Z, on the 32768 x 128 bucket's rows with the
+    # adversarial lanes over the first 528 and the edge lanes
+    # (r_check_edges) over the first of those, R read in place
+    rc_err, rc_edges = 0, 0
+    blob_np = next(b[2] for b in buckets if b[:2] == (32768, 128))
+    for n in (1, 4096, 4097, 32768):
+        blob = hold_rows(blob_np, 128, n)
+        m_, r_, s_, a_, ln_ = cols(blob, 128)
+        digest = sk.sha512_ram(m_, r_, a_, ln_)
+        ok_t, qx, qz = vt.verify_tail(a_, s_, digest, r_)
+        q = dsm.double_scalar_mul_base(
+            sc.scalar_windows(s_), sc.limbs_to_windows(sc.reduce_512(digest)),
+            cv.neg(ed._decompress_checked(a_)[1]))
+        qy = q.Y.clone()
+        rc_edges = write_r_edges(qx, qz, qy, ok_t, r_)
+        write_r_edges(q.X, q.Z, q.Y, ok_t.clone(), r_)
+        for form, args, kw in (("ok_y", (qx, qz, r_, ok_t), {}),
+                               ("qy", (q.X, q.Z, r_), {"qy": q.Y})):
+            got = rck.r_check(*args, **kw)
+            want = rck.r_check_plain(*args, **kw)
+            rc_err = max(rc_err, hold(f"r_check {form}", (got,), (want,)))
+            if n > 1 and not (bool(got.any()) and not bool(got.all())):
+                raise AssertionError(f"r_check {form} {n} lanes: the bits "
+                                     f"are not mixed")
+    print(f"r_check: kernel == plain at 1, 4096, 4097 and 32768 lanes in "
+          f"the ok_y and qy forms ({rc_edges} edge lanes: Z = 0 and p, R's "
+          f"y >= p, off the curve, the five small-order y, x = 0 with the "
+          f"sign bit, the largest TIGHT limbs), max error {rc_err}")
 
     # ---- phase 6: decompress kernel vs plain, one view a launch and the
     # RLC pair (A and R in one launch), on adversarial encodings and on
@@ -3538,6 +3723,12 @@ def main() -> int:
         return bound(batch * (32 + 32 + 64 + 32 + 1 + 160),
                      batch * (TAIL_MUL * MUL_OPS + TAIL_SQR * SQR_OPS))
 
+    def rc_bound(batch):
+        # the ok_y form: reads X and Z (int64 planes), ok_y and R, writes
+        # the bit
+        return bound(batch * (160 + 1 + 32 + 1),
+                     batch * (RC_MUL * MUL_OPS + RC_SQR * SQR_OPS))
+
     def chain4_ops(n, decompress: bool, close=(G4_YCMP_MUL, G4_YCMP_SHFL)):
         """32-bit operations of the four-rank chain's own design for n
         lanes (its products and shuffles; the bound counts the one-thread
@@ -3569,22 +3760,26 @@ def main() -> int:
         ragged = nb_w.max(1).sum() * 32 / nb.sum()
         ok_t, qx, qz = vt.verify_tail(*args)
         r_bytes = args[3]
-        t_r = cuda_ms(lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t))
+        t_r = cuda_ms(lambda: rck.r_check(qx, qz, r_bytes, ok_t))
+        d_r = dev_ms(lambda: rck.r_check(qx, qz, r_bytes, ok_t),
+                     "r_check_kernel")
         ver = verifiers[(batch, bml)]
         t_e2e = wall_ms(lambda: np.asarray(ver.dispatch_blob(blob_np)))
         sb, tb = sha_bound(batch, nblocks, msg_bytes), tail_bound(batch)
-        timing[(batch, bml)] = (t_sha, t_tail, sb, tb, d_sha, d_tail)
+        rb = rc_bound(batch)
+        timing[(batch, bml)] = (t_sha, t_tail, sb, tb, d_sha, d_tail,
+                                t_r, d_r, rb)
         note(f"{batch}x{bml}: sha512 kernel call {t_sha:.5f} ms, device "
              f"{d_sha:.5f} ms (bound {sb[0]:.5f} ms, {sb[1]}; a warp's most "
              f"blocks over its blocks {ragged:.4f}), verify_tail kernel call "
              f"{t_tail:.5f} ms, device {d_tail:.5f} ms (bound {tb[0]:.5f} "
-             f"ms, {tb[1]}), _compressed_r_check "
-             f"{t_r:.5f} ms, dispatch_blob end to end {t_e2e:.4f} ms = "
+             f"ms, {tb[1]}), r_check kernel call {t_r:.5f} ms, device "
+             f"{d_r:.5f} ms (bound {rb[0]:.5f} ms, {rb[1]}), dispatch_blob "
+             f"end to end {t_e2e:.4f} ms = "
              f"{batch / t_e2e * 1e3:.1f} verifies/s; verify_tail: "
              f"{design_note(chain4_ops(batch, True), d_tail, tb)}")
         for what, fn in (
-                ("_compressed_r_check",
-                 lambda: ed._compressed_r_check(qx, qz, r_bytes, ok_t)),
+                ("r_check", lambda: rck.r_check(qx, qz, r_bytes, ok_t)),
                 ("dispatch_blob",
                  lambda: np.asarray(ver.dispatch_blob(blob_np)))):
             calls, nk, busy, wall = profiled(fn)
@@ -3599,8 +3794,12 @@ def main() -> int:
                         PLAIN_RUNS, 1)
     args = tail_args(blob, bml)
     plain_tail = cuda_ms(lambda: vt.verify_tail_plain(*args), PLAIN_RUNS, 1)
+    ok_t, qx, qz = vt.verify_tail(*args)
+    plain_rc = cuda_ms(lambda: rck.r_check_plain(qx, qz, args[3], ok_t),
+                       PLAIN_RUNS, 1)
     note(f"{batch}x{bml}: plain sha512 {plain_sha:.4f} ms, plain "
-         f"verify_tail {plain_tail:.4f} ms")
+         f"verify_tail {plain_tail:.4f} ms, plain r_check (the torch finish "
+         f"the kernel replaced) {plain_rc:.4f} ms")
 
     # ---- phase 11b: the split and unfused layouts' kernels at the two
     # 128-byte buckets on the path's own inputs (plain versions at 4096
@@ -3631,7 +3830,7 @@ def main() -> int:
         z_d = torch.from_numpy(np.random.default_rng(batch).integers(
             0, 256, (batch, 16), np.uint8)).to(dev)
         _, a_pt = ed._decompress_checked(a_)
-        y_r = ed._parse_r_bytes(r_)[0]
+        y_r = rck._parse_r_bytes(r_)[0]
         _, wins = rr.reduce_recode(s_, digest)
         neg_a = cv.neg(a_pt)
         s_win = sc.scalar_windows(s_)
@@ -3833,7 +4032,8 @@ def main() -> int:
     # (the first, where their plain versions were timed), the RLC kernels
     # at 32768 x 128 (the A side for msm); launches from each path's run
     # above
-    t_sha, t_tail, sb, tb, d_sha, d_tail = timing[BUCKETS[0][:2]]
+    t_sha, t_tail, sb, tb, d_sha, d_tail, t_r, d_r, rb = timing[
+        BUCKETS[0][:2]]
     t_dec, db, d_dec, t_pair, d_pair, pb = rlc_kern[("decompress", 32768)]
     rlc_rows = [
         {"name": "decompress", "route": "cuda",
@@ -3867,6 +4067,19 @@ def main() -> int:
          "launches": launches["verify_tail"], "max_abs_err": tail_err,
          "ms": t_tail, "device_ms": d_tail, "plain_ms": plain_tail,
          "bound_ms": tb[0], "bound_by": tb[1], "library_ms": None},
+        # the finish: no Pallas kernel (the XLA step after them, with its
+        # batch inversion); no torch call computes a batch field inverse
+        {"name": "r_check", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/r_check.cu",
+         "replaces": "firedancer_tpu/ops/ed25519.py:79 _compressed_r_check,"
+                     " firedancer_tpu/ops/f25519.py:477 batch_inv",
+         "launches": launches["r_check"], "max_abs_err": rc_err,
+         "ms": t_r, "device_ms": d_r, "plain_ms": plain_rc,
+         "bound_ms": rb[0], "bound_by": rb[1], "library_ms": None,
+         "shape": f"{BUCKETS[0][0]}x{BUCKETS[0][1]}, ok_y form",
+         "ms_32768": timing[(32768, 128)][6],
+         "device_ms_32768": timing[(32768, 128)][7],
+         "bound_ms_32768": timing[(32768, 128)][8][0]},
     ] + rlc_rows
     # the kernels of the split and unfused layouts and of the RLC scalar
     # chain, at 4096 x 128 (where their plain versions were timed);
@@ -3968,6 +4181,7 @@ def shred_only() -> int:
         from firedancer_tpu_torch.kernels import build
         from firedancer_tpu_torch.ops import bmtree_walk as bw
         from firedancer_tpu_torch.ops import gf2_recover as gf2
+        from firedancer_tpu_torch.ops import r_check as rck
         from firedancer_tpu_torch.ops import sha512_kernel as sk
         from firedancer_tpu_torch.ops import verify_tail as vt
         from firedancer_tpu_torch.tools import kernel_time as kt
@@ -3985,7 +4199,7 @@ def shred_only() -> int:
             if "Used" in line:
                 print(f"  {name}.cu ptxas: {line.split(':', 1)[1].strip()}")
     counted = (gf2.gf2_recover, bw.bmtree_walk, sk.sha512_ram,
-               vt.verify_tail)
+               vt.verify_tail, rck.r_check)
 
     def reset_counts():
         for fn in counted:

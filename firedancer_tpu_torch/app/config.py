@@ -218,7 +218,7 @@ def load(path: str | None = None, environ=os.environ) -> dict:
 
 # the tiles each topology the port does not build yet is missing
 _MISSING = {
-    "fdtpu": "net, quic, pack, bank, poh, shred, store, sign",
+    "fdtpu": "net, quic, pack, bank, poh, sign",
 }
 
 

@@ -208,6 +208,13 @@ def _recover_gfmat(k: int, n: int, use: tuple) -> np.ndarray:
     return np.frombuffer(R, dtype=np.uint8).reshape(n, k)
 
 
+class CorruptSetError(ValueError):
+    """recover()'s surviving shreds disagree with one another (ERR_CORRUPT):
+    the set can never be assembled from them.  A ValueError, so callers
+    that catch every recovery failure still match; the Blockstore catches
+    only this one."""
+
+
 def recover(
     shreds: list, k: int, sz: int, device: bool = True, torch_device=None
 ) -> list:
@@ -215,8 +222,9 @@ def recover(
 
     shreds: length-n list; entry i is the (sz,)-byte shred i or None if
     erased (indices [0,k) data, [k,n) parity).  Returns the complete list.
-    Raises ValueError if fewer than k survive (ERR_PARTIAL analogue) or the
-    surviving set is inconsistent (ERR_CORRUPT analogue).
+    Raises ValueError if fewer than k survive (ERR_PARTIAL analogue), and
+    its subclass CorruptSetError if the surviving set is inconsistent
+    (ERR_CORRUPT analogue).
 
     One launch of the GF(2) kernel (B = 1): the combined cached matrix R
     recovers data AND re-derives parity in a single bit-plane product.
@@ -249,7 +257,8 @@ def recover(
     full = [np.asarray(full_arr[i], dtype=np.uint8) for i in range(n)]
     for i in have:
         if not np.array_equal(np.asarray(shreds[i], dtype=np.uint8), full[i]):
-            raise ValueError(f"corrupt: shred {i} inconsistent with encoding")
+            raise CorruptSetError(
+                f"corrupt: shred {i} inconsistent with encoding")
     return full
 
 

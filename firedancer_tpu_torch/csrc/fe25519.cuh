@@ -164,6 +164,35 @@ FD_FN void fe_pow22523(fe &r, const fe &z) {
   fe_mul(r, t, z);            // 2^252 - 3
 }
 
+// z^(p - 2) = z^(2^255 - 21), the inverse of z (0 for z = 0): the chain
+// of fe_pow22523 up to z^(2^250 - 1), then five squarings and a product
+// with z^11 (ops/f25519.py inv), 254 squarings and 11 products.
+FD_FN void fe_inv(fe &r, const fe &z) {
+  fe z2, z9, z11, t, z5, z10, z20, z50, z100;
+  fe_sqr(z2, z);
+  fe_sqr_n(t, z2, 2);
+  fe_mul(z9, t, z);
+  fe_mul(z11, z9, z2);
+  fe_sqr(t, z11);
+  fe_mul(z5, t, z9);          // 2^5 - 1
+  fe_sqr_n(t, z5, 5);
+  fe_mul(z10, t, z5);         // 2^10 - 1
+  fe_sqr_n(t, z10, 10);
+  fe_mul(z20, t, z10);        // 2^20 - 1
+  fe_sqr_n(t, z20, 20);
+  fe_mul(t, t, z20);          // 2^40 - 1
+  fe_sqr_n(t, t, 10);
+  fe_mul(z50, t, z10);        // 2^50 - 1
+  fe_sqr_n(t, z50, 50);
+  fe_mul(z100, t, z50);       // 2^100 - 1
+  fe_sqr_n(t, z100, 100);
+  fe_mul(t, t, z100);         // 2^200 - 1
+  fe_sqr_n(t, t, 50);
+  fe_mul(t, t, z50);          // 2^250 - 1
+  fe_sqr_n(t, t, 5);
+  fe_mul(r, t, z11);          // 2^255 - 21
+}
+
 // The representative in [0, p) with every limb exactly in range.
 FD_FN void fe_canonical(fe &r, const fe &a) {
   uint32_t h[10];

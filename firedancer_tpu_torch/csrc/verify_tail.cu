@@ -8,8 +8,8 @@
 // dsm_chain.cuh), and compare Q.Y with y_R * Q.Z.  The split layout runs
 // the same helpers as separate kernels (reduce_recode.cu, dsm.cu).
 // Writes the folded ok bit and Q's X and Z as (10, n) int64 limb planes
-// (ops/f25519.py layout); the x-parity half of the R check runs in torch
-// (ed25519._compressed_r_check).
+// (ops/f25519.py layout); the x-parity half of the R check runs in the
+// r_check kernel (r_check.cu).
 //
 // Field arithmetic: 10 x 25.5-bit uint32 limbs with uint64 products
 // (fe25519.cuh).

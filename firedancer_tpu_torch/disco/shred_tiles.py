@@ -32,6 +32,7 @@ from ..models.verifier import (PackedDispatchEngine, SigVerifier, Verdict,
                                VerifierConfig, WorkloadDesc)
 from ..ops import bmtree_walk as bw
 from ..ops import gf2_recover as gf2
+from ..ops import r_check as rck
 from ..ops import sha512_kernel as sk
 from ..ops import verify_tail as vt
 from ..ops.ed25519 import verify_one_host
@@ -359,7 +360,8 @@ class ShredTile:
 def _admission_launches() -> dict:
     return {"bmtree_walk": bw.bmtree_walk.launches,
             "sha512_ram": sk.sha512_ram.launches,
-            "verify_tail": vt.verify_tail.launches}
+            "verify_tail": vt.verify_tail.launches,
+            "r_check": rck.r_check.launches}
 
 
 class StoreTile:
@@ -368,7 +370,10 @@ class StoreTile:
     slots.  cfg: max_slots, archive_path, device (where the Blockstore's
     FEC recovery runs the GF(2) kernel; None: the GPU); the
     `complete_slot` metrics slot exports the highest fully-assembled slot
-    (how tests observe block completion)."""
+    (how tests observe block completion).  A leader-signed set whose
+    survivors disagree is dropped and counted (corrupt_set_cnt, in the
+    drain manifest); the JAX StoreTile raises on it.  The metrics keep
+    the JAX layout, so the count is not a metric."""
 
     def init(self, ctx):
         from ..flamenco.blockstore import Blockstore, SlotArchive
@@ -380,6 +385,10 @@ class StoreTile:
             archive=SlotArchive(arch_path) if arch_path else None,
             torch_device=ctx.cfg.get("device") or None)
         self.complete = 0
+
+    def drain_manifest(self, ctx) -> dict:
+        """The FEC sets dropped as corrupt, for the drain manifest."""
+        return {"corrupt_set_cnt": self.store.corrupt_set_cnt}
 
     def on_frag(self, ctx, iidx, meta, payload):
         try:

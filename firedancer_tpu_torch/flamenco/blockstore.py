@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 
 from ..ballet import shred as shred_lib
 from ..ballet import entry as entry_lib
+from ..ballet.reedsol import CorruptSetError
 
 
 class SlotArchive:
@@ -121,6 +122,7 @@ class _SlotMeta:
     parent_off: int = 0
     assembled: bytes | None = None
     raw: dict[int, bytes] = field(default_factory=dict)  # data idx -> shred
+    corrupt_sets: set[int] = field(default_factory=set)  # dropped fec ids
 
 
 class Blockstore:
@@ -144,11 +146,13 @@ class Blockstore:
         self.shred_cnt = 0
         self.recovered_cnt = 0
         self.sig_reject_cnt = 0
+        self.corrupt_set_cnt = 0
 
     def insert_shred(self, raw: bytes, parsed=None,
                      pre_verified: bool = False) -> bool:
         """Insert one serialized shred; returns True if it completed a FEC
-        set.  Invalid shreds raise ShredParseError.  `parsed` skips the
+        set.  Invalid shreds raise ShredParseError.  A set whose
+        survivors disagree is dropped (corrupt_set_cnt), not raised.  `parsed` skips the
         re-parse when the caller already holds the Shred (hot tile paths
         parse once for routing/verification).  pre_verified=True attests
         the caller already ran the leader-signature gate on THIS shred
@@ -190,6 +194,8 @@ class Blockstore:
                     and self.slot_complete(s.slot)):
                 self.slot_data(s.slot)  # late flag: persist now
             return False
+        if s.fec_set_idx in sm.corrupt_sets:
+            return False
         res = sm.resolvers.get(s.fec_set_idx)
         if res is None:
             # no resolver-level root_check: the door gate above already
@@ -199,7 +205,17 @@ class Blockstore:
                 torch_device=self.torch_device)
         res.add(s)
         if res.ready():
-            sm.complete_sets[s.fec_set_idx] = res.payloads()
+            try:
+                payload = res.payloads()
+            except CorruptSetError:
+                # a signed set whose survivors disagree (ERR_CORRUPT): drop
+                # its resolver and ignore its later shreds; the slot stays
+                # incomplete.  Counted in corrupt_set_cnt.
+                del sm.resolvers[s.fec_set_idx]
+                sm.corrupt_sets.add(s.fec_set_idx)
+                self.corrupt_set_cnt += 1
+                return False
+            sm.complete_sets[s.fec_set_idx] = payload
             sm.set_data_cnt[s.fec_set_idx] = res.resolved_data_cnt
             del sm.resolvers[s.fec_set_idx]
             self.recovered_cnt += 1

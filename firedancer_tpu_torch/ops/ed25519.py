@@ -13,8 +13,10 @@ verify_batch and verify_blob take tail=, one of three layouts of the
 same steps, as in the JAX package (which picks between them by
 FDTPU_NO_FUSED and whether its Pallas kernels run); all give the same
 bits.  Each starts with sha512_kernel.sha512_ram, k's digest straight from
-the rows, and ends with _compressed_r_check, which settles R from its
-bytes without decompressing it.  Between them:
+the rows, and ends with the r_check kernel (ops/r_check.py), which
+settles R from its bytes without decompressing it: Q's affine x by a
+per-lane inverse, its parity against R's sign bit, R's small-order test.
+Between them:
 
   "fused" (the default)  verify_tail.verify_tail: everything about A, S
                          and k and the y half of the R comparison, one
@@ -24,7 +26,7 @@ bytes without decompressing it.  Between them:
                          chain and the y-compare): three kernels;
   "unfused"              the decompress kernel, S < L, k mod L and the
                          windows in torch, then the double_scalar_mul_base
-                         kernel; the y-compare runs in the finish.
+                         kernel; the y-compare runs in r_check.
 
 On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
 run.
@@ -49,6 +51,7 @@ from . import scalar25519 as sc
 from .decompress import decompress, decompress_pair
 from .dsm import double_scalar_mul_base, dsm_tail_q
 from .msm import msm
+from .r_check import r_check
 from .reduce_recode import reduce_recode
 from .rlc_recode import rlc_recode
 from .scalar25519 import L
@@ -68,42 +71,6 @@ PACKED_EXTRA = 100
 TAILS = ("fused", "split", "unfused")
 
 
-def _parse_r_bytes(r_bytes):
-    """R's encoded y (canonical limbs, mod p), its sign bit, and whether
-    y is one of the five 8-torsion y values {0, 1, -1, y8_0, y8_1}."""
-    yc = fe.canonical(fe.from_bytes(r_bytes))
-    sign_r = (r_bytes[:, 31] >> 7).to(torch.int64)
-    small = cv.small_order_y(yc)
-    for v in (1, P - 1):
-        small = small | (yc == fe.const(v, yc.device)).all(0)
-    return yc, sign_r, small
-
-
-def _compressed_r_check(qx, qz, r_bytes, ok_y=None, *, qy=None,
-                        parsed_r=None):
-    """Accept iff Q equals the point R's bytes encode, without
-    decompressing R.  The projective y-compare comes either as ok_y (a
-    kernel ran it) or from Q's Y, compared here in affine form (qy).
-    parsed_r reuses a caller's _parse_r_bytes(r_bytes), so R is parsed
-    once.  Case by case, as in the JAX package: a non-canonical y compares
-    mod p; an R off the curve has no point with its y, so the y-compare
-    already failed; x = 0 with the sign bit set fails the parity test; a
-    small-order R is recognised by its y; otherwise equal y and equal x
-    parity make equal points.  The affine x comes from one batch
-    inversion."""
-    if (ok_y is None) == (qy is None):
-        raise ValueError("give exactly one of ok_y and qy")
-    y_r, sign_r, small = (parsed_r if parsed_r is not None
-                          else _parse_r_bytes(r_bytes))
-    z_ok = ~fe.is_zero(qz)
-    one = fe.ones(qz.shape[1], qz.device)
-    zi = fe.batch_inv(torch.where(z_ok, qz, one))
-    x_aff = fe.mul(qx, zi)
-    if ok_y is None:
-        ok_y = fe.eq(fe.mul(qy, zi), y_r)
-    return z_ok & ~small & ok_y & (fe.sgn(x_aff) == sign_r)
-
-
 def _decompress_checked(b):
     """(ok, point): decompress, with a small-order point rejected."""
     return _checked(decompress(b))
@@ -121,19 +88,18 @@ def _verify_rows(msgs, len4, r, s, pub, tail: str):
     digest = sha512_ram(msgs, r, pub, len4)
     if tail == "fused":
         ok_t, qx, qz = verify_tail(pub, s, digest, r)
-        return _compressed_r_check(qx, qz, r, ok_t)
+        return r_check(qx, qz, r, ok_t)
     ok_a, a_pt = _decompress_checked(pub)
     if tail == "split":
         ok_s, wins = reduce_recode(s, digest)
-        parsed_r = _parse_r_bytes(r)
-        ok_y, qx, qz = dsm_tail_q(wins, a_pt, parsed_r[0])
-        ok_eq = _compressed_r_check(qx, qz, r, ok_y, parsed_r=parsed_r)
+        ok_y, qx, qz = dsm_tail_q(wins, a_pt, fe.from_bytes(r))
+        ok_eq = r_check(qx, qz, r, ok_y)
     else:
         ok_s = sc.is_canonical(s)
         q = double_scalar_mul_base(
             sc.scalar_windows(s), sc.limbs_to_windows(sc.reduce_512(digest)),
             cv.neg(a_pt))
-        ok_eq = _compressed_r_check(q.X, q.Z, r, qy=q.Y)
+        ok_eq = r_check(q.X, q.Z, r, qy=q.Y)
     return ok_s & ok_a & ok_eq
 
 

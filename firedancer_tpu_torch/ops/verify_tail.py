@@ -6,7 +6,7 @@ verify_tail(pub, s, digest, r) -> (ok, X, Z).  ok folds: A decompresses,
 A is not of small order, S < L, and the projective y-compare Q.Y == y_R *
 Q.Z holds for Q = [S]B + [k](-A), k = digest mod L, y_R = R's encoded y
 mod p.  X and Z are Q's (10, n) int64 limb planes, for the x-parity check
-that ed25519._compressed_r_check finishes with.  Inputs are uint8 row
+that the r_check kernel (ops/r_check.py) finishes with.  Inputs are uint8 row
 views of any row stride: pub, s and r (n, 32), digest (n, 64).  On a CUDA
 tensor the wrapper launches the kernel or raises; on a CPU tensor it runs
 the plain version, built from ops/f25519, scalar25519 and curve25519.

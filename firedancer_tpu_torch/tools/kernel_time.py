@@ -2,9 +2,9 @@
 """Time the port's kernels of one checkout on the card.
 
     python3 firedancer_tpu_torch/tools/kernel_time.py [--root DIR]
-        [--label L] [--kernels msm,verify_tail,dsm_tail_q,dsm_base,
-        sha512,decompress,reduce_recode,rlc_recode,poh_spans,mixin_tree,
-        gf2_recover,bmtree_walk] [--lanes N,...] [--sass]
+        [--label L] [--kernels msm,verify_tail,r_check,dsm_tail_q,
+        dsm_base,sha512,decompress,reduce_recode,rlc_recode,poh_spans,
+        mixin_tree,gf2_recover,bmtree_walk] [--lanes N,...] [--sass]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
@@ -31,6 +31,9 @@ On inputs made from fixed seeds:
                lane counts given by --lanes, x 128), on the digests,
                keys, S and R of valid signatures (make_example_batch),
                as dispatch_blob gives them;
+  r_check      at the same shapes, on verify_tail's X, Z and ok bits of
+               those signatures and their R, as the fused layout gives
+               them;
   dsm_tail_q   at the same shapes' 128-byte ones, on the same
                signatures' windows (reduce_recode), decompressed keys
                and R's y;
@@ -93,13 +96,15 @@ PIPES = {"int": {"IADD3", "LOP3", "SHF", "LEA", "SEL", "ISETP", "PRMT",
                  "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK", "SGXT", "IABS",
                  "PLOP3"},
          "fma": {"IMAD", "FFMA", "FMUL", "FADD"}}
-SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "dsm_tail_q": "dsm",
+SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "r_check": "r_check",
+           "dsm_tail_q": "dsm",
            "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
            "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode",
            "poh_spans": "poh_spans", "mixin_tree": "mixin_tree",
            "gf2_recover": "gf2_recover", "bmtree_walk": "bmtree_walk"}
 # each kernel's entry, as the profiler names its device events
 ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
+           "r_check": "r_check_kernel",
            "dsm_tail_q": "dsm_tail_q_kernel", "dsm_base": "dsm_base_kernel",
            "sha512": "sha512_ram_kernel", "decompress": "decompress_kernel",
            "reduce_recode": "reduce_recode_kernel",
@@ -296,6 +301,7 @@ def main() -> int:
     from firedancer_tpu_torch.ops import decompress as dc
     from firedancer_tpu_torch.ops import dsm
     from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops import f25519 as fe
     from firedancer_tpu_torch.ops import msm as ms
     from firedancer_tpu_torch.ops import reduce_recode as rr
     from firedancer_tpu_torch.ops import rlc_recode as rl
@@ -470,7 +476,7 @@ def main() -> int:
               lambda: bw.bmtree_walk(lf4, ln4, ix4, pf4, dp4))
     shapes = ([(int(n), 128) for n in args.lanes.split(",")] if args.lanes
               else [(4096, 128), (32768, 128), (4096, 1232)])
-    wide_only = {"verify_tail", "sha512"}
+    wide_only = {"verify_tail", "r_check", "sha512"}
     for n, ml in shapes:
         if ml != 128 and not wide_only & set(kernels):
             continue
@@ -490,6 +496,11 @@ def main() -> int:
         if "verify_tail" in kernels:
             timed(f"verify_tail {n}x{ml}", "verify_tail",
                   lambda: vt.verify_tail(a_, s_, digest, r_))
+        if "r_check" in kernels:
+            from firedancer_tpu_torch.ops import r_check as rck
+            ok_t, qx, qz = vt.verify_tail(a_, s_, digest, r_)
+            timed(f"r_check {n}x{ml}", "r_check",
+                  lambda: rck.r_check(qx, qz, r_, ok_t))
         if ml != 128:
             continue
         if "decompress" in kernels:
@@ -523,7 +534,7 @@ def main() -> int:
         _, a_pt = ed._decompress_checked(a_)
         if "dsm_tail_q" in kernels:
             _, wins = rr.reduce_recode(s_, digest)
-            y_r = ed._parse_r_bytes(r_)[0]
+            y_r = fe.from_bytes(r_)
             timed(f"dsm_tail_q {n}x{ml}", "dsm_tail_q",
                   lambda: dsm.dsm_tail_q(wins, a_pt, y_r))
         if "dsm_base" in kernels:

@@ -32,18 +32,25 @@ import struct
 import subprocess
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from firedancer_tpu.ops import ed25519 as jed
+from firedancer_tpu.ops import f25519 as jfe
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import curve25519 as cv
 from firedancer_tpu_torch.ops import decompress as dc
+from firedancer_tpu_torch.ops import dsm
 from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import msm as ms
+from firedancer_tpu_torch.ops import r_check as rc
+from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
 from _torch_threads import one_torch_thread  # noqa: F401
+from chip_smoke import r_check_edges
 
 CSRC = Path(__file__).resolve().parent.parent / "firedancer_tpu_torch" / "csrc"
 
@@ -51,6 +58,7 @@ HARNESS = r"""
 #include "decompress.cu"
 #include "dsm.cu"
 #include "msm.cu"
+#include "r_check.cu"
 #include "reduce_recode.cu"
 #include "rlc_recode.cu"
 #include "sha512.cu"
@@ -231,6 +239,27 @@ int main() {
       fwrite(p4, sizeof p4, 1, stdout);
       fwrite(t2d[2].v, 4, 10, stdout);
     }
+  } else if (mode == 'c') {     // the finish: consts, then per lane qx,
+    rc_consts c;                // qz, qy (10 limbs each), ok_y and R;
+    rd(&c, sizeof c);           // ml 1 is the qy form, 0 the ok_y form
+    for (int i = 0; i < n; i++) {
+      fe qx, qz, qy;
+      uint8_t oky, r[32];
+      rd(&qx, sizeof qx);
+      rd(&qz, sizeof qz);
+      rd(&qy, sizeof qy);
+      rd(&oky, 1);
+      rd(r, sizeof r);
+      const uint8_t ok = rc_lane(c, qx, qz, ml ? &qy : nullptr, oky != 0, r);
+      fwrite(&ok, 1, 1, stdout);
+    }
+  } else if (mode == 'i') {     // z -> z^(p - 2)
+    for (int i = 0; i < n; i++) {
+      fe z, zi;
+      rd(&z, sizeof z);
+      fe_inv(zi, z);
+      fwrite(zi.v, 4, 10, stdout);
+    }
   } else {                      // consts, then (pub, s, digest, r) lanes,
     vt_consts c;                // the four ranks of a lane in lockstep
     rd(&c, sizeof c);
@@ -316,6 +345,101 @@ def test_verify_tail_lane_matches_plain(harness, mode):
     assert fe.to_ints(x) == fe.to_ints(x_p)
     assert fe.to_ints(z) == fe.to_ints(z_p)
     assert ok_p.any() and not ok_p.all()
+
+
+# limbs of p itself (a value that is zero mod p) and the largest TIGHT
+# limbs (csrc/fe25519.cuh: even limbs < 2^26, odd limbs < 2^25 + 2^15)
+P_LIMBS = [(fe.P >> o) & ((1 << w) - 1) for o, w in zip(fe.OFFS, fe.WIDTHS)]
+MAX_TIGHT = [(1 << 26) - 1 if i % 2 == 0 else (1 << 25) + (1 << 15) - 1
+             for i in range(fe.NLIMB)]
+
+
+def _value(limbs) -> int:
+    """Raw (10,) limbs -> the integer they encode, not reduced mod p."""
+    return sum(int(v) << o for v, o in zip(limbs, fe.OFFS))
+
+
+def _r_check_lanes():
+    """The finish's inputs, as the lane takes them: (qx, qz, qy) (n, 10)
+    int64 limbs, ok_y (n,) bool and R (n, 32) uint8.  First the
+    adversarial lanes' Q from the two plain chains (the fused tail's X, Z
+    and ok bit; the unfused layout's X, Y, Z on the same rows); then
+    chip_smoke's edge lanes (r_check_edges: Z = 0 and Z = p, R's y >= p,
+    R off the curve, the five small-order y values, x = 0 with the sign
+    bit set, the largest TIGHT limbs); then random limbs."""
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
+    bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
+    r, s_, a = bt[:, 64:96], bt[:, 96:128], bt[:, 128:160]
+    digest = sk.sha512_ram(bt[:, :64], r, a, bt[:, 160:])
+    ok_t, qx_t, qz_t = vt.verify_tail_plain(a, s_, digest, r)
+    a_pt = dc.decompress_plain(a)[2]
+    q = dsm.double_scalar_mul_base_plain(
+        sc.scalar_windows(s_), sc.limbs_to_windows(sc.reduce_512(digest)),
+        cv.neg(a_pt))
+    rows = []                   # (qx, qz, qy) limbs, ok_y, R as an int
+    for i in range(len(ok_t)):
+        r_int = int.from_bytes(bytes(sigs[i, :32]), "little")
+        rows.append(([qx_t[:, i], qz_t[:, i], q.Y[:, i]], bool(ok_t[i]),
+                     r_int))
+        rows.append(([q.X[:, i], q.Z[:, i], q.Y[:, i]], True, r_int))
+    rows += r_check_edges()
+    rng = np.random.default_rng(41)
+    for _ in range(16):
+        lim = [rng.integers(0, np.array(MAX_TIGHT) + 1) for _ in range(3)]
+        rows.append((lim, bool(rng.integers(0, 2)),
+                     int.from_bytes(rng.bytes(32), "little")))
+    qx, qz, qy = (np.array([[int(v) for v in r_[0][k]] for r_ in rows],
+                           np.int64) for k in range(3))
+    ok_y = np.array([r_[1] for r_ in rows])
+    r_b = np.array([list(r_[2].to_bytes(32, "little")) for r_ in rows],
+                   np.uint8)
+    return qx, qz, qy, ok_y, r_b
+
+
+@pytest.mark.parametrize("form", ["ok_y", "qy"])
+def test_r_check_lane_matches_plain_and_jax(harness, form):
+    """The finish's lane (csrc/r_check.cu rc_lane) against r_check_plain
+    and the JAX package's _compressed_r_check (XLA, on the CPU), in the
+    form the fused and split layouts use (their kernel's ok_y) and in the
+    unfused one's (Q's Y compared in the finish): the same bits on every
+    lane, the edge lanes included."""
+    qx, qz, qy, ok_y, r_b = _r_check_lanes()
+    n = len(ok_y)
+    use_qy = form == "qy"
+    consts = rc.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    lanes = np.concatenate(
+        [np.concatenate([qx, qz, qy], 1).astype(np.uint32).view(np.uint8),
+         ok_y.astype(np.uint8)[:, None], r_b], 1)
+    got = np.frombuffer(harness(b"c", n, int(use_qy), consts.tobytes()
+                                + lanes.tobytes()), np.uint8).astype(bool)
+    planes = [torch.from_numpy(v.T.copy()) for v in (qx, qz, qy)]
+    tr = torch.from_numpy(r_b)
+    plain = rc.r_check_plain(planes[0], planes[1], tr,
+                             None if use_qy else torch.from_numpy(ok_y),
+                             qy=planes[2] if use_qy else None)
+    jl = [jnp.asarray(np.array([jfe._to_limbs_py(_value(row)) for row in v]).T)
+          for v in (qx, qz, qy)]
+    want = np.asarray(jed._compressed_r_check(
+        jl[0], jl[2] if use_qy else None, jl[1], jnp.asarray(r_b),
+        ok_y=None if use_qy else jnp.asarray(ok_y)))
+    assert got.tolist() == plain.tolist() == want.tolist()
+    assert got.sum() >= 4 and not got.all()
+
+
+def test_fe_inv_matches_pow(harness):
+    """fe_inv (csrc/fe25519.cuh) against pow(z, p - 2, p): at 0, 1,
+    p - 1, the limbs of p, the largest TIGHT limbs and random limbs."""
+    rng = np.random.default_rng(42)
+    zs = [[0] * 10, fe.int_to_limbs(1), fe.int_to_limbs(fe.P - 1), P_LIMBS,
+          MAX_TIGHT] + [
+        rng.integers(0, np.array(MAX_TIGHT) + 1).tolist() for _ in range(27)]
+    z = np.array(zs, np.uint32)
+    out = np.frombuffer(harness(b"i", len(z), 0, z.tobytes()),
+                        np.uint32).reshape(len(z), 10)
+    got = fe.to_ints(_planes(out, 1)[0])
+    want = [pow(_value(row) % fe.P, fe.P - 2, fe.P) for row in zs]
+    assert got == want
+    assert got[:4] == [0, 1, fe.P - 1, 0]
 
 
 def _planes(raw: np.ndarray, k: int) -> list[torch.Tensor]:

@@ -19,10 +19,13 @@ from firedancer_tpu_torch.ops import dsm
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
 from firedancer_tpu_torch.ops import msm as ms
+from firedancer_tpu_torch.ops import r_check as rc
 from firedancer_tpu_torch.ops import reduce_recode as rr
 from firedancer_tpu_torch.ops import rlc_recode as rl
+from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
+from chip_smoke import write_r_edges
 
 pytestmark = pytest.mark.gpu
 
@@ -102,6 +105,32 @@ def test_verify_tail_kernel_matches_plain(cuda, n):
     assert torch.equal(ok_k, ok_p)
     assert fe.to_ints(x_k) == fe.to_ints(x_p)
     assert fe.to_ints(z_k) == fe.to_ints(z_p)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096, 4097])
+def test_r_check_kernel_matches_plain(cuda, n):
+    """The finish in both forms on the fused tail's and the unfused
+    chain's Q of adversarial rows, the edge lanes (chip_smoke's
+    r_check_edges) written over the first ones, R read in place from the
+    blob: the kernel's bits equal the plain version's, one launch a
+    call."""
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(n, 64)
+    blob = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs)).to(cuda)
+    m, r, s, a, ln = _cols(blob, 64)
+    digest = sk.sha512_ram(m, r, a, ln)
+    ok_t, qx, qz = vt.verify_tail(a, s, digest, r)
+    q = dsm.double_scalar_mul_base(
+        sc.scalar_windows(s), sc.limbs_to_windows(sc.reduce_512(digest)),
+        cv.neg(dc.decompress(a)[2]))
+    qy = q.Y.clone()
+    write_r_edges(qx, qz, qy, ok_t, r)
+    write_r_edges(q.X, q.Z, q.Y, ok_t.clone(), r)
+    for args, kw in (((qx, qz, r, ok_t), {}),
+                     ((q.X, q.Z, r), {"qy": q.Y})):
+        before = rc.r_check.launches
+        got = rc.r_check(*args, **kw)
+        assert rc.r_check.launches == before + 1
+        assert torch.equal(got, rc.r_check_plain(*args, **kw))
 
 
 def test_sig_verifier_on_the_card_matches_host(cuda):

@@ -27,8 +27,8 @@ from firedancer_tpu.ops import sha512 as jsh
 from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import curve25519 as cv
-from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
+from firedancer_tpu_torch.ops import r_check as rc
 from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512 as sh
 from firedancer_tpu_torch.ops import sha512_kernel as sk
@@ -241,7 +241,7 @@ def test_verify_tail_plain_matches_xla_composition():
     ok_t, qx, qz = vt.verify_tail_plain(
         torch.from_numpy(pubs), torch.from_numpy(s_b),
         torch.from_numpy(digest), torch.from_numpy(r_b))
-    bits = ed._compressed_r_check(qx, qz, torch.from_numpy(r_b), ok_t)
+    bits = rc.r_check(qx, qz, torch.from_numpy(r_b), ok_t)
 
     jpub, js, jr = jnp.asarray(pubs), jnp.asarray(s_b), jnp.asarray(r_b)
     on_curve, a_pt = jcv.decompress(jpub)

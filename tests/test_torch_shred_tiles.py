@@ -13,7 +13,11 @@ strict verify and the GF(2) kernels run their plain versions.
   StoreTile, each package's under its own Mux in threads, on the same
   shreds published into the shred tile's net in-link: the same frags on
   every link, the same counters, the same retransmits to a child socket,
-  and the store completing the slot.  The leader role is refused."""
+  and the store completing the slot.  The leader role is refused.
+- The port's StoreTile on a leader-signed set whose survivors disagree,
+  in a live slot after the good one: it drops the set, counts it once
+  and runs on to its halt, with complete_slot left at the good slot
+  (the JAX StoreTile raises on such a set)."""
 
 import os
 import threading
@@ -229,6 +233,67 @@ def test_lane_tiles_under_the_mux_equal_the_jax_tiles():
     assert pm["rec"]["fec_host_fallback_cnt"] == 0
     assert pm["store"]["complete_slot"] == 5
     assert len(port["udp"]) == pm["shred"]["turbine_tx_cnt"]
+
+
+def test_store_tile_survives_a_corrupt_set_in_a_live_slot():
+    frags, entries, valid, n_forged = lane_stream(
+        5, 3, 8, 6, 8, 16, device="cpu", live_corrupt=True)
+    assert len(frags) % 8 == 0
+    child = UdpSock(bind_ip="127.0.0.1")
+    spec = lane_spec(topo_mod, f"tsc{os.getpid()}", child.port, 8, "host",
+                     {"device": "cpu"})
+    jt = topo_mod.create(spec)
+    errors = []
+
+    def run(mux):
+        try:
+            mux.run()
+        except BaseException as exc:     # the tile died: the test fails
+            errors.append(exc)
+    try:
+        names = ("shred", "store", "rec")
+        vts = {n: st.TILES[{"rec": "shred_recover"}.get(n, n)]()
+               for n in names}
+        ths = [threading.Thread(target=run, args=(Mux(jt, n, vts[n]),),
+                                daemon=True) for n in names]
+        for th in ths:
+            th.start()
+        for n in names:
+            _wait(lambda: jt.cnc[n].signal_query() == Cnc.SIGNAL_RUN,
+                  120, f"{n} RUN")
+        lnk = jt.links["net"]
+        chunk = lnk.dcache.chunk0
+        for f in frags:
+            nxt = lnk.dcache.write(chunk, f)
+            lnk.mcache.publish(0, chunk, len(f))
+            chunk = nxt
+        lnk = None
+
+        def done():
+            return (vts["store"].store.corrupt_set_cnt
+                    and jt.metrics["store"].snapshot()["shred_store_cnt"]
+                    == len(valid))
+
+        _wait(done, 120, "every admitted shred stored")
+        for n in names:
+            jt.cnc[n].signal(Cnc.SIGNAL_HALT)
+        for th in ths:
+            th.join(60)
+            assert not th.is_alive()
+        sm = jt.metrics["store"].snapshot()
+    finally:
+        child.close()
+        jt.close()
+        jt.unlink()
+    assert errors == []
+    assert vts["store"].drain_manifest(None) == {"corrupt_set_cnt": 1}
+    assert sm["complete_slot"] == 5 and sm["parse_fail_cnt"] == 0
+    # the dropped set's later shreds are ignored, not counted again
+    store = vts["store"].store
+    bad = [r for r in valid if sl.parse(r).slot == 6]
+    assert len(bad) == 9 and store.slots[6].corrupt_sets == {0}
+    assert not store.insert_shred(bad[-1])
+    assert store.corrupt_set_cnt == 1 and not store.slot_complete(6)
 
 
 def test_shred_tile_refuses_the_leader_role():

@@ -291,13 +291,18 @@ def test_config_layers_and_refusals(tmp_path):
     assert spec.tiles[1].cfg["buckets"] == [[16, 256]]
     with pytest.raises(ValueError, match="deadline_us"):
         pconfig.load(environ={"FDTPU_LATENCY_DEADLINE_USS": "3"})
-    for topo_name, missing in (("fdtpu", "quic"),
+    for topo_name, missing in (("fdtpu", "net, quic, pack, bank, poh, "
+                                         "sign$"),
                                ("leader-bench", "leader_merge")):
         c = pconfig.load(environ={})
         c["topology"] = topo_name
         c["leader"]["pack_shards"] = 2     # leader-bench boots at 1
-        with pytest.raises(NotImplementedError, match=missing):
+        with pytest.raises(NotImplementedError, match=missing) as exc:
             pconfig.build_topology(c)
+        if topo_name == "fdtpu":
+            # the port has the shred lane's tiles
+            assert "shred" not in str(exc.value)
+            assert "store" not in str(exc.value)
     c = pconfig.load(environ={})
     c["autotune"]["enabled"] = 1
     with pytest.raises(NotImplementedError, match="Autotuner"):
