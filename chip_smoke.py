@@ -53,6 +53,7 @@ non-zero where there is no CUDA device or no port package beside it.
 
 import collections
 import dataclasses
+import functools
 import hashlib
 import json
 import multiprocessing as mp
@@ -103,11 +104,25 @@ RLC_OPS = SC_REDUCE_OPS + 8 + 2 * SC_MUL_OPS + 64 + 32 + 22
 # chain, 64 windows of four doublings (16 S + 13 M), a Niels add (8 M)
 # and an affine add without T (6 M): 1024 S + 1728 M; the y-compare 1 M.
 TAIL_SQR, TAIL_MUL = 257 + 1024, 18 + 72 + 1728 + 1
-# Field products of one lane of the finish (csrc/r_check.cu), ok_y form:
-# the inverse (fe_inv: 254 squarings, 11 products) and x = X / Z (1 M);
-# the qy form adds Y / Z (1 M).  The canonical reductions and the byte
-# unpacking are not counted, so the bound is a lower bound.
+# Field products of one lane of the finish with a Fermat inverse (254
+# squarings and 11 products, and x = X / Z, 1 M): the count of the design
+# the division replaced, printed beside the new one.
 RC_SQR, RC_MUL = 254, 12
+# The finish (csrc/r_check.cu; its division fe_div_canon in
+# csrc/fe25519.cuh), counted from the code as the least 32-bit operations
+# of a lane: a batch of 30 divsteps applies its matrix to f and g (36
+# products, 16 carries of a shift and a mask), to d and e (36 products,
+# 4 for md and me, 4 by p's two nonzero limbs, 16 carries) and tests g
+# (9): RC_BATCH_OPS; a step of the divsteps loop finds g's zeros (1),
+# shifts g, u and v (3), counts eta and i (2), makes w (3) and the three
+# multiply-adds (3): RC_STEP_OPS.  The canonical reductions, conversions
+# and the byte unpacking are not counted, so it is a lower bound.  A
+# lane's critical path: a step's chain (zeros, shift, product, mask,
+# multiply-add) and a batch's from its matrix to the next low words (two
+# multiply-adds, a shift, two more and a mask), a cycle each.  The
+# batches and steps a lane runs depend on its Z (rc_steps).
+RC_BATCH_OPS, RC_STEP_OPS = 36 + 32 + 36 + 8 + 32 + 9, 12
+RC_STEP_DEPTH, RC_BATCH_DEPTH = 5, 6
 # 64-bit operations of one SHA-512 block (80 rounds of 26, 64 schedule
 # steps of 13), each two 32-bit instructions on this card
 SHA_OPS_PER_BLOCK = 2 * (80 * 26 + 64 * 13)
@@ -288,12 +303,96 @@ def r_check_edges(seed: int = 41) -> list:
     return rows
 
 
+def rc_divsteps(z: int) -> int:
+    """Bernstein and Yang's divsteps (delta = 1 at the start) from f = p,
+    g = z mod p until g = 0: the work of the strict finish's division
+    (csrc/fe25519.cuh fe_div_canon) depends on its denominator alone."""
+    p = 2 ** 255 - 19
+    delta, f, g, n = 1, p, z % p, 0
+    while g:
+        if delta > 0 and g & 1:
+            delta, f, g = 1 - delta, g, (g - f) >> 1
+        elif g & 1:
+            delta, g = 1 + delta, (g + f) >> 1
+        else:
+            delta, g = 1 + delta, g >> 1
+        n += 1
+    return n
+
+
+def rc_steps(z: int) -> tuple:
+    """(batches, steps) of fe_div_canon dividing by z mod p, its loop run
+    on Python ints: a batch is 30 divsteps, after which the lane stops if
+    g = 0; a step skips g's run of zero bits, then cancels up to 6 bits
+    of g with one multiple of f (fe_divsteps30)."""
+    p = 2 ** 255 - 19
+    eta, f, g = -1, p, z % p
+    batches = steps = 0
+    while True:
+        batches += 1
+        i = 30
+        while True:
+            low = g & ((1 << i) - 1)
+            zeros = (low & -low).bit_length() - 1 if low else i
+            g >>= zeros
+            eta -= zeros
+            i -= zeros
+            if i == 0:
+                break
+            steps += 1
+            if eta < 0:
+                eta, f, g = -eta, g, -f
+            limit = min(eta + 1, i, 6)
+            g += f * (g * f * (f * f - 2) % (1 << limit))
+        if g == 0:
+            return batches, steps
+
+
+def _rc_steps_of(zs: list) -> list:
+    """rc_steps of each z (a pool worker's share)."""
+    return [rc_steps(z) for z in zs]
+
+
+@functools.lru_cache(maxsize=None)
+def r_check_long_zs(seed: int = 43, n: int = 8192, k: int = 8) -> tuple:
+    """Of n seeded values in [1, p), the k whose division (fe_div_canon)
+    runs the most divsteps, most first."""
+    p = 2 ** 255 - 19
+    rng = np.random.default_rng(seed)
+    zs = [int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+          for _ in range(n)]
+    return tuple(sorted(zs, key=rc_divsteps, reverse=True)[:k])
+
+
+def r_check_long_lanes(seed: int = 44) -> list:
+    """Finish lanes as r_check_edges gives them, with Z the values of
+    r_check_long_zs: a point on the curve scaled by each (Q.Z = z), with
+    R its encoding, each with both ok_y values."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops import f25519 as fe
+    p = fe.P
+    rng = np.random.default_rng(seed)
+    rows = []
+    for z in r_check_long_zs():
+        while True:
+            y = int.from_bytes(rng.bytes(32), "little") % p
+            pt = ed._decompress_host(y.to_bytes(32, "little"))
+            if pt is not None:
+                break
+        zi = pow(pt[2], p - 2, p)
+        x = pt[0] * zi % p
+        q = [fe.int_to_limbs(v * z % p) for v in (x, 1, y)]
+        for ok_y in (True, False):
+            rows.append((q, ok_y, y | (x & 1) << 255))
+    return rows
+
+
 def write_r_edges(qx, qz, qy, ok_y, r) -> int:
-    """Writes r_check_edges() over the first lanes of the finish's inputs
-    (Q's (10, n) planes, ok_y (n,), R's (n, 32) rows), in place, as many
-    as there are lanes.  Returns how many."""
+    """Writes r_check_edges(), then r_check_long_lanes(), over the first
+    lanes of the finish's inputs (Q's (10, n) planes, ok_y (n,), R's (n,
+    32) rows), in place, as many as there are lanes.  Returns how many."""
     import torch
-    edges = r_check_edges()[:r.shape[0]]
+    edges = (r_check_edges() + r_check_long_lanes())[:r.shape[0]]
     k = len(edges)
     for j, plane in enumerate((qx, qz, qy)):
         plane[:, :k] = torch.tensor([[int(v) for v in e[0][j]]
@@ -2672,7 +2771,7 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     # ragged lanes: the kernel at each lane count on its own rows, the
     # plain version once over all of them (it costs the same at 1 and at
     # 4,193 lanes: a few thousand launches a compression)
-    sizes = (1, 31, 32, 33, big_lanes)
+    sizes = (1, 31, 32, 33, 127, 128, 129, big_lanes)
     T = sum(sizes)
     lf = rng.integers(0, 256, (T, LEAF_MAXLEN), np.uint8)
     ln = rng.integers(0, LEAF_MAXLEN + 1, T).astype(np.int32)
@@ -2704,6 +2803,40 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
             raise AssertionError(f"phase 16b: {B} ragged lanes differ")
         d_err = max(d_err, int((kr.to(torch.int16) - pr[rows]).abs().max()))
         at += B
+    # rows at every offset 0-15 of a blob whose rows are 1,560 bytes
+    # apart (the shred tile's: 8-byte aligned), 40 lanes an offset (a
+    # block's 32 and 8 more), each offset one launch; the plain version
+    # once over all of them, and np_batch_walk_roots on every lane
+    n_at, stride = 40, 1560
+    blob = rng.integers(0, 256, (16 * n_at, stride), np.uint8)
+    o_ln = rng.integers(0, LEAF_MAXLEN + 1, 16 * n_at).astype(np.int32)
+    o_ix = rng.integers(0, 1 << 15, 16 * n_at).astype(np.int32)
+    o_pf = rng.integers(0, 256, (16 * n_at, PROOF_DEPTH, 20), np.uint8)
+    o_dp = (np.arange(16 * n_at) % (PROOF_DEPTH + 1)).astype(np.int32)
+    o_lf = np.stack([blob[i, (i // n_at):(i // n_at) + LEAF_MAXLEN]
+                     for i in range(16 * n_at)])
+    for at in range(16):
+        o_ln[at * n_at:at * n_at + len(WALK_EDGE_LENS)] = WALK_EDGE_LENS
+    blob_d, o_pf_d = torch.from_numpy(blob).to(dev), torch.from_numpy(
+        o_pf).to(dev)
+    o_plain = bw.bmtree_walk_plain(
+        torch.from_numpy(o_lf).to(dev), *[torch.from_numpy(x).to(dev)
+                                          for x in (o_ln, o_ix)], o_pf_d,
+        torch.from_numpy(o_dp).to(dev))
+    o_host = bmtree.np_batch_walk_roots(
+        [o_lf[i, :o_ln[i]] for i in range(16 * n_at)], o_ix.tolist(),
+        [list(o_pf[i, :o_dp[i]]) for i in range(16 * n_at)])
+    for at in range(16):
+        rows = slice(at * n_at, (at + 1) * n_at)
+        view = blob_d[rows, at:at + LEAF_MAXLEN]
+        kr = bw.bmtree_walk(view, o_ln[rows], o_ix[rows], o_pf_d[rows],
+                            o_dp[rows])
+        if not torch.equal(kr, o_plain[rows]) or [
+                bytes(r) for r in kr.cpu().numpy()] != o_host[rows]:
+            raise AssertionError(f"phase 16b: rows at offset {at} of a "
+                                 f"{stride}-byte stride differ")
+        d_err = max(d_err, int((kr.to(torch.int16)
+                                - o_plain[rows]).abs().max()))
     # the timed shape: one admission burst, sig_batch lanes of the set
     bl = (leaf_d[:SIG_BATCH], lens[:SIG_BATCH], idxs[:SIG_BATCH],
           proofs_d[:SIG_BATCH], depths[:SIG_BATCH])
@@ -2725,8 +2858,10 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
          f"(depth {int(depths[0])}) == plain == np_batch_walk_roots == the "
          f"signed root in 1 launch; ragged lanes (depths 0-"
          f"{PROOF_DEPTH}, leaf lengths {list(WALK_EDGE_LENS)}) == plain at "
-         f"1, 31, 32, 33 and {big_lanes} lanes, == hashlib on the first "
-         f"64; {SIG_BATCH} lanes of the set: call {d_ms:.5f} ms, device "
+         f"1, 31, 32, 33, 127, 128, 129 and {big_lanes} lanes, == hashlib "
+         f"on the first 64; rows at every offset 0-15 of a {stride}-byte "
+         f"stride, {n_at} lanes each, == plain == hashlib; {SIG_BATCH} "
+         f"lanes of the set: call {d_ms:.5f} ms, device "
          f"{_ms_text(d_dev)}, plain {d_plain:.4f} ms, bound "
          f"{d_bound[0]:.6f} ms"
          f" ({d_bound[1]}, set by the {d_term}: the issue bound "
@@ -3437,7 +3572,9 @@ def main() -> int:
     print(f"r_check: kernel == plain at 1, 4096, 4097 and 32768 lanes in "
           f"the ok_y and qy forms ({rc_edges} edge lanes: Z = 0 and p, R's "
           f"y >= p, off the curve, the five small-order y, x = 0 with the "
-          f"sign bit, the largest TIGHT limbs), max error {rc_err}")
+          f"sign bit, the largest TIGHT limbs, and Z the {len(r_check_long_zs())}"
+          f" seeded values whose division runs the most divsteps, "
+          f"{rc_divsteps(r_check_long_zs()[0])} at most), max error {rc_err}")
 
     # ---- phase 6: decompress kernel vs plain, one view a launch and the
     # RLC pair (A and R in one launch), on adversarial encodings and on
@@ -3723,11 +3860,27 @@ def main() -> int:
         return bound(batch * (32 + 32 + 64 + 32 + 1 + 160),
                      batch * (TAIL_MUL * MUL_OPS + TAIL_SQR * SQR_OPS))
 
-    def rc_bound(batch):
-        # the ok_y form: reads X and Z (int64 planes), ok_y and R, writes
-        # the bit
-        return bound(batch * (160 + 1 + 32 + 1),
-                     batch * (RC_MUL * MUL_OPS + RC_SQR * SQR_OPS))
+    def rc_bound(qz):
+        """((least ms, what bounds it, the term that sets it), the Fermat
+        count's ms) of the finish in the ok_y form on Z planes qz: reads X
+        and Z (int64 planes), ok_y and R, writes the bit; the operations
+        and the longest lane's critical path of the batches and steps
+        each lane's Z takes (rc_steps, over the pool)."""
+        n = qz.shape[1]
+        zs = fe.to_ints(qz.cpu())
+        with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as p_:
+            steps = [x for part in p_.map(
+                _rc_steps_of, [zs[i::64] for i in range(64)]) for x in part]
+        ops = sum(b * RC_BATCH_OPS + k * RC_STEP_OPS for b, k in steps)
+        cp = max(b * RC_BATCH_DEPTH + k * RC_STEP_DEPTH
+                 for b, k in steps) / (clock_mhz * 1e6) * 1e3
+        b_ = bound(n * (160 + 1 + 32 + 1), ops)
+        term = ("bytes" if b_[1] == "bytes" else
+                "critical path" if cp > b_[0] else "issue")
+        old = bound(n * (160 + 1 + 32 + 1),
+                    n * (RC_MUL * MUL_OPS + RC_SQR * SQR_OPS))
+        return (max(b_[0], cp), b_[1] if term != "critical path"
+                else "operations", term), old[0]
 
     def chain4_ops(n, decompress: bool, close=(G4_YCMP_MUL, G4_YCMP_SHFL)):
         """32-bit operations of the four-rank chain's own design for n
@@ -3766,7 +3919,7 @@ def main() -> int:
         ver = verifiers[(batch, bml)]
         t_e2e = wall_ms(lambda: np.asarray(ver.dispatch_blob(blob_np)))
         sb, tb = sha_bound(batch, nblocks, msg_bytes), tail_bound(batch)
-        rb = rc_bound(batch)
+        rb, rb_old = rc_bound(qz)
         timing[(batch, bml)] = (t_sha, t_tail, sb, tb, d_sha, d_tail,
                                 t_r, d_r, rb)
         note(f"{batch}x{bml}: sha512 kernel call {t_sha:.5f} ms, device "
@@ -3774,7 +3927,9 @@ def main() -> int:
              f"blocks over its blocks {ragged:.4f}), verify_tail kernel call "
              f"{t_tail:.5f} ms, device {d_tail:.5f} ms (bound {tb[0]:.5f} "
              f"ms, {tb[1]}), r_check kernel call {t_r:.5f} ms, device "
-             f"{d_r:.5f} ms (bound {rb[0]:.5f} ms, {rb[1]}), dispatch_blob "
+             f"{d_r:.5f} ms (bound {rb[0]:.6f} ms, {rb[1]}, set by the "
+             f"{rb[2]}; the Fermat finish's count {rb_old:.5f} ms), "
+             f"dispatch_blob "
              f"end to end {t_e2e:.4f} ms = "
              f"{batch / t_e2e * 1e3:.1f} verifies/s; verify_tail: "
              f"{design_note(chain4_ops(batch, True), d_tail, tb)}")
@@ -4075,7 +4230,8 @@ def main() -> int:
                      " firedancer_tpu/ops/f25519.py:477 batch_inv",
          "launches": launches["r_check"], "max_abs_err": rc_err,
          "ms": t_r, "device_ms": d_r, "plain_ms": plain_rc,
-         "bound_ms": rb[0], "bound_by": rb[1], "library_ms": None,
+         "bound_ms": rb[0], "bound_by": rb[1], "bound_term": rb[2],
+         "library_ms": None,
          "shape": f"{BUCKETS[0][0]}x{BUCKETS[0][1]}, ok_y form",
          "ms_32768": timing[(32768, 128)][6],
          "device_ms_32768": timing[(32768, 128)][7],

@@ -50,7 +50,8 @@ from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
 from _torch_threads import one_torch_thread  # noqa: F401
-from chip_smoke import r_check_edges
+from chip_smoke import (WALK_EDGE_LENS, r_check_edges, r_check_long_lanes,
+                        r_check_long_zs, rc_divsteps)
 
 CSRC = Path(__file__).resolve().parent.parent / "firedancer_tpu_torch" / "csrc"
 
@@ -253,12 +254,46 @@ int main() {
       const uint8_t ok = rc_lane(c, qx, qz, ml ? &qy : nullptr, oky != 0, r);
       fwrite(&ok, 1, 1, stdout);
     }
-  } else if (mode == 'i') {     // z -> z^(p - 2)
+  } else if (mode == 'i') {     // z -> 1 / z and the batches run
     for (int i = 0; i < n; i++) {
-      fe z, zi;
+      fe z, zi, one;
       rd(&z, sizeof z);
-      fe_inv(zi, z);
+      fe_canonical(z, z);
+      fe_set(one, 1);
+      const int32_t b = fe_div_canon(zi, one, z);
       fwrite(zi.v, 4, 10, stdout);
+      fwrite(&b, 4, 1, stdout);
+    }
+  } else if (mode == 'J') {     // (num, den) -> num / den over all the
+    for (int i = 0; i < n; i++) {   // batches, as a warp whose slowest
+      fe num, den, q;               // lane needs them runs every lane
+      rd(&num, sizeof num);
+      rd(&den, sizeof den);
+      fe_canonical(num, num);
+      fe_canonical(den, den);
+      fe_s30 d, e, f, g;
+      fe_div_start(f, g, den, false);
+      fe_div_start(d, e, num, true);
+      int32_t eta = -1;
+      for (int k = 0; k < FE_DIV_BATCHES; k++) {
+        const uint32_t f0 = (uint32_t)f.v[0], g0 = (uint32_t)g.v[0];
+        fe_div_batch(d, e, eta, f0, g0, true);
+        eta = fe_div_batch(f, g, eta, f0, g0, false);
+      }
+      fe_s30_normalize(d, f.v[8]);
+      fe_from_s30(q, d);
+      fwrite(q.v, 4, 10, stdout);
+    }
+  } else if (mode == 'n') {     // (num, den) -> num / den, the batches run
+    for (int i = 0; i < n; i++) {
+      fe num, den, q;
+      rd(&num, sizeof num);
+      rd(&den, sizeof den);
+      fe_canonical(num, num);
+      fe_canonical(den, den);
+      const int32_t b = fe_div_canon(q, num, den);
+      fwrite(q.v, 4, 10, stdout);
+      fwrite(&b, 4, 1, stdout);
     }
   } else {                      // consts, then (pub, s, digest, r) lanes,
     vt_consts c;                // the four ranks of a lane in lockstep
@@ -366,7 +401,8 @@ def _r_check_lanes():
     and ok bit; the unfused layout's X, Y, Z on the same rows); then
     chip_smoke's edge lanes (r_check_edges: Z = 0 and Z = p, R's y >= p,
     R off the curve, the five small-order y values, x = 0 with the sign
-    bit set, the largest TIGHT limbs); then random limbs."""
+    bit set, the largest TIGHT limbs) and its lanes whose Z takes the
+    division the most divsteps (r_check_long_lanes); then random limbs."""
     msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
     bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
     r, s_, a = bt[:, 64:96], bt[:, 96:128], bt[:, 128:160]
@@ -382,7 +418,7 @@ def _r_check_lanes():
         rows.append(([qx_t[:, i], qz_t[:, i], q.Y[:, i]], bool(ok_t[i]),
                      r_int))
         rows.append(([q.X[:, i], q.Z[:, i], q.Y[:, i]], True, r_int))
-    rows += r_check_edges()
+    rows += r_check_edges() + r_check_long_lanes()
     rng = np.random.default_rng(41)
     for _ in range(16):
         lim = [rng.integers(0, np.array(MAX_TIGHT) + 1) for _ in range(3)]
@@ -426,20 +462,75 @@ def test_r_check_lane_matches_plain_and_jax(harness, form):
     assert got.sum() >= 4 and not got.all()
 
 
-def test_fe_inv_matches_pow(harness):
-    """fe_inv (csrc/fe25519.cuh) against pow(z, p - 2, p): at 0, 1,
-    p - 1, the limbs of p, the largest TIGHT limbs and random limbs."""
+def _inv_inputs(case: str) -> list:
+    """Raw (10,) limb rows for the division's tests.  edges: 0, 1, 2,
+    p - 1, p - 2, 2^255 - 20, small values and their negatives, powers of
+    2, the limbs of p and values >= p as limbs (p + 1, 2^255 - 1, p + 2^k)
+    and the largest TIGHT limbs; random: 10,000 seeded values, half of
+    them canonical limbs of values below p, half random TIGHT limbs;
+    longest: r_check_long_zs, the seeded values with the most
+    divsteps."""
+    p = fe.P
+    if case == "longest":
+        return [fe.int_to_limbs(z) for z in r_check_long_zs()]
     rng = np.random.default_rng(42)
-    zs = [[0] * 10, fe.int_to_limbs(1), fe.int_to_limbs(fe.P - 1), P_LIMBS,
-          MAX_TIGHT] + [
-        rng.integers(0, np.array(MAX_TIGHT) + 1).tolist() for _ in range(27)]
-    z = np.array(zs, np.uint32)
-    out = np.frombuffer(harness(b"i", len(z), 0, z.tobytes()),
-                        np.uint32).reshape(len(z), 10)
-    got = fe.to_ints(_planes(out, 1)[0])
-    want = [pow(_value(row) % fe.P, fe.P - 2, fe.P) for row in zs]
+    if case == "random":
+        return ([fe.int_to_limbs(int.from_bytes(rng.bytes(32), "little")
+                                 % p) for _ in range(5000)]
+                + [rng.integers(0, np.array(MAX_TIGHT) + 1).tolist()
+                   for _ in range(5000)])
+    vals = ([0, 1, 2, p - 1, p - 2, 2 ** 255 - 20] + list(range(3, 40))
+            + [p - v for v in range(3, 40)] + [1 << k for k in range(255)])
+    raw = [fe.int_to_limbs(v) for v in vals]
+    over = [p + 1, p + 16, p + 18]                 # read >= p, limbs tight
+    raw += [[(v >> o) & ((1 << w) - 1) for o, w in zip(fe.OFFS, fe.WIDTHS)]
+            for v in over]
+    return raw + [P_LIMBS, MAX_TIGHT]
+
+
+@pytest.mark.parametrize("case", ["edges", "random", "longest", "quotients"])
+def test_fe_inv_matches_pow(harness, case):
+    """The strict finish's division (csrc/fe25519.cuh fe_div_canon: 1 / z,
+    and num / den for quotients) against pow(z, p - 2, p) on each case of
+    _inv_inputs, and num * pow(den, p - 2, p) on 2,000 seeded pairs, also
+    when every pair runs all 25 batches (r_check.cu's warp); its
+    batches of 30 divsteps equal those of rc_divsteps' count (one where z
+    = 0 mod p), and the longest values run the most batches."""
+    p = fe.P
+    if case == "quotients":
+        rng = np.random.default_rng(43)
+        pairs = [[fe.int_to_limbs(int.from_bytes(rng.bytes(32), "little")
+                                  % p) for _ in range(2)]
+                 for _ in range(2000)]
+        pairs[:3] = [[fe.int_to_limbs(0), fe.int_to_limbs(5)],
+                     [fe.int_to_limbs(p - 1), fe.int_to_limbs(p - 1)],
+                     [fe.int_to_limbs(7), [0] * 10]]
+        zs = [d for _, d in pairs]
+        out = harness(b"n", len(pairs), 0,
+                      np.array(pairs, np.uint32).tobytes())
+    else:
+        zs = _inv_inputs(case)
+        out = harness(b"i", len(zs), 0, np.array(zs, np.uint32).tobytes())
+    rec = np.frombuffer(out, np.uint32).reshape(len(zs), 11)
+    got = fe.to_ints(_planes(rec[:, :10], 1)[0])
+    dens = [_value(row) % p for row in zs]
+    want = [pow(d, p - 2, p) for d in dens]
+    if case == "quotients":
+        want = [_value(n) * w % p for (n, _), w in zip(pairs, want)]
+        # every lane through all 25 batches, as the kernel's warp runs
+        # them: the batches after g = 0 keep the quotient
+        full = np.frombuffer(harness(b"J", len(pairs), 0, np.array(
+            pairs, np.uint32).tobytes()), np.uint32).reshape(-1, 10)
+        assert fe.to_ints(_planes(full, 1)[0]) == want
     assert got == want
-    assert got[:4] == [0, 1, fe.P - 1, 0]
+    batches = rec[:, 10].astype(int).tolist()
+    assert batches == [max(1, -(-rc_divsteps(d) // 30)) for d in dens]
+    if case == "edges":
+        assert got[:4] == [0, 1, (p + 1) // 2, p - 1]
+        assert got[-2] == 0 and max(batches) <= 25
+    if case == "longest":
+        assert batches[0] == max(batches) >= 19
+        assert rc_divsteps(dens[0]) >= 550
 
 
 def _planes(raw: np.ndarray, k: int) -> list[torch.Tensor]:
@@ -1114,17 +1205,23 @@ int main() {
     }
     fwrite(full.data(), 1, full.size(), stdout);
     fwrite(ok.data(), 1, ok.size(), stdout);
-  } else {               // 'w': n lanes of maxlen k: D, then each lane's
-    int D;               // len, idx, depth, row and proof; out: the roots
-    rd(&D, 4);
-    std::vector<uint8_t> row(k), proof((size_t)20 * D);
+  } else {               // 'w': n lanes of rows k bytes apart: D and the
+    int D, at;           // first row's offset at, the blob, then each
+    rd(&D, 4);           // lane's len, idx, depth and proof; out: roots
+    rd(&at, 4);
+    // the blob 16-byte aligned with 16 bytes on each side, as device
+    // allocations are, so the aligned chunks around a row are readable
+    const size_t sz = (size_t)n * k + at;
+    std::vector<uint8_t> buf(sz + 48), proof((size_t)20 * D);
+    uint8_t *blob = buf.data() + 16 + (16 - (uintptr_t)buf.data() % 16) % 16;
+    rd(blob, sz);
     for (int i = 0; i < n; i++) {
       int lid[3];
       rd(lid, 12);
-      rd(row.data(), row.size());
       rd(proof.data(), proof.size());
       uint8_t root[32];
-      bmw_lane(root, row.data(), lid[0], lid[1], proof.data(), lid[2]);
+      bmw_lane(root, blob + at + (size_t)i * k, lid[0], lid[1], proof.data(),
+               lid[2]);
       fwrite(root, 1, 32, stdout);
     }
   }
@@ -1188,29 +1285,38 @@ def test_gf2_lane_matches_plain_and_host_model(harness_shred, K, N, S):
     assert np.array_equal(full[0], cw) and ok[:2].tolist() == [1, 0]
 
 
-def test_bmtree_walk_lane_matches_plain_and_hashlib(harness_shred):
-    """Kernel D's lane: the padded leaf blocks and the node levels, at
+@pytest.mark.parametrize("case", ["edges", "offsets"])
+def test_bmtree_walk_lane_matches_plain_and_hashlib(harness_shred, case):
+    """Kernel D's lane as the kernel stages it (the aligned 16-byte chunks
+    around each row, the prefix and padding written over them, each word
+    one byte permute): the padded leaf blocks and the node levels, at
     every depth 0-15 and the leaf lengths on each SHA-256 padding edge
-    (26 + len mod 64 = 55, 56, 63, 0), against the plain version and
-    np_batch_walk_roots."""
+    (WALK_EDGE_LENS: 26 + len mod 64 = 55, 56, 63, 0), against the plain
+    version and np_batch_walk_roots.  edges: contiguous 1,164-byte rows;
+    offsets: rows of 1,164 bytes at every offset 0-15 of a blob whose rows
+    are 1,560 bytes apart (the shred tile's), each offset one blob."""
     from firedancer_tpu_torch.ballet import bmtree as bm
     from firedancer_tpu_torch.ops import bmtree_walk as bw
     rng = np.random.default_rng(16)
     B, ml, D = 24, 1164, 15
-    leaf = rng.integers(0, 256, (B, ml), np.uint8)
-    lens = rng.integers(0, ml + 1, B).astype(np.int32)
-    lens[:11] = [0, 1, 29, 30, 37, 38, 93, 94, 101, 102, 1164]
-    idxs = rng.integers(0, 1 << 15, B).astype(np.int32)
-    proofs = rng.integers(0, 256, (B, D, 20), np.uint8)
-    depths = (np.arange(B) % (D + 1)).astype(np.int32)
-    payload = struct.pack("<i", D) + b"".join(
-        struct.pack("<iii", lens[i], idxs[i], depths[i]) + leaf[i].tobytes()
-        + proofs[i].tobytes() for i in range(B))
-    got = np.frombuffer(harness_shred(b"w", B, ml, payload),
-                        np.uint8).reshape(B, 32)
-    plain = bw.bmtree_walk(torch.from_numpy(leaf), lens, idxs,
-                           torch.from_numpy(proofs), depths)
-    assert got.tolist() == plain.tolist()
-    assert [bytes(r) for r in got] == bm.np_batch_walk_roots(
-        [leaf[i, :lens[i]] for i in range(B)], idxs.tolist(),
-        [list(proofs[i, :depths[i]]) for i in range(B)])
+    stride, offsets = (ml, [0]) if case == "edges" else (1560, range(16))
+    for at in offsets:
+        blob = rng.integers(0, 256, (B, stride + 16), np.uint8)
+        leaf = blob[:, at:at + ml]
+        lens = rng.integers(0, ml + 1, B).astype(np.int32)
+        lens[:len(WALK_EDGE_LENS)] = WALK_EDGE_LENS
+        idxs = rng.integers(0, 1 << 15, B).astype(np.int32)
+        proofs = rng.integers(0, 256, (B, D, 20), np.uint8)
+        depths = ((np.arange(B) + at) % (D + 1)).astype(np.int32)
+        flat = blob[:, :stride].tobytes() + blob[-1, stride:].tobytes()
+        payload = struct.pack("<ii", D, at) + flat[:B * stride + at] + \
+            b"".join(struct.pack("<iii", lens[i], idxs[i], depths[i])
+                     + proofs[i].tobytes() for i in range(B))
+        got = np.frombuffer(harness_shred(b"w", B, stride, payload),
+                            np.uint8).reshape(B, 32)
+        plain = bw.bmtree_walk(torch.from_numpy(np.ascontiguousarray(leaf)),
+                               lens, idxs, torch.from_numpy(proofs), depths)
+        assert got.tolist() == plain.tolist(), at
+        assert [bytes(r) for r in got] == bm.np_batch_walk_roots(
+            [leaf[i, :lens[i]] for i in range(B)], idxs.tolist(),
+            [list(proofs[i, :depths[i]]) for i in range(B)]), at

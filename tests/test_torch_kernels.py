@@ -467,7 +467,7 @@ def test_gf2_recover_blob_and_encode_match_plain(cuda):
     assert np.array_equal(par, rs.encode(data, 32, device=False))
 
 
-@pytest.mark.parametrize("B", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 127, 128, 129, 4096])
 def test_bmtree_walk_kernel_matches_plain(cuda, B):
     from firedancer_tpu_torch.ballet import bmtree as bm
     from firedancer_tpu_torch.ops import bmtree_walk as bw
@@ -491,3 +491,24 @@ def test_bmtree_walk_kernel_matches_plain(cuda, B):
     assert [bytes(r) for r in got[:k].numpy()] == bm.np_batch_walk_roots(
         [leaf[i, :lens[i]].numpy() for i in range(k)], idxs[:k].tolist(),
         [list(proofs[i, :depths[i]].numpy()) for i in range(k)])
+
+
+@pytest.mark.parametrize("at", range(16))
+def test_bmtree_walk_kernel_on_unaligned_rows(cuda, at):
+    """Leaf rows at offset at of a blob whose rows are 1,560 bytes apart
+    (the shred tile's), 40 lanes over two blocks: the kernel's roots equal
+    the plain version's on the rows copied out."""
+    from firedancer_tpu_torch.ops import bmtree_walk as bw
+    rng = np.random.default_rng(at)
+    B, ml, D = 40, 1164, 15
+    blob = torch.from_numpy(rng.integers(0, 256, (B, 1560), np.uint8))
+    lens = rng.integers(0, ml + 1, B).astype(np.int32)
+    lens[:11] = [0, 1, 29, 30, 37, 38, 93, 94, 101, 102, 1164]
+    idxs = rng.integers(0, 1 << 15, B).astype(np.int32)
+    proofs = torch.from_numpy(rng.integers(0, 256, (B, D, 20), np.uint8))
+    depths = (np.arange(B) % (D + 1)).astype(np.int32)
+    got = bw.bmtree_walk(blob.to(cuda)[:, at:at + ml], lens, idxs,
+                         proofs.to(cuda), depths).cpu()
+    assert torch.equal(got, bw.bmtree_walk_plain(
+        blob[:, at:at + ml].contiguous(), torch.from_numpy(lens),
+        torch.from_numpy(idxs), proofs, torch.from_numpy(depths)))
