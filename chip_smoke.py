@@ -56,6 +56,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import math
 import multiprocessing as mp
 import os
 import statistics
@@ -1755,9 +1756,10 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     through a whole slot of 7 mixin entries and one tick entry a tick,
     and verify_entries re-checks its entries, one of them corrupted.
     (c) The mixin-tree kernel against its plain version and txn_mixin at
-    widths 1-33 and at the tile's 8 x 31.  (d) leader-bench in spawned
-    processes at the [leader] defaults, with forged txns injected beside
-    the source's.  (e) The poh_dev tile at hpt x tps in process under
+    widths 1-33 and at the tile's 8 x 31, and against its plain version
+    at 2 x 1,024 and at widths past the half and past W at W 1,024.
+    (d) leader-bench in spawned processes at the [leader] defaults, with
+    forged txns injected beside the source's.  (e) The poh_dev tile at hpt x tps in process under
     the port's Mux, fed e_mbs microblocks for one slot, and the chain
     lane's hashes by the slot's close against the slot's.  Each path runs
     with the launch counts set to 0 just before it.  device None is the
@@ -2106,18 +2108,38 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     if [bytes(r) for r in k.cpu().numpy()] != [entry_lib.txn_mixin(ts)
                                                for ts in tile_mbs]:
         raise AssertionError("phase 15c: 8 x 31 differs from txn_mixin")
+    # W 1,024: two full trees, then widths past the half and past W
+    for ws in ([1024, 1024], [513, 777, 1023, 2000]):
+        s_w = torch.from_numpy(rng.integers(0, 256, (len(ws), 1024, 64),
+                                            np.uint8)).to(dev)
+        w_w = torch.tensor(ws, dtype=torch.int32, device=dev)
+        k_w, p_w = mt.mixin_tree(s_w, w_w), mt.mixin_tree_plain(s_w, w_w)
+        if not torch.equal(k_w, p_w):
+            raise AssertionError(f"phase 15c: W 1024, widths {ws}: kernel "
+                                 f"differs from plain")
+        merr = max(merr, int((k_w.to(torch.int16) - p_w).abs().max()))
     m_ms = cuda_ms(lambda: mt.mixin_tree(s_d, w_d))
     m_dev = dev_ms(lambda: mt.mixin_tree(s_d, w_d), "mixin_tree_kernel")
     m_plain = cuda_ms(lambda: mt.mixin_tree_plain(s_d, w_d), PLAIN_RUNS, 1)
     m_ops = tuple(x * _tree_hashes([31] * 8) for x in SHA256_NODE_OPS)
     m_bytes = 8 * 32 * 64 + 8 * 4 + 8 * 32
+    # a tree of 31 leaves is 6 nodes in series, each two compressions
+    m_levels = 1 + math.ceil(math.log2(31))
+    m_cp = m_levels * 2 * 64 * SHA256_ROUND_DEPTH / clock_hz * 1e3
     m_bound = max((m_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                  (_sha256_bound_ms(m_ops, int_ops_per_s), "operations"))
+                  (_sha256_bound_ms(m_ops, int_ops_per_s), "operations"),
+                  (m_cp, "operations"))
     note(f"phase 15c: mixin tree: widths 1-33 (padded to 40 x 64) == "
-         f"txn_mixin in one launch; kernel == plain at 40 x 64 and at the "
+         f"txn_mixin in one launch; kernel == plain at 40 x 64, at 2 x "
+         f"1024, at widths 513, 777, 1023 and 2000 of W 1024 and at the "
          f"tile's 8 x 31 (W 32), == txn_mixin; 8 x 31: kernel "
          f"{m_ms:.5f} ms, device {m_dev:.5f} ms, plain {m_plain:.4f} ms, "
-         f"bound {m_bound[0]:.6f} ms ({m_bound[1]}); max error {merr}")
+         f"bound {m_bound[0]:.6f} ms (the largest of bytes "
+         f"{m_bytes / HBM_BYTES_PER_S * 1e3:.6f}, issue "
+         f"{_sha256_bound_ms(m_ops, int_ops_per_s):.6f} and the critical "
+         f"path, {m_levels} nodes x 2 compressions x 64 rounds x "
+         f"{SHA256_ROUND_DEPTH} dependent operations at "
+         f"{clock_hz / 1e6:.0f} MHz, {m_cp:.6f}); max error {merr}")
     out.update(m_err=merr, m_ms=m_ms, m_dev=m_dev, m_plain=m_plain,
                m_bound=m_bound)
 
@@ -2521,10 +2543,10 @@ def turbine_cfg(keys: dict, child_port: int, spe: int = 432_000) -> dict:
                        keys["child"].hex(): [0, "127.0.0.1", child_port]}}
 
 
-def _recover_bitmat(k: int, n: int, use: tuple) -> bytes:
-    """A pattern's reconstruction bit-matrix (pool worker)."""
+def _recover_gfmat(k: int, n: int, use: tuple) -> bytes:
+    """A pattern's reconstruction matrix, N x K bytes (pool worker)."""
     from firedancer_tpu_torch.ballet import reedsol as rs
-    return rs._recover_matrices(k, n, use)[1]
+    return rs._recover_matrices(k, n, use)
 
 
 def _walk_rows(shreds):
@@ -2573,7 +2595,8 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     """Phase 16: the turbine shred lane at the JAX defaults.  (a) The
     GF(2) kernel on bench.py::measure_shred_recover's ragged-erasure
     32:32 sets (i % 32 erasures), 8 a dispatch, against its plain version
-    and the codewords; one corrupted survivor; mixed geometry with
+    and the codewords, also cut to 1, 127 and 129 bytes across the
+    kernel's column tiles; one corrupted survivor; mixed geometry with
     padding, k = 1 and the protocol limit 67:67 through recover_batch
     against the host model; encode at 32:32.  (b) The merkle walk kernel
     on the 64 shreds of a signed 32:32 set against its plain version,
@@ -2636,12 +2659,12 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
         sets.append((shreds, k, sz))
     uses = [tuple([j for j, s in enumerate(sh) if s is not None][:k])
             for sh, _, _ in sets]
-    bms = pool.starmap(_recover_bitmat, [(k, n, u) for u in uses])
+    gms = pool.starmap(_recover_gfmat, [(k, n, u) for u in uses])
     row = rs.recover_blob_row_bytes(k, n, sz)
-    blobs, bitmats = [], []
+    blobs, gfmats = [], []
     for g in range(0, n_sets, SHRED_BATCH_SETS):
         blob = np.zeros((SHRED_BATCH_SETS, row), np.uint8)
-        bm = np.zeros((SHRED_BATCH_SETS, 8 * n, 8 * k), np.int8)
+        gm = np.zeros((SHRED_BATCH_SETS, n, k), np.uint8)
         for r in range(SHRED_BATCH_SETS):
             shreds = sets[g + r][0]
             for c, j in enumerate(uses[g + r]):
@@ -2650,15 +2673,15 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
                 if s is not None:
                     blob[r, (k + j) * sz:(k + j + 1) * sz] = s
                     blob[r, (k + n) * sz + j] = 1
-            bm[r] = np.frombuffer(bms[g + r], np.int8).reshape(8 * n, 8 * k)
+            gm[r] = np.frombuffer(gms[g + r], np.uint8).reshape(n, k)
         blobs.append(torch.from_numpy(blob).to(dev))
-        bitmats.append(torch.from_numpy(bm).to(dev))
+        gfmats.append(torch.from_numpy(gm).to(dev))
     reset_counts()
     verdicts = [gf2.recover_blob(b, m, k, n, sz)
-                for b, m in zip(blobs, bitmats)]
+                for b, m in zip(blobs, gfmats)]
     got = counts()
     c_err = 0
-    for g, (v, b, m) in enumerate(zip(verdicts, blobs, bitmats)):
+    for g, (v, b, m) in enumerate(zip(verdicts, blobs, gfmats)):
         p = gf2.recover_blob_plain(b, m, k, n, sz)
         if not torch.equal(v, p):
             raise AssertionError(f"phase 16a: dispatch {g}: kernel differs "
@@ -2677,11 +2700,36 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     bad = blobs[0].clone()
     j = uses[3][-1]
     bad[3, (k + j) * sz + 17] ^= 0x08
-    ok = gf2.recover_blob(bad, bitmats[0], k, n, sz)[:, -1].cpu().tolist()
+    ok = gf2.recover_blob(bad, gfmats[0], k, n, sz)[:, -1].cpu().tolist()
     if ok != [1, 1, 1, 0, 1, 1, 1, 1] or not torch.equal(
-            gf2.recover_blob(bad, bitmats[0], k, n, sz),
-            gf2.recover_blob_plain(bad, bitmats[0], k, n, sz)):
+            gf2.recover_blob(bad, gfmats[0], k, n, sz),
+            gf2.recover_blob_plain(bad, gfmats[0], k, n, sz)):
         raise AssertionError(f"phase 16a: corrupted survivor: flags {ok}")
+    # set widths across the kernel's column tiles (64 bytes a block): 1,
+    # 127 and 129 bytes, the first 8 patterns, one launch a width
+    for s_e in (1, 127, 129):
+        cws = [np.vstack([d[:, :s_e], rs.encode(d[:, :s_e], k,
+                                                 device=False)])
+               for d in data[:SHRED_BATCH_SETS]]
+        surv_e = torch.from_numpy(np.stack([cw[list(u)] for cw, u in
+                                            zip(cws, uses)])).to(dev)
+        ref_e = torch.from_numpy(np.stack(cws)).to(dev)
+        have_e = torch.zeros((SHRED_BATCH_SETS, n), dtype=torch.bool)
+        for r, u in enumerate(uses[:SHRED_BATCH_SETS]):
+            have_e[r, [j for j, s in enumerate(sets[r][0])
+                       if s is not None]] = True
+        have_e = have_e.to(dev)
+        reset_counts()
+        f_e, ok_e = gf2.gf2_recover(surv_e, gfmats[0], ref_e, have_e)
+        if counts()["gf2_recover"] != 1:
+            raise AssertionError(f"phase 16a: S {s_e}: launches {counts()}")
+        pf_e, pok_e = gf2.gf2_recover_plain(surv_e, gfmats[0], ref_e,
+                                            have_e)
+        if not (torch.equal(f_e, pf_e) and torch.equal(ok_e, pok_e)
+                and torch.equal(f_e, ref_e) and bool(ok_e.all())):
+            raise AssertionError(f"phase 16a: S {s_e}: kernel differs from "
+                                 f"plain or the codewords")
+        c_err = max(c_err, int((f_e.to(torch.int16) - pf_e).abs().max()))
     # mixed geometry with padding (8:8, 3:5 and 1:1 beside a 32:32 set,
     # at sizes 1059, 33 and 1019) and the protocol limit 67:67, through
     # recover_batch against the host model
@@ -2708,7 +2756,7 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
     if launched != 1:
         raise AssertionError(f"phase 16a: recover_batch launched {launched}")
     # the timed shape: one dispatch of 8 sets
-    b0, m0 = blobs[0], bitmats[0]
+    b0, m0 = blobs[0], gfmats[0]
     c_ms = cuda_ms(lambda: gf2.recover_blob(b0, m0, k, n, sz))
     c_dev = _launch_ms(torch, gf2, "gf2_recover",
                        lambda: gf2.recover_blob(b0, m0, k, n, sz))
@@ -2716,10 +2764,11 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
         raise AssertionError(f"phase 16a: gf2_recover device ms {c_dev}")
     c_plain = cuda_ms(lambda: gf2.recover_blob_plain(b0, m0, k, n, sz),
                       PLAIN_RUNS, 1)
-    # the library yardstick: the product alone as one fp16 torch.bmm (0/1
-    # entries, sums <= 8 * 67, exact in fp16), on the unpacked survivors
+    # the library yardstick: the product alone as one fp16 torch.bmm of
+    # the expanded bit-matrices (0/1 entries, sums <= 8 * 67, exact in
+    # fp16), on the unpacked survivors
     surv = b0[:, :k * sz].reshape(SHRED_BATCH_SETS, k, sz)
-    bits16, bm16 = gf2._unpack(surv).half(), m0.half()
+    bits16, bm16 = gf2._unpack(surv).half(), gf2.bitmatrix_plain(m0).half()
     prod = (torch.bmm(bm16, bits16).to(torch.int64) & 1).reshape(
         SHRED_BATCH_SETS, n, 8, sz)
     sh8 = torch.arange(8, device=dev)[None, None, :, None]
@@ -2733,7 +2782,8 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
                   (c_ops / INT8_TENSOR_OPS_PER_S * 1e3, "operations"))
     note(f"phase 16a: gf2_recover: {n_sets} ragged-erasure 32:32 sets (i % "
          f"32 erasures) in {len(blobs)} dispatches of {SHRED_BATCH_SETS} == "
-         f"plain == the codewords, ok all 1; encode 32:32 == host model; a "
+         f"plain == the codewords, ok all 1, also at 1, 127 and 129 bytes; "
+         f"encode 32:32 == host model; a "
          f"corrupted survivor drops its set's flag alone; mixed geometry "
          f"with padding, k = 1 and 67:67 through recover_batch == host "
          f"model in 1 launch; {SHRED_BATCH_SETS} x 32:32 x {sz}: call "

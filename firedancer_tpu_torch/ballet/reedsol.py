@@ -9,9 +9,12 @@ GF(2)-linear on the 8 bits, so encode and recover are each one binary
 matrix product: unpack shred bytes to bit-planes, multiply by the
 generator's (or the erasure pattern's reconstruction matrix's) bit-matrix
 mod 2, repack.  The device paths run that product on the GF(2) kernel
-(ops/gf2_recover.py, csrc/gf2_recover.cu), one launch a call; the
+(ops/gf2_recover.py, csrc/gf2_recover.cu), one launch a call, which takes
+the GF(2^8) matrix and expands its bit-matrix itself; the
 reconstruction matrices are built on the host per erasure pattern
-(O(k^3) GF Gauss-Jordan) and LRU-cached.  device=False is the
+(O(k^3) GF Gauss-Jordan) and LRU-cached.  _bitmatrix stays as the host
+model of that expansion (the JAX package's device paths take its
+output).  device=False is the
 table-driven host model.  torch_device picks the card the device paths
 run on: None is the GPU (raising where there is none); tests pass "cpu",
 which runs the kernel's plain version.
@@ -158,7 +161,7 @@ def encode(data_shreds: np.ndarray, parity_cnt: int, device: bool = True,
         return _mat_mul(P, data_shreds.astype(np.uint8))
     dev = resolve_device(torch_device)
     return gf2.gf2_encode(_upload(data_shreds, np.uint8, dev),
-                          _upload(_bitmatrix(P), np.int8, dev)).cpu().numpy()
+                          _upload(P, np.uint8, dev)).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -168,15 +171,18 @@ def encode(data_shreds: np.ndarray, parity_cnt: int, device: bool = True,
 # surviving codeword bytes straight to the WHOLE codeword (data recover +
 # parity re-derive in one product); rows of R at used survivor positions
 # are the selection identity, so the consistency check reduces to
-# comparing the re-derived codeword against every surviving shred.  R (and
-# its GF(2) bit-matrix) is LRU-cached per (k, n, erasure-pattern).
+# comparing the re-derived codeword against every surviving shred.  R is
+# LRU-cached per (k, n, erasure-pattern); the kernel expands its GF(2)
+# bit-matrix on the card.
 
 _RECOVER_CACHE_MAX = 1024
 
 
 @functools.lru_cache(maxsize=_RECOVER_CACHE_MAX)
-def _recover_matrices(k: int, n: int, use: tuple) -> tuple:
-    """(R bytes, R bit-matrix bytes) for surviving indices `use` (len k).
+def _recover_matrices(k: int, n: int, use: tuple) -> bytes:
+    """R's bytes for surviving indices `use` (len k): the first half of the
+    JAX package's (R, bit-matrix) pair, whose second half the kernel
+    computes itself.
 
     Fast path: when the first k survivors are exactly 0..k-1 (no data
     erasures) the inner inverse is the identity — _mat_inv is skipped
@@ -186,7 +192,7 @@ def _recover_matrices(k: int, n: int, use: tuple) -> tuple:
         R = A  # identity reconstruction: no data erasures
     else:
         R = _mat_mul(A, _mat_inv(A[list(use), :]))
-    return R.tobytes(), _bitmatrix(R).tobytes()
+    return R.tobytes()
 
 
 def recover_cache_info():
@@ -198,14 +204,9 @@ def recover_cache_clear() -> None:
     _recover_matrices.cache_clear()
 
 
-def _recover_bitmat(k: int, n: int, use: tuple) -> np.ndarray:
-    _, bits = _recover_matrices(k, n, use)
-    return np.frombuffer(bits, dtype=np.int8).reshape(8 * n, 8 * k)
-
-
 def _recover_gfmat(k: int, n: int, use: tuple) -> np.ndarray:
-    R, _ = _recover_matrices(k, n, use)
-    return np.frombuffer(R, dtype=np.uint8).reshape(n, k)
+    return np.frombuffer(_recover_matrices(k, n, use),
+                         dtype=np.uint8).reshape(n, k)
 
 
 class CorruptSetError(ValueError):
@@ -250,7 +251,7 @@ def recover(
         dev = resolve_device(torch_device)
         full_arr = gf2.gf2_encode(
             _upload(S, np.uint8, dev),
-            _upload(_recover_bitmat(k, n, use), np.int8, dev)).cpu().numpy()
+            _upload(_recover_gfmat(k, n, use), np.uint8, dev)).cpu().numpy()
     else:
         full_arr = _mat_mul(_recover_gfmat(k, n, use), S)
 
@@ -266,7 +267,7 @@ def recover(
 # Batched multi-set recovery: many FEC sets per launch.
 #
 # Surviving shreds from B sets pad/stack into (B, K, S) against a stacked
-# per-set reconstruction bit-matrix (B, 8N, 8K); one launch re-derives
+# per-set reconstruction matrix (B, N, K); one launch re-derives
 # every codeword and computes the per-set consistency verdict (recovered
 # == every surviving shred).  Zero-padding is self-consistent: padded
 # rows/columns of a GF(2)-linear map produce zeros, which compare equal
@@ -274,8 +275,8 @@ def recover(
 #
 # The packed-blob form (the dispatch engine's workload, ShredRecoverIngest
 # in disco/shred_tiles.py): one FEC set per row, surv[K*S] | ref[N*S] |
-# have[N], all uint8; the per-set reconstruction bit-matrix rides in a
-# sibling (B, 8N, 8K) array.  Verdict row = full[N*S] | ok[1], so the
+# have[N], all uint8; the per-set reconstruction matrix rides in a
+# sibling (B, N, K) array.  Verdict row = full[N*S] | ok[1], so the
 # engine harvests ONE device array.
 
 
@@ -287,19 +288,20 @@ def recover_verdict_row_bytes(n_max: int, sz: int) -> int:
     return n_max * sz + 1
 
 
-def recover_blob(blob: torch.Tensor, bitmat: torch.Tensor,
+def recover_blob(blob: torch.Tensor, gfmat: torch.Tensor,
                  k_max: int, n_max: int, sz: int) -> torch.Tensor:
     """Packed-row batched recover: blob (B, recover_blob_row_bytes(...))
-    uint8 + bitmat (B, 8*n_max, 8*k_max) int8, tensors on one device ->
+    uint8 + gfmat (B, n_max, k_max) uint8 (the JAX package takes the
+    bit-matrices, (B, 8*n_max, 8*k_max) int8), tensors on one device ->
     (B, n_max*sz + 1) uint8 verdict rows (recovered codeword bytes, then
     the ok flag), one launch of the GF(2) kernel."""
-    return gf2.recover_blob(blob, bitmat, k_max, n_max, sz)
+    return gf2.recover_blob(blob, gfmat, k_max, n_max, sz)
 
 
 def _stack_recover_batch(sets: list):
     """Host-side pack: validate + stack B sets for the fused dispatch.
 
-    Returns (surv, bitmat, ref, have, metas, errs) where metas[i] is
+    Returns (surv, gfmat, ref, have, metas, errs) where metas[i] is
     (k, n, sz, have_idx) for packable sets and errs[i] is a ValueError for
     sets rejected before dispatch (too few survivors / over limits)."""
     B = len(sets)
@@ -320,7 +322,7 @@ def _stack_recover_batch(sets: list):
         K, N, S = max(K, k), max(N, n), max(S, sz)
         packable.append(bi)
     surv = np.zeros((B, K, S), dtype=np.uint8)
-    bitmat = np.zeros((B, 8 * N, 8 * K), dtype=np.int8)
+    gfmat = np.zeros((B, N, K), dtype=np.uint8)
     ref = np.zeros((B, N, S), dtype=np.uint8)
     have_m = np.zeros((B, N), dtype=bool)
     for bi in packable:
@@ -329,12 +331,11 @@ def _stack_recover_batch(sets: list):
         use = tuple(have[:k])
         for r, i in enumerate(use):
             surv[bi, r, :sz] = np.asarray(shreds[i], dtype=np.uint8)
-        bm = _recover_bitmat(k, n, use)
-        bitmat[bi, :8 * n, :8 * k] = bm
+        gfmat[bi, :n, :k] = _recover_gfmat(k, n, use)
         for i in have:
             ref[bi, i, :sz] = np.asarray(shreds[i], dtype=np.uint8)
             have_m[bi, i] = True
-    return surv, bitmat, ref, have_m, metas, errs
+    return surv, gfmat, ref, have_m, metas, errs
 
 
 def _finish_recover_batch(full: np.ndarray, ok: np.ndarray,
@@ -379,10 +380,10 @@ def recover_batch(sets: list, device: bool = True,
             except ValueError as e:
                 out.append(e)
         return out
-    surv, bitmat, ref, have_m, metas, errs = _stack_recover_batch(sets)
+    surv, gfmat, ref, have_m, metas, errs = _stack_recover_batch(sets)
     dev = resolve_device(torch_device)
     full_d, ok_d = gf2.gf2_recover(
-        _upload(surv, np.uint8, dev), _upload(bitmat, np.int8, dev),
+        _upload(surv, np.uint8, dev), _upload(gfmat, np.uint8, dev),
         _upload(ref, np.uint8, dev), _upload(have_m, bool, dev))
     return _finish_recover_batch(full_d.cpu().numpy(), ok_d.cpu().numpy(),
                                  metas, errs)

@@ -99,19 +99,6 @@ FD_FN void bmw_fix(uint8_t *st, int off, int P0, int len, int nb) {
   }
 }
 
-// Bytes sel's nibbles pick from hi:lo (__byte_perm).
-FD_FN uint32_t bmw_perm(uint32_t lo, uint32_t hi, uint32_t sel) {
-#if defined(__CUDACC__)
-  return __byte_perm(lo, hi, sel);
-#else
-  const uint64_t x = ((uint64_t)hi << 32) | lo;
-  uint32_t r = 0;
-  for (int n = 0; n < 4; n++)
-    r |= (uint32_t)((x >> (8 * ((sel >> (4 * n)) & 7))) & 0xff) << (8 * n);
-  return r;
-#endif
-}
-
 // Block blk of the staged window as 16 big-endian words: word i is
 // staged bytes off + 64 blk + 4 i .. + 3, one permute of the two staged
 // words that hold them.
@@ -123,7 +110,7 @@ FD_FN void bmw_block_words(uint32_t w[16], const uint32_t *st, int off,
 #pragma unroll
   for (int i = 0; i < 16; i++) {
     const uint32_t hi = s[i + 1];
-    w[i] = bmw_perm(lo, hi, sel);
+    w[i] = s256_perm(lo, hi, sel);
     lo = hi;
   }
 }

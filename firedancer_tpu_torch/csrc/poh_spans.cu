@@ -33,7 +33,7 @@
 //    shifts, 4 LOP3), and issues them at ~2 cycles each: that, and the
 //    schedule warp's fetch and handovers beside it, is the bound now;
 //  - the rounds' two-input adds and the schedule's adds run on the FMA
-//    pipe as IMAD, multiplies by a 1 that ptxas cannot see (POH_ONE), so
+//    pipe as IMAD, multiplies by a 1 that ptxas cannot see (S256_ONE), so
 //    it cannot turn them back into IADD3.  Rotations and shifts stay SHF:
 //    as IMAD.HI forms they were slower on this card;
 //  - what is constant is folded: H0 through the first rounds, and an
@@ -53,67 +53,6 @@
 
 #include "sha256.cuh"
 
-// ---- integer work on the FMA pipe ------------------------------------------
-// The 1 is read from constant memory, which the host may rewrite, so the
-// compiler cannot fold the multiply and turn it back into an IADD3.
-S256_CONST uint32_t POH_ONE = 1u;
-
-// x + y, as mad.lo(x, 1, y) on the FMA pipe where imad; a plain add where
-// an operand may be a constant that the compiler should fold: rounds 0-3
-// see H0's, and rounds 0-15 add K_t + W_t, an append's tail in 8-15.
-FD_FN uint32_t poh_add(uint32_t x, uint32_t y, bool imad) {
-  if (!imad) return x + y;
-#if defined(__CUDA_ARCH__)
-  uint32_t r;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(POH_ONE), "r"(y));
-  return r;
-#else
-  return x * POH_ONE + y;
-#endif
-}
-
-// Round t of a block's first compression, kw = K_t + W_t; the working
-// words rotate by renaming.  The rotations stay funnel shifts (SHF): as
-// two IMAD.HI forms each they were slower on this card (PERF.md).
-#define POH_ROUND(a, b, c, d, e, f, g, h, kw, t)                             \
-  do {                                                                      \
-    const bool live_ = (t) >= 4;                                            \
-    const uint32_t s1_ = s256_rotr(e, 6) ^ s256_rotr(e, 11) ^               \
-                         s256_rotr(e, 25);                                  \
-    const uint32_t s0_ = s256_rotr(a, 2) ^ s256_rotr(a, 13) ^               \
-                         s256_rotr(a, 22);                                  \
-    const uint32_t t1_ = poh_add(                                           \
-        poh_add(poh_add(h, kw, (t) >= 16), (e & f) ^ (~e & g), live_),      \
-        s1_, live_);                                                        \
-    d = poh_add(d, t1_, live_);                                             \
-    h = poh_add(poh_add(t1_, (a & b) ^ (a & c) ^ (b & c), live_), s0_,      \
-                live_);                                                     \
-  } while (0)
-
-// Rounds t0 .. t0 + 7, kw[i] = K + W of round t0 + i.
-FD_FN void poh_rounds8(uint32_t v[8], const uint32_t *kw, int t0) {
-  uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
-  uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
-  POH_ROUND(a, b, c, d, e, f, g, h, kw[0], t0 + 0);
-  POH_ROUND(h, a, b, c, d, e, f, g, kw[1], t0 + 1);
-  POH_ROUND(g, h, a, b, c, d, e, f, kw[2], t0 + 2);
-  POH_ROUND(f, g, h, a, b, c, d, e, kw[3], t0 + 3);
-  POH_ROUND(e, f, g, h, a, b, c, d, kw[4], t0 + 4);
-  POH_ROUND(d, e, f, g, h, a, b, c, kw[5], t0 + 5);
-  POH_ROUND(c, d, e, f, g, h, a, b, kw[6], t0 + 6);
-  POH_ROUND(b, c, d, e, f, g, h, a, kw[7], t0 + 7);
-  v[0] = a; v[1] = b; v[2] = c; v[3] = d;
-  v[4] = e; v[5] = f; v[6] = g; v[7] = h;
-}
-
-// H0 as literals, so that the compiler folds it (S256_H0 is constant
-// memory).
-FD_FN void poh_h0(uint32_t h[8]) {
-  h[0] = 0x6a09e667u; h[1] = 0xbb67ae85u; h[2] = 0x3c6ef372u;
-  h[3] = 0xa54ff53au; h[4] = 0x510e527fu; h[5] = 0x9b05688cu;
-  h[6] = 0x1f83d9abu; h[7] = 0x5be0cd19u;
-}
-
 // The 16 message words of a lane's hash: the state, then the mixin at
 // p (mix: this hash absorbs it) or a 32-byte message's constant tail.
 FD_FN void poh_words(uint32_t w[16], const uint32_t st[8], const uint8_t *p,
@@ -126,68 +65,12 @@ FD_FN void poh_words(uint32_t w[16], const uint32_t st[8], const uint8_t *p,
   }
 }
 
-// The schedule warp's part of a hash: K_t + W_t of rounds 16-63 from the
-// block's words w (overwritten by the schedule's ring), 16 at a time (a
-// chunk); put(c, kw) hands chunk c over and returns 0, which the next word
-// takes in (on the card a 0 that ptxas cannot see: PohPut).  Its adds run
-// on the FMA pipe, its rotations and shifts as SHF.  A loop of one chunk a
-// trip, so that the ring's indices stay constant and the warp's code is
-// small: unrolled, the schedule warp's instruction fetch slowed the rounds
-// warp beside it.
-template <class Put>
-FD_FN void poh_schedule(uint32_t w[16], Put put) {
-#pragma unroll 1
-  for (int i = 0; i < 3; i++) {
-    uint32_t kw[16];
-#pragma unroll
-    for (int k = 0; k < 16; k++) {
-      const uint32_t x15 = w[(k + 1) & 15], x2 = w[(k + 14) & 15];
-      const uint32_t s0 = s256_rotr(x15, 7) ^ s256_rotr(x15, 18) ^ (x15 >> 3);
-      const uint32_t s1 = s256_rotr(x2, 17) ^ s256_rotr(x2, 19) ^ (x2 >> 10);
-      w[k] = poh_add(poh_add(poh_add(w[k], s0, true), w[(k + 9) & 15], true),
-                     s1, true);
-      kw[k] = w[k] + S256_K[16 + 16 * i + k];
-    }
-    w[0] ^= put(i, kw);
-  }
-}
-
-// The rounds warp's part of a hash's first compression: v = the working
-// words after 64 rounds from H0, rounds 0-15 on w, rounds 16-63 on the
-// chunks that get(c, kw, v) hands over (v: the working words before
-// them).
-template <class Get>
-FD_FN void poh_rounds(uint32_t v[8], const uint32_t w[16], Get get) {
-  // the first 16 round constants as literals, so that an append's
-  // K_t + W_t of rounds 8-15 folds
-  const uint32_t k16[16] = {
-      0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u,
-      0x3956c25bu, 0x59f111f1u, 0x923f82a4u, 0xab1c5ed5u,
-      0xd807aa98u, 0x12835b01u, 0x243185beu, 0x550c7dc3u,
-      0x72be5d74u, 0x80deb1feu, 0x9bdc06a7u, 0xc19bf174u};
-  poh_h0(v);
-#pragma unroll
-  for (int c = 0; c < 2; c++) {
-    uint32_t kw[8];
-#pragma unroll
-    for (int i = 0; i < 8; i++) kw[i] = k16[8 * c + i] + w[8 * c + i];
-    poh_rounds8(v, kw, 8 * c);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; c++) {
-    uint32_t kw[16];
-    get(c, kw, v);
-    poh_rounds8(v, kw, 16);  // rounds 16-63 take one set of forms
-    poh_rounds8(v, kw + 8, 16);
-  }
-}
-
 // A hash's end on the rounds warp: H0 + v, then a mixin's second block
 // (the constant table S256_PAD64_WK); the lane's state takes it where go
 // (its step still runs).
 FD_FN void poh_close(uint32_t st[8], const uint32_t v[8], bool mix, bool go) {
   uint32_t h[8];
-  poh_h0(h);
+  s256_h0(h);
 #pragma unroll
   for (int i = 0; i < 8; i++) h[i] += v[i];
   if (mix) s256_compress_wk(h, S256_PAD64_WK);
@@ -214,11 +97,11 @@ static inline void poh_hash(uint32_t st[8], const uint8_t *p, bool mix) {
   uint32_t w[16], ring[16], kws[48], v[8];
   poh_words(w, st, p, mix);
   for (int i = 0; i < 16; i++) ring[i] = w[i];
-  poh_schedule(ring, [&](int c, const uint32_t *kw) {
+  s256_schedule(ring, [&](int c, const uint32_t *kw) {
     for (int i = 0; i < 16; i++) kws[16 * c + i] = kw[i];
     return 0u;
   });
-  poh_rounds(v, w, [&](int c, uint32_t *kw, const uint32_t *) {
+  s256_rounds_h0(v, w, [&](int c, uint32_t *kw, const uint32_t *) {
     for (int i = 0; i < 16; i++) kw[i] = kws[16 * c + i];
   });
   poh_close(st, v, mix, true);
@@ -260,11 +143,10 @@ struct PohShared {
 // last arrivals back until all its words were done.  So each handover is
 // tied into the data: the rounds warp reads the state back from shared
 // memory after the state's barrier; its barrier ids take the working
-// words ANDed with POH_ZERO (0, which ptxas cannot see), so that each
+// words ANDed with S256_ZERO (0, which ptxas cannot see), so that each
 // waits for the rounds before it; and the schedule warp reads each chunk
 // back after its arrival and folds it, XORed with itself, into the next
 // word, so that ptxas issues the arrival as soon as the chunk is stored.
-S256_CONST uint32_t POH_ZERO = 0u;
 
 __device__ __forceinline__ void poh_sync(int bar) {
   asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
@@ -297,7 +179,7 @@ struct PohGet {
   int l;
   __device__ __forceinline__ void operator()(int c, uint32_t *kw,
                                              const uint32_t *v) const {
-    poh_sync(POH_BAR_KW + c + (int)((v[0] ^ v[4]) & POH_ZERO));
+    poh_sync(POH_BAR_KW + c + (int)((v[0] ^ v[4]) & S256_ZERO));
 #pragma unroll
     for (int q = 0; q < 4; q++) {
       const uint4 x = sh->kw[4 * c + q][l];
@@ -326,10 +208,10 @@ __device__ __forceinline__ void poh_pair_hash(PohShared *sh, int l,
   poh_words(w, cur, p, MIXING && mix);
   if (rounds) {
     uint32_t v[8];
-    poh_rounds(v, w, PohGet{sh, l});
+    s256_rounds_h0(v, w, PohGet{sh, l});
     poh_close(st, v, MIXING && mix, go);
   } else {
-    poh_schedule(w, PohPut{sh, l});
+    s256_schedule(w, PohPut{sh, l});
   }
 }
 

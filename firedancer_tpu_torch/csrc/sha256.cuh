@@ -1,7 +1,8 @@
-// SHA-256 for one lane per thread: the compression, the compression of
-// a constant block, and the fixed-length form the merkle trees hash (a
-// one-byte prefix before 64 bytes).  poh_spans.cu builds the PoH chain's
-// 32- and 64-byte forms from these on a pair of warps.
+// SHA-256 for one lane per thread: the compression and the compression
+// of a constant block; and a hash's parts on a pair of warps, the
+// schedule warp's and the rounds warp's, from which poh_spans.cu builds
+// the PoH chain's 32- and 64-byte forms and mixin_tree.cu the merkle
+// tree's 65-byte nodes.
 //
 // State and message are big-endian uint32 words, so a 32-byte digest is
 // itself the 8 message words of the next PoH hash: a chain never turns
@@ -128,23 +129,149 @@ FD_FN void s256_init(uint32_t h[8]) {
   for (int i = 0; i < 8; i++) h[i] = S256_H0[i];
 }
 
-// out = SHA-256(p || x): a one-byte prefix before 64 bytes given as 16
-// big-endian words (a merkle leaf over a signature, p = 0, or an
-// interior node over two children, p = 1).  65 bytes make two blocks:
-// the message shifted right by one byte, then x's last byte, 0x80 and
-// the bit length 520.
-FD_FN void s256_prefixed64(uint32_t out[8], uint32_t p, const uint32_t x[16]) {
-  uint32_t w[16];
-  w[0] = (p << 24) | (x[0] >> 8);
+// ---- a hash on a pair of warps: the rounds warp and the schedule warp --------
+// poh_spans.cu and mixin_tree.cu run each hash on a pair of warps: the
+// schedule warp computes K_t + W_t of rounds 16-63 and hands them over in
+// chunks of 16, the rounds warp runs the rounds (PERF.md has the
+// measurements).  The integer work of both runs partly on the FMA pipe.
+//
+// The 1 is read from constant memory, which the host may rewrite, so the
+// compiler cannot fold the multiply and turn it back into an IADD3.
+S256_CONST uint32_t S256_ONE = 1u;
+
+// x + y, as mad.lo(x, 1, y) on the FMA pipe where imad; a plain add where
+// an operand may be a constant that the compiler should fold: rounds 0-3
+// see H0's, and rounds 0-15 add K_t + W_t, an append's tail in 8-15.
+FD_FN uint32_t s256_add(uint32_t x, uint32_t y, bool imad) {
+  if (!imad) return x + y;
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(S256_ONE), "r"(y));
+  return r;
+#else
+  return x * S256_ONE + y;
+#endif
+}
+
+// Round t of a compression, kw = K_t + W_t; the working words rotate by
+// renaming.  t picks the adds' forms: rounds t < 4 from H0 add plainly,
+// so that H0 folds, and t < 16 adds kw plainly, so that a constant word
+// folds; a compression from a variable state passes t >= 8 for its
+// rounds 0-15.  The rotations stay funnel shifts (SHF): as two IMAD.HI
+// forms each they were slower on this card (PERF.md).
+#define S256_PROUND(a, b, c, d, e, f, g, h, kw, t)                           \
+  do {                                                                       \
+    const bool live_ = (t) >= 4;                                             \
+    const uint32_t s1_ = s256_rotr(e, 6) ^ s256_rotr(e, 11) ^                \
+                         s256_rotr(e, 25);                                   \
+    const uint32_t s0_ = s256_rotr(a, 2) ^ s256_rotr(a, 13) ^                \
+                         s256_rotr(a, 22);                                   \
+    const uint32_t t1_ = s256_add(                                           \
+        s256_add(s256_add(h, kw, (t) >= 16), (e & f) ^ (~e & g), live_),     \
+        s1_, live_);                                                         \
+    d = s256_add(d, t1_, live_);                                             \
+    h = s256_add(s256_add(t1_, (a & b) ^ (a & c) ^ (b & c), live_), s0_,     \
+                live_);                                                      \
+  } while (0)
+
+// Rounds t0 .. t0 + 7, kw[i] = K + W of round t0 + i.
+FD_FN void s256_rounds8(uint32_t v[8], const uint32_t *kw, int t0) {
+  uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
+  uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
+  S256_PROUND(a, b, c, d, e, f, g, h, kw[0], t0 + 0);
+  S256_PROUND(h, a, b, c, d, e, f, g, kw[1], t0 + 1);
+  S256_PROUND(g, h, a, b, c, d, e, f, kw[2], t0 + 2);
+  S256_PROUND(f, g, h, a, b, c, d, e, kw[3], t0 + 3);
+  S256_PROUND(e, f, g, h, a, b, c, d, kw[4], t0 + 4);
+  S256_PROUND(d, e, f, g, h, a, b, c, kw[5], t0 + 5);
+  S256_PROUND(c, d, e, f, g, h, a, b, kw[6], t0 + 6);
+  S256_PROUND(b, c, d, e, f, g, h, a, kw[7], t0 + 7);
+  v[0] = a; v[1] = b; v[2] = c; v[3] = d;
+  v[4] = e; v[5] = f; v[6] = g; v[7] = h;
+}
+
+// H0 as literals, so that the compiler folds it (S256_H0 is constant
+// memory).
+FD_FN void s256_h0(uint32_t h[8]) {
+  h[0] = 0x6a09e667u; h[1] = 0xbb67ae85u; h[2] = 0x3c6ef372u;
+  h[3] = 0xa54ff53au; h[4] = 0x510e527fu; h[5] = 0x9b05688cu;
+  h[6] = 0x1f83d9abu; h[7] = 0x5be0cd19u;
+}
+
+// A 0 that ptxas cannot see: a barrier id plus the working words ANDed
+// with it waits for the rounds before it (poh_spans.cu).
+S256_CONST uint32_t S256_ZERO = 0u;
+
+// The first 16 round constants as literals, for the forms that fold them.
+#define S256_K16                                          \
+  0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u,     \
+      0x3956c25bu, 0x59f111f1u, 0x923f82a4u, 0xab1c5ed5u, \
+      0xd807aa98u, 0x12835b01u, 0x243185beu, 0x550c7dc3u, \
+      0x72be5d74u, 0x80deb1feu, 0x9bdc06a7u, 0xc19bf174u
+
+// The schedule warp's part of a hash: K_t + W_t of rounds 16-63 from the
+// block's words w (overwritten by the schedule's ring), 16 at a time (a
+// chunk); put(c, kw) hands chunk c over and returns 0, which the next word
+// takes in (on the card a 0 that ptxas cannot see).  Its adds run
+// on the FMA pipe, its rotations and shifts as SHF.  A loop of one chunk a
+// trip, so that the ring's indices stay constant and the warp's code is
+// small: unrolled, the schedule warp's instruction fetch slowed the rounds
+// warp beside it.
+template <class Put>
+FD_FN void s256_schedule(uint32_t w[16], Put put) {
+#pragma unroll 1
+  for (int i = 0; i < 3; i++) {
+    uint32_t kw[16];
 #pragma unroll
-  for (int i = 1; i < 16; i++) w[i] = (x[i - 1] << 24) | (x[i] >> 8);
-  s256_init(out);
-  s256_compress(out, w);
-  w[0] = (x[15] << 24) | 0x800000u;
+    for (int k = 0; k < 16; k++) {
+      const uint32_t x15 = w[(k + 1) & 15], x2 = w[(k + 14) & 15];
+      const uint32_t s0 = s256_rotr(x15, 7) ^ s256_rotr(x15, 18) ^ (x15 >> 3);
+      const uint32_t s1 = s256_rotr(x2, 17) ^ s256_rotr(x2, 19) ^ (x2 >> 10);
+      w[k] = s256_add(
+          s256_add(s256_add(w[k], s0, true), w[(k + 9) & 15], true), s1, true);
+      kw[k] = w[k] + S256_K[16 + 16 * i + k];
+    }
+    w[0] ^= put(i, kw);
+  }
+}
+
+// The rounds warp's part of a hash's first compression: v = the working
+// words after 64 rounds from H0, rounds 0-15 on w, rounds 16-63 on the
+// chunks that get(c, kw, v) hands over (v: the working words before
+// them).
+template <class Get>
+FD_FN void s256_rounds_h0(uint32_t v[8], const uint32_t w[16], Get get) {
+  // the first 16 round constants as literals, so that an append's
+  // K_t + W_t of rounds 8-15 folds
+  const uint32_t k16[16] = {S256_K16};
+  s256_h0(v);
 #pragma unroll
-  for (int i = 1; i < 15; i++) w[i] = 0;
-  w[15] = 520;
-  s256_compress(out, w);
+  for (int c = 0; c < 2; c++) {
+    uint32_t kw[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) kw[i] = k16[8 * c + i] + w[8 * c + i];
+    s256_rounds8(v, kw, 8 * c);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; c++) {
+    uint32_t kw[16];
+    get(c, kw, v);
+    s256_rounds8(v, kw, 16);  // rounds 16-63 take one set of forms
+    s256_rounds8(v, kw + 8, 16);
+  }
+}
+
+// Bytes sel's nibbles pick from hi:lo (__byte_perm).
+FD_FN uint32_t s256_perm(uint32_t lo, uint32_t hi, uint32_t sel) {
+#if defined(__CUDACC__)
+  return __byte_perm(lo, hi, sel);
+#else
+  const uint64_t x = ((uint64_t)hi << 32) | lo;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; n++)
+    r |= (uint32_t)((x >> (8 * ((sel >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+#endif
 }
 
 // big-endian words <-> bytes

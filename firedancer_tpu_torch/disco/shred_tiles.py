@@ -406,11 +406,12 @@ class StoreTile:
 class ShredRecoverIngest:
     """Batched RS-recover workload over the packed rotation core: one FEC
     set per row in ballet.reedsol's recover_blob layout (surv | ref |
-    have), the per-set reconstruction bit-matrices riding in a sibling
-    array per rotating buffer, pinned like the buffer and paired with it
-    by index.  The engine returns a buffer to its free ring only once
-    that buffer's verdict is on the host, so a bit-matrix is never
-    rewritten while its upload or verdict is pending.  A dispatch is one
+    have), the per-set GF(2^8) reconstruction matrices riding in a
+    sibling array per rotating buffer, pinned like the buffer and paired
+    with it by index (the kernel expands their bit-matrices on the card).
+    The engine returns a buffer to its free ring only once that buffer's
+    verdict is on the host, so a matrix is never rewritten while its
+    upload or verdict is pending.  A dispatch is one
     launch of the GF(2) kernel on `device` (None: the GPU)."""
 
     def __init__(self, k_max: int = 32, n_max: int = 64, sz: int = 1019,
@@ -426,9 +427,9 @@ class ShredRecoverIngest:
                                                              sz),
                          dispatch=self._dispatch, pinned=pinned),
             nbuf=nbuf, depth=depth)
-        # sibling bit-matrix per rotating buffer, paired by buffer id
-        self._bitmats = [
-            torch.zeros((batch, 8 * n_max, 8 * k_max), dtype=torch.int8,
+        # sibling matrices per rotating buffer, paired by buffer id
+        self._gfmats = [
+            torch.zeros((batch, n_max, k_max), dtype=torch.uint8,
                         pin_memory=pinned)
             for _ in range(nbuf)]
         self._bidx = {id(b): i for i, b in enumerate(self._eng._bufs)}
@@ -449,10 +450,10 @@ class ShredRecoverIngest:
         return self._eng.drain()
 
     def _dispatch(self, buf):
-        bm = self._bitmats[self._bidx[id(buf)]]
+        gm = self._gfmats[self._bidx[id(buf)]]
         return Verdict(rs.recover_blob(
             buf.to(self.device, non_blocking=True),
-            bm.to(self.device, non_blocking=True),
+            gm.to(self.device, non_blocking=True),
             self.k_max, self.n_max, self.sz))
 
     def warm(self) -> None:
@@ -465,7 +466,7 @@ class ShredRecoverIngest:
     def submit_sets(self, sets: list):
         """Stamp up to `batch` recover_args triples (every set at this
         engine's fixed sz and within (k_max, n_max)) into one rotating row
-        blob + sibling bit-matrix and dispatch.  Returns verdicts retired
+        blob + sibling matrix array and dispatch.  Returns verdicts retired
         by the inflight window this call (each a (batch, n_max*sz + 1) u8
         array; pair rows to sets FIFO)."""
         if len(sets) > self.batch:
@@ -478,8 +479,8 @@ class ShredRecoverIngest:
         ks, ns = k_max * sz, n_max * sz
         blob = buf.numpy()
         blob[:] = 0
-        bm = self._bitmats[self._bidx[id(buf)]].numpy()
-        bm[:] = 0
+        gm = self._gfmats[self._bidx[id(buf)]].numpy()
+        gm[:] = 0
         for r, (shreds, k, set_sz) in enumerate(sets):
             n = len(shreds)
             if set_sz != sz or k > k_max or n > n_max:
@@ -499,7 +500,7 @@ class ShredRecoverIngest:
                 row[ks + i * sz:ks + (i + 1) * sz] = np.frombuffer(
                     shreds[i], np.uint8, count=sz)
                 row[ks + ns + i] = 1
-            bm[r, :8 * n, :8 * k] = rs._recover_bitmat(k, n, use)
+            gm[r, :n, :k] = rs._recover_gfmat(k, n, use)
 
     def split_verdict(self, v: np.ndarray):
         """(full (batch, n_max, sz) u8, ok (batch,) bool) off one verdict

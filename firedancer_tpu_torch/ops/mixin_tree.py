@@ -6,7 +6,8 @@ sigs: uint8 (B, W, 64), W a power of two, rows past a tree's width
 ignored; widths: int32 (B,) >= 1.  A leaf is SHA-256(0x00 || sig), an
 interior node SHA-256(0x01 || left || right); where a pair's right index
 falls past the live width the left node is hashed with itself.  Returns
-the roots, uint8 (B, 32), bit-identical to entry.txn_mixin per tree.  On
+the roots, uint8 (B, 32), bit-identical to entry.txn_mixin per tree.  A
+width past W gives W's tree.  On
 a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version.
 """
@@ -21,7 +22,7 @@ from . import sha256 as sh
 
 LEAF_PREFIX = 0x00
 INTERIOR_PREFIX = 0x01
-MAX_W = 1024   # one thread a leaf, one block a tree
+MAX_W = 1024   # one block a tree, at most 8 pairs of warps
 
 
 def mixin_tree_plain(sigs, widths):
@@ -73,6 +74,8 @@ def mixin_tree(sigs, widths):
     if sigs.device.type == "cpu":
         return mixin_tree_plain(sigs, widths)
     sigs = sigs.contiguous()
+    if sigs.data_ptr() % 16:        # the kernel loads a leaf as 4 x 16 bytes
+        sigs = sigs.clone()
     widths = widths.to(torch.int32).contiguous()
     out = torch.empty((B, 32), dtype=torch.uint8, device=sigs.device)
     if B == 0:

@@ -58,13 +58,17 @@ On inputs made from fixed seeds:
                a lane: 7 mixin entries of 1,562 hashes and a tick entry of
                1,566 a tick, random starts and mixins); and one lane
                through that whole slot (call ms only, SLOT_RUNS calls);
-  mixin_tree   8 trees of 31 leaves (W 32, the poh_dev tile's shape) on
-               random signatures;
+  mixin_tree   8 trees of 31 leaves (W 32, the poh_dev tile's shape),
+               2 of 1,024 and 40 of widths 1-33 at W 64 (chip_smoke's
+               15c), on random signatures;
   gf2_recover  recover_blob at the shred_recover tile's dispatch, 8
                32:32 sets of 1,019 bytes with i % 32 erasures
-               (bench.py::measure_shred_recover's), and the yardstick
-               beside it: the product alone as one float16 torch.bmm on
-               the unpacked survivors (call ms only);
+               (bench.py::measure_shred_recover's), with the input the
+               checkout's wrapper takes: the GF(2^8) matrices where
+               ops/gf2_recover.py has bitmatrix_plain, else their int8
+               bit-matrices; and the yardstick beside it: the product
+               alone as one float16 torch.bmm of the bit-matrices on the
+               unpacked survivors (call ms only);
   bmtree_walk  the shred tile's admission burst, 32 shreds of a signed
                32:32 set (depth 6), and 4096 random lanes of every leaf
                length and depth.
@@ -416,13 +420,20 @@ def main() -> int:
         widths = torch.full((8,), 31, dtype=torch.int32, device=dev)
         timed("mixin_tree 8 x 31", "mixin_tree",
               lambda: mt.mixin_tree(sigs, widths))
+        for B, W, ws in ((2, 1024, [1024, 1024]),
+                         (40, 64, list(range(1, 34)) + [1] * 7)):
+            s_ = torch.from_numpy(rng.integers(0, 256, (B, W, 64),
+                                               np.uint8)).to(dev)
+            w_ = torch.tensor(ws, dtype=torch.int32, device=dev)
+            timed(f"mixin_tree {B} x {W}", "mixin_tree",
+                  lambda: mt.mixin_tree(s_, w_))
     if "gf2_recover" in kernels:
         from firedancer_tpu_torch.ballet import reedsol as rs
         from firedancer_tpu_torch.ops import gf2_recover as gf2
         k, n, sz, B = 32, 64, 1019, 8
         rng = np.random.default_rng(15)
         blob = np.zeros((B, rs.recover_blob_row_bytes(k, n, sz)), np.uint8)
-        bm = np.zeros((B, 8 * n, 8 * k), np.int8)
+        gm = np.zeros((B, n, k), np.uint8)
         # random rows, not codewords: the kernel's time does not depend
         # on the bytes, only on the shapes
         for i in range(B):
@@ -434,13 +445,17 @@ def main() -> int:
             for j in have:
                 blob[i, (k + j) * sz:(k + j + 1) * sz] = surv[j]
                 blob[i, (k + n) * sz + j] = 1
-            bm[i] = rs._recover_bitmat(k, n, use)
+            gm[i] = rs._recover_gfmat(k, n, use)
+        bm = np.stack([rs._bitmatrix(g) for g in gm])
         blob_d = torch.from_numpy(blob).to(dev)
-        bm_d = torch.from_numpy(bm).to(dev)
+        # the change's wrapper takes the matrices, the parent's the
+        # bit-matrices
+        mat_d = torch.from_numpy(gm if hasattr(gf2, "bitmatrix_plain")
+                                 else bm).to(dev)
         timed("gf2_recover 8 x 32:32", "gf2_recover",
-              lambda: gf2.recover_blob(blob_d, bm_d, k, n, sz))
+              lambda: gf2.recover_blob(blob_d, mat_d, k, n, sz))
         bits16 = gf2._unpack(blob_d[:, :k * sz].reshape(B, k, sz)).half()
-        bm16 = bm_d.half()
+        bm16 = torch.from_numpy(bm).to(dev).half()
         times["gf2_recover torch.bmm fp16 product"] = cuda_ms(
             torch, lambda: torch.bmm(bm16, bits16))
     if "bmtree_walk" in kernels:

@@ -15,9 +15,9 @@ dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate), the
 harness runs those threads in lockstep and passes what the warp's
 shuffles would through arrays; each point step of the four-rank chain is
 also held alone against its plain function.  The leader lane's lanes
-(poh_spans.cu's hashes and lane body, its schedule warp's producer and
-its FMA-pipe forms of an add, a shift and a rotation, and the level
-rule of mixin_tree.cu) build into a second, smaller harness and are
+(poh_spans.cu's hashes and lane body, the schedule warp's producer and
+the FMA-pipe forms of an add, a shift and a rotation in sha256.cuh, and
+mixin_tree.cu's trees as its pairs of warps walk them) build into a second, smaller harness and are
 held against hashlib, ops/sha256.py and the plain versions; where the
 kernel splits a hash over a pair of warps, the harness runs the
 schedule warp's part, then the rounds warp's, as its barriers order
@@ -951,14 +951,14 @@ int main() {
     for (int i = 0; i < n; i++) {
       uint32_t xy[2];
       rd(xy, 8);
-      const uint32_t o = poh_add(xy[0], xy[1], true);
+      const uint32_t o = s256_add(xy[0], xy[1], true);
       fwrite(&o, 4, 1, stdout);
     }
   } else if (mode == 's') {     // n blocks of 16 words: K + W of 16..63
     for (int i = 0; i < n; i++) {
       uint32_t w[16], kws[48];
       rd(w, 64);
-      poh_schedule(w, [&](int c, const uint32_t *kw) {
+      s256_schedule(w, [&](int c, const uint32_t *kw) {
         for (int j = 0; j < 16; j++) kws[16 * c + j] = kw[j];
         return 0u;
       });
@@ -978,24 +978,9 @@ int main() {
     rd(widths.data(), 4 * n);
     std::vector<uint8_t> sigs((size_t)n * k * 64);
     rd(sigs.data(), sigs.size());
-    std::vector<uint32_t> nodes(8 * k), next(8 * k);
     for (int b = 0; b < n; b++) {
-      for (int t = 0; t < k; t++)
-        mixin_leaf(&nodes[8 * t], &sigs[((size_t)b * k + t) * 64]);
-      int w = widths[b];
-      // one level a pass; every thread reads the level as it was, as the
-      // block does between its two __syncthreads
-      for (int half = k / 2; half >= 1; half /= 2) {
-        if (w > 1) {
-          for (int t = 0; t < half; t++)
-            mixin_level_node(&next[8 * t], nodes.data(), t, w);
-          for (int t = 0; t < half; t++)
-            for (int i = 0; i < 8; i++) nodes[8 * t + i] = next[8 * t + i];
-          w = (w + 1) / 2;
-        }
-      }
       uint8_t root[32];
-      for (int i = 0; i < 8; i++) s256_store_be(root + 4 * i, nodes[i]);
+      mixin_tree_host(&sigs[(size_t)b * k * 64], k, widths[b], root);
       fwrite(root, 1, 32, stdout);
     }
   }
@@ -1043,7 +1028,7 @@ def test_sha256_fixed_lanes_match_hashlib_and_plain(harness256):
 
 
 def test_poh_add_fma_matches_add(harness256):
-    """poh_spans.cu's FMA-pipe add, x + y as mad.lo(x, 1, y), on seeded
+    """sha256.cuh's FMA-pipe add, x + y as mad.lo(x, 1, y), on seeded
     words and at the carries' edges."""
     rng = np.random.default_rng(63)
     xy = rng.integers(0, 2**32, (64, 2), np.uint64).astype(np.uint32)
@@ -1139,14 +1124,21 @@ def test_poh_lane_matches_hashlib_and_plain(harness256, case):
         assert bytes(got[i]) == _host_lane(rows[i], steps, caps)
 
 
-@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32, 64, 1024])
 def test_mixin_tree_level_rule_matches_np_tree(harness256, W):
-    """Kernel B's leaf and level rule: every width from 1 to W (up to 33
-    at W = 64) against bmtree.np_tree and the plain version."""
+    """Kernel B's tree as its pairs walk it (a leaf's words by byte
+    permutes of its 16-byte loads, a node's by funnel shifts of its
+    children, each hash the schedule warp's chunks then the rounds
+    warp's rounds, the level rule on live nodes only): every width from
+    1 to W (up to 33), and at W = 1,024 widths past the half and past W,
+    against bmtree.np_tree and the plain version."""
     from firedancer_tpu_torch.ballet import bmtree
     from firedancer_tpu_torch.ops import mixin_tree as mt
     rng = np.random.default_rng(W)
     widths = np.arange(1, min(W, 33) + 1, dtype=np.int32)
+    if W == 1024:
+        widths = np.array([1, 2, 3, 31, 33, 511, 512, 513, 1000, 1024, 2000],
+                          np.int32)
     sigs = rng.integers(0, 256, (len(widths), W, 64), np.uint8)
     got = np.frombuffer(harness256(b"t", len(widths), W, widths.tobytes()
                                    + sigs.tobytes()),
@@ -1154,7 +1146,7 @@ def test_mixin_tree_level_rule_matches_np_tree(harness256, W):
     plain = mt.mixin_tree(torch.from_numpy(sigs), torch.from_numpy(widths))
     assert got.tolist() == plain.tolist()
     for i, w in enumerate(widths):
-        leaves = [bytes(sigs[i, j]) for j in range(w)]
+        leaves = [bytes(sigs[i, j]) for j in range(min(w, W))]
         assert bytes(got[i]) == bmtree.np_tree(leaves)[-1][0]
 
 
@@ -1173,29 +1165,63 @@ static void rd(void *p, size_t n) {
 int main() {
   char mode; int n, k;
   rd(&mode, 1); rd(&n, 4); rd(&k, 4);
-  if (mode == 'g') {     // n sets of K = k: N, S, then surv, bitmat, ref,
-    int N, S;            // have; out: each set's full rows, then its ok
+  if (mode == 'e') {     // n matrices of N = k rows and K columns: K,
+    int K;               // then the bytes; out: each one's packed
+    rd(&K, 4);           // bit-matrix rows, 8N x 4 * KW4 words
+    const int KWP = 4 * (((K + 3) / 4 + 3) / 4);
+    uint32_t table[512];
+    for (int m = 0; m < 256; m++) {
+      const uint64_t x = gf2_xt8((uint32_t)m);
+      table[2 * m] = (uint32_t)x;
+      table[2 * m + 1] = (uint32_t)(x >> 32);
+    }
+    std::vector<uint8_t> M((size_t)n * k * K);
+    rd(M.data(), M.size());
+    std::vector<uint32_t> rows((size_t)8 * k * KWP);
+    for (int b = 0; b < n; b++) {
+      for (int q = 0; q < k * KWP; q++) {   // the block's expansion loop
+        const int r = q / KWP, w = q % KWP;
+        uint32_t o[8];
+        gf2_row_words(o, table, &M[((size_t)b * k + r) * K], K, w);
+        for (int j = 0; j < 8; j++) rows[(size_t)(8 * r + j) * KWP + w] = o[j];
+      }
+      fwrite(rows.data(), 4, rows.size(), stdout);
+    }
+  } else if (mode == 'g') {   // n sets of K = k: N, S, then surv, M, ref,
+    int N, S;                 // have; out: each set's full rows, then its ok
     rd(&N, 4); rd(&S, 4);
     std::vector<uint8_t> surv((size_t)n * k * S), ref((size_t)n * N * S),
-        have((size_t)n * N), full((size_t)n * N * S), ok(n);
-    std::vector<uint32_t> bm((size_t)n * 8 * N * 2 * k);
+        have((size_t)n * N), full((size_t)n * N * S), ok(n),
+        M((size_t)n * N * k);
     rd(surv.data(), surv.size());
-    rd(bm.data(), 4 * bm.size());
+    rd(M.data(), M.size());
     rd(ref.data(), ref.size());
     rd(have.data(), have.size());
-    const int KW = (k + 3) / 4;
-    std::vector<uint32_t> rows((size_t)8 * N * KW), col(KW);
+    const int KW = (k + 3) / 4, KW4 = (KW + 3) / 4;
+    uint32_t table[512];
+    for (int m = 0; m < 256; m++) {
+      const uint64_t x = gf2_xt8((uint32_t)m);
+      table[2 * m] = (uint32_t)x;
+      table[2 * m + 1] = (uint32_t)(x >> 32);
+    }
+    std::vector<gf2_u4> rows((size_t)8 * N * KW4);
+    uint32_t *rows32 = (uint32_t *)rows.data();
+    std::vector<uint32_t> col(4 * KW4);
     for (int b = 0; b < n; b++) {
-      // the block's shared-memory fill, then each column's thread
-      for (int q = 0; q < 8 * N * KW; q++)
-        rows[q] = gf2_row_word(&bm[((size_t)b * 8 * N + q / KW) * 2 * k],
-                               k, q % KW);
+      // the block's expansion, then each column's thread
+      for (int q = 0; q < N * 4 * KW4; q++) {
+        const int r = q / (4 * KW4), w = q % (4 * KW4);
+        uint32_t o[8];
+        gf2_row_words(o, table, &M[((size_t)b * N + r) * k], k, w);
+        for (int j = 0; j < 8; j++) rows32[(8 * r + j) * 4 * KW4 + w] = o[j];
+      }
       int bad = 0;
       for (int s = 0; s < S; s++) {
-        for (int w = 0; w < KW; w++)
-          col[w] = gf2_col_word(&surv[(size_t)b * k * S], S, k, s, w);
+        for (int w = 0; w < 4 * KW4; w++)
+          col[w] = w < KW ? gf2_col_word(&surv[(size_t)b * k * S], S, k, s, w)
+                          : 0u;
         for (int r = 0; r < N; r++) {
-          const uint32_t v = gf2_out_byte(rows.data(), KW, r, col.data());
+          const uint32_t v = gf2_out_byte(rows.data(), KW4, r, col.data());
           full[((size_t)b * N + r) * S + s] = (uint8_t)v;
           if (have[(size_t)b * N + r])
             bad |= v != ref[((size_t)b * N + r) * S + s];
@@ -1250,14 +1276,50 @@ def harness_shred(tmp_path_factory):
     return run
 
 
+def _packed_rows(bm: np.ndarray, kwp: int) -> np.ndarray:
+    """An (8N, 8K) int8 bit-matrix as the kernel's rows: word w of a row
+    holds columns 32w .. 32w + 31, bit b column 32w + b; kwp words a
+    row, zero past 8K."""
+    rows = np.zeros((bm.shape[0], 32 * kwp), np.uint64)
+    rows[:, :bm.shape[1]] = bm & 1
+    w = rows.reshape(bm.shape[0], kwp, 32) << np.arange(32, dtype=np.uint64)
+    return w.sum(2).astype(np.uint32)
+
+
+@pytest.mark.parametrize("N,K", [(256, 7), (2, 1), (8, 3), (64, 32),
+                                 (134, 67)])
+def test_gf2_expansion_matches_bitmatrix(harness_shred, N, K):
+    """Kernel C's expansion of a GF(2^8) matrix into its packed bit-matrix
+    rows (the table of transposed 8 x 8 blocks, four entries a word by
+    byte permutes) against reedsol._bitmatrix and the plain version's
+    expansion.  (256, 7): every byte value in every column, so at every
+    column position mod 4, with a padded last word; the rest random."""
+    from firedancer_tpu_torch.ballet import reedsol as rs
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+    rng = np.random.default_rng(N * K)
+    if N == 256:
+        m = ((np.arange(N)[:, None] + 37 * np.arange(K)[None, :])
+             % 256).astype(np.uint8)
+    else:
+        m = rng.integers(0, 256, (N, K), np.uint8)
+    kwp = 4 * (((K + 3) // 4 + 3) // 4)
+    got = np.frombuffer(harness_shred(b"e", 1, N, struct.pack("<i", K)
+                                      + m.tobytes()),
+                        np.uint32).reshape(8 * N, kwp)
+    bm = rs._bitmatrix(m)
+    assert np.array_equal(got, _packed_rows(bm, kwp))
+    assert np.array_equal(
+        gf2.bitmatrix_plain(torch.from_numpy(m[None].copy()))[0].numpy(), bm)
+
+
 @pytest.mark.parametrize("K,N,S", [(1, 2, 5), (3, 8, 33), (32, 64, 1019),
                                    (67, 134, 9)])
 def test_gf2_lane_matches_plain_and_host_model(harness_shred, K, N, S):
-    """Kernel C's packing of the bit-matrix and of a byte column, its
-    output byte and its ok rule, over 3 sets of K survivors: against the
-    plain version (and, for real reconstruction matrices, reedsol's
+    """Kernel C's expansion of the matrix and packing of a byte column,
+    its output byte and its ok rule, over 3 sets of K survivors: against
+    the plain version (and, for real reconstruction matrices, reedsol's
     table model).  The second set carries one corrupted survivor, the
-    third a random bit-matrix with odd int8 entries."""
+    third a random GF(2^8) matrix."""
     from firedancer_tpu_torch.ballet import reedsol as rs
     from firedancer_tpu_torch.ops import gf2_recover as gf2
     rng = np.random.default_rng(K + N)
@@ -1265,19 +1327,19 @@ def test_gf2_lane_matches_plain_and_host_model(harness_shred, K, N, S):
     data = rng.integers(0, 256, (K, S), np.uint8)
     cw = np.concatenate([data, rs.encode(data, N - K, device=False)])
     surv = np.stack([cw[list(use)]] * 3)
-    bm = np.stack([rs._recover_bitmat(K, N, use)] * 2
-                  + [rng.integers(-128, 128, (8 * N, 8 * K), np.int8)])
+    gm = np.stack([rs._recover_gfmat(K, N, use)] * 2
+                  + [rng.integers(0, 256, (N, K), np.uint8)])
     ref = np.stack([cw] * 3)
     ref[1, use[-1], S // 2] ^= 0x20
     have = np.zeros((3, N), np.uint8)
     have[:, list(use)] = 1
     out = harness_shred(b"g", 3, K, struct.pack("<ii", N, S)
-                        + surv.tobytes() + bm.tobytes() + ref.tobytes()
+                        + surv.tobytes() + gm.tobytes() + ref.tobytes()
                         + have.tobytes())
     full = np.frombuffer(out[:3 * N * S], np.uint8).reshape(3, N, S)
     ok = np.frombuffer(out[3 * N * S:], np.uint8)
     pf, pok = gf2.gf2_recover_plain(torch.from_numpy(surv),
-                                    torch.from_numpy(bm),
+                                    torch.from_numpy(gm),
                                     torch.from_numpy(ref),
                                     torch.from_numpy(have.astype(bool)))
     assert np.array_equal(full, pf.numpy())

@@ -419,11 +419,11 @@ def test_mixin_tree_kernel_matches_plain(cuda, B, W):
 
 
 def _recover_sets(rng, B, K, N, S):
-    """B sets of K survivors with their reconstruction bit-matrices; set
-    1 (when B > 1) has one survivor corrupted."""
+    """B sets of K survivors with their reconstruction matrices; set 1
+    (when B > 1) has one survivor corrupted."""
     from firedancer_tpu_torch.ballet import reedsol as rs
     surv = np.zeros((B, K, S), np.uint8)
-    bm = np.zeros((B, 8 * N, 8 * K), np.int8)
+    bm = np.zeros((B, N, K), np.uint8)
     ref = np.zeros((B, N, S), np.uint8)
     have = np.zeros((B, N), bool)
     for b in range(B):
@@ -431,7 +431,7 @@ def _recover_sets(rng, B, K, N, S):
         data = rng.integers(0, 256, (K, S), np.uint8)
         cw = np.concatenate([data, rs.encode(data, N - K, device=False)])
         surv[b] = cw[list(use)]
-        bm[b] = rs._recover_bitmat(K, N, use)
+        bm[b] = rs._recover_gfmat(K, N, use)
         ref[b] = cw
         have[b, list(use)] = True
     if B > 1:
@@ -440,7 +440,9 @@ def _recover_sets(rng, B, K, N, S):
 
 
 @pytest.mark.parametrize("B,K,N,S", [(8, 32, 64, 1019), (3, 1, 2, 1119),
-                                     (2, 67, 134, 130), (5, 5, 9, 1)])
+                                     (2, 67, 134, 130), (5, 5, 9, 1),
+                                     (1, 32, 64, 1019), (4, 32, 64, 127),
+                                     (4, 32, 64, 129), (2, 67, 134, 1025)])
 def test_gf2_recover_kernel_matches_plain(cuda, B, K, N, S):
     from firedancer_tpu_torch.ops import gf2_recover as gf2
     args = _recover_sets(np.random.default_rng(B * K + S), B, K, N, S)

@@ -1,7 +1,8 @@
 """The port's Reed-Solomon (firedancer_tpu_torch/ballet/reedsol.py, the
 GF(2) kernel's plain version on CPU tensors) against the JAX package's
 reedsol, its device paths jitted on the CPU, byte for byte on seeded
-sets: the GF tables, the generator and bit-matrices, encode, recover,
+sets: the GF tables, the generator and bit-matrices (the port's
+expansion of a matrix against the JAX package's), encode, recover,
 recover_batch and recover_blob with equal, ragged and mixed-geometry
 erasure patterns, a corrupt set, the protocol limits and the
 reconstruction-matrix cache's accounting.  The kernel itself is held
@@ -48,7 +49,13 @@ def test_gf_tables_and_matrices_equal_the_jax_package():
     m = rng.integers(0, 256, (5, 3), np.uint8)
     assert np.array_equal(rs._bitmatrix(m), jrs._bitmatrix(m))
     use = (0, 2, 5, 6)
-    assert rs._recover_matrices(4, 8, use) == jrs._recover_matrices(4, 8, use)
+    R, bits = jrs._recover_matrices(4, 8, use)
+    assert rs._recover_matrices(4, 8, use) == R
+    # the port keeps R alone: its kernel and plain version expand R into
+    # the bit-matrix that the JAX package caches beside it
+    gm = np.frombuffer(R, np.uint8).reshape(1, 8, 4)
+    assert gf2.bitmatrix_plain(torch.from_numpy(gm.copy()))[0].numpy(
+    ).tobytes() == bits
 
 
 @pytest.mark.parametrize("k,p,sz", [(1, 1, 7), (4, 3, 50), (32, 32, 1019)])
@@ -134,17 +141,19 @@ def test_recover_batch_equals_the_jax_package():
 def test_recover_blob_equals_the_jax_package():
     rng = np.random.default_rng(10)
     sets = _mixed_sets(rng)[:7]
-    surv, bitmat, ref, have, _, _ = rs._stack_recover_batch(sets)
+    surv, gfmat, ref, have, _, _ = rs._stack_recover_batch(sets)
     B, K, S = surv.shape
     N = ref.shape[1]
     blob = np.concatenate([surv.reshape(B, -1), ref.reshape(B, -1),
                            have.astype(np.uint8)], 1)
-    # two padding rows: zero survivors, zero bit-matrix, all ok
+    # two padding rows: zero survivors, zero matrix, all ok
     blob = np.concatenate([blob, np.zeros((2, blob.shape[1]), np.uint8)])
-    bitmat = np.concatenate([bitmat, np.zeros((2,) + bitmat.shape[1:],
-                                              np.int8)])
+    gfmat = np.concatenate([gfmat, np.zeros((2,) + gfmat.shape[1:],
+                                            np.uint8)])
+    # the JAX package takes each matrix's bit-matrix, the port the matrix
+    bitmat = np.stack([jrs._bitmatrix(m) for m in gfmat])
     assert blob.shape[1] == rs.recover_blob_row_bytes(K, N, S)
-    got = rs.recover_blob(torch.from_numpy(blob), torch.from_numpy(bitmat),
+    got = rs.recover_blob(torch.from_numpy(blob), torch.from_numpy(gfmat),
                           K, N, S).numpy()
     want = np.asarray(jrs.recover_blob(jnp.asarray(blob),
                                        jnp.asarray(bitmat), k_max=K,
@@ -156,13 +165,13 @@ def test_recover_blob_equals_the_jax_package():
 
 def test_gf2_wrappers_refuse_bad_shapes():
     surv = torch.zeros((2, 4, 8), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="bit-matrix"):
+    with pytest.raises(ValueError, match="matrix"):
         gf2.gf2_recover(surv, torch.zeros((2, 16, 16), dtype=torch.int8),
                         torch.zeros((2, 2, 8), dtype=torch.uint8),
                         torch.zeros((2, 2), dtype=torch.bool))
     with pytest.raises(ValueError, match="limits"):
         gf2.gf2_encode(torch.zeros((68, 8), dtype=torch.uint8),
-                       torch.zeros((8, 8 * 68), dtype=torch.int8))
+                       torch.zeros((1, 68), dtype=torch.uint8))
 
 
 def test_recover_cache_accounting_equals_the_jax_package():
