@@ -404,6 +404,21 @@ def write_r_edges(qx, qz, qy, ok_y, r) -> int:
     return k
 
 
+# the verify tile's guard (disco/pipeline.py GuardedVerifier): in a phase
+# without an injected fault these read 0 on every verify tile
+GUARD_SLOTS = ("device_fail_cnt", "fallback_lane_cnt", "degraded_mode")
+
+
+def guard_clean(m, where: str):
+    """Raise unless a verify tile's metrics show it served every verdict
+    on the device: no failed dispatch, no host-fallback lane, not
+    degraded."""
+    got = {k: m[k] for k in GUARD_SLOTS}
+    if any(got.values()):
+        raise AssertionError(f"{where}: the verify tile's guard fell back "
+                             f"to the host: {got}")
+
+
 def smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -999,6 +1014,7 @@ def _tile_run(native, buckets, device, stream, fill_blobs, fills, fill_rows,
     n_in = dict.fromkeys(t_in, 0)
     parse, submit = pl.tn.parse_packed_bucket, pipe.submit
     fn, finish = pipe.verify_fn, pipe._finish
+    dispatch = fn.dispatch_blob
 
     def timed(key, fn):
         def call(*a, **k):
@@ -1012,7 +1028,7 @@ def _tile_run(native, buckets, device, stream, fill_blobs, fills, fill_rows,
 
     pl.tn.parse_packed_bucket = timed("parse", parse)
     pipe.submit = timed("scalar", submit)
-    fn.dispatch_blob = timed("dispatch", fn.dispatch_blob)
+    fn.dispatch_blob = timed("dispatch", dispatch)
     pipe._finish = timed("finish", finish)
     try:
         reset_counts()
@@ -1033,7 +1049,8 @@ def _tile_run(native, buckets, device, stream, fill_blobs, fills, fill_rows,
         t_flush = time.perf_counter() - t1
     finally:
         pl.tn.parse_packed_bucket = parse
-        del pipe.submit, fn.dispatch_blob
+        del pipe.submit
+        fn.dispatch_blob = dispatch
         pipe._finish = finish
     wire_batches = pipe.metrics.batches
     # the packed fills: a frag's finish (_finish_rows, once its verdict
@@ -1051,6 +1068,7 @@ def _tile_run(native, buckets, device, stream, fill_blobs, fills, fill_rows,
     finally:
         del pipe._finish_rows
     tile._sync_metrics(ctx)
+    guard_clean(ctx.metrics, "phase 13b")
     launches = counts()
     snap = pipe.metrics.snapshot()
     got = [p for p, _ in ctx.published]
@@ -1317,8 +1335,9 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
             if run_err:
                 raise run_err[0]
             t_boot_a = time.perf_counter() - t0
-            stalled = _StalledVerifier(tile.pipe.verify_fn)
-            tile.pipe.verify_fn = stalled
+            # the stall goes under the tile's guard, in the device's place
+            stalled = _StalledVerifier(tile.guard.fn)
+            tile.guard.fn = stalled
             uploads = _UploadCounter(stalled.fn)
             lnk, fseq = jt.links["src_v"], jt.fseq[("v", "src_v")]
             reset_counts()
@@ -1385,6 +1404,7 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
                                      f"passing rows, the host verifier "
                                      f"{len(want)}")
             snap = jt.metrics["v"].snapshot()
+            guard_clean(snap, "phase 14a")
             if (snap["txn_in_cnt"], snap["verify_pass_cnt"],
                     snap["verify_fail_cnt"], snap["torn_drop_cnt"],
                     snap["compile_cnt"]) != (4 * rows, len(want),
@@ -1469,6 +1489,7 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
             if run.poll() is not None:
                 raise AssertionError("phase 14b: a tile failed")
             v, d = run.metrics("verify:0"), run.metrics("dedup")
+            guard_clean(v, "phase 14b")
             if not run.drain():
                 raise AssertionError("phase 14b: drain() did not drain "
                                      "every tile")
@@ -1532,6 +1553,8 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
             if run.poll() is not None:
                 raise AssertionError("phase 14c: a tile failed")
             ms = [run.metrics(f"verify:{i}") for i in range(2)]
+            for m in ms:
+                guard_clean(m, "phase 14c")
         finally:
             run.close()
         if set(run.exitcodes.values()) != {0}:
@@ -1586,6 +1609,7 @@ def topology_phase(pool, reset_counts, counts, note, device=None,
                 raise AssertionError("phase 14d: drain() did not drain "
                                      "every tile")
             src, v = run.metrics("source"), run.metrics("verify:0")
+            guard_clean(v, "phase 14d")
             d, sink = run.metrics("dedup"), run.metrics("sink")
         finally:
             run.close()
@@ -2214,6 +2238,7 @@ def leader_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
                 raise AssertionError("phase 15d: drain() did not drain "
                                      "every tile")
             v, pm = run.metrics("verify:0"), run.metrics("leader_pack")
+            guard_clean(v, "phase 15d")
             pd = run.metrics("poh_dev")
             # the tile's launches and dispatches when it ran dry (the
             # halt's fini dispatches after it)
@@ -3103,6 +3128,805 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
          f"lane in {t_lane:.3f} s")
     out.update(launches=launches)
     note(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---- phase 17: the supervised run ---------------------------------------
+
+
+def _txn_host_ok(wire: bytes) -> bool:
+    """The host oracle of a wire txn: every signature by verify_one_host,
+    for a pool worker."""
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    t = txn_lib.parse(wire)
+    msg = t.message(wire)
+    return all(ed.verify_one_host(s, msg, k)
+               for s, k in zip(t.signatures(wire), t.signer_pubkeys(wire)))
+
+
+def _stream_wires(pool, seed: int, n: int) -> list:
+    """The first n wire txns of source_txn_stream(seed, 4), made by the
+    pool in parts of 16."""
+    return [w for part in pool.starmap(_stream_part, [
+        (seed, 4, lo, min(lo + 16, n)) for lo in range(0, n, 16)])
+        for _, w in part]
+
+
+def _forged(wires, every: int) -> list:
+    """Every `every`-th wire with one signature bit flipped."""
+    out = list(wires)
+    for i in range(0, len(out), every):
+        b = bytearray(out[i])
+        b[1 + 40] ^= 1
+        out[i] = bytes(b)
+    return out
+
+
+class _StallFirst:
+    """The device verifier with a stall after each of its first `n`
+    dispatches: on the card a sleep kernel behind the dispatch's kernels
+    (torch.cuda._sleep), so the verdict lands late; on the CPU a verdict
+    that reads as pending for `stall_s`.  dispatches counts the calls."""
+
+    def __init__(self, fn, n, stall_s=0.1):
+        self.fn = fn
+        self.device = fn.device
+        self.mode = fn.mode
+        self.n = n
+        self.stall_s = stall_s
+        self.dispatches = 0
+
+    def dispatch_blob(self, blob, maxlen=None):
+        import torch
+        v = self.fn.dispatch_blob(blob, maxlen=maxlen)
+        self.dispatches += 1
+        if self.dispatches > self.n:
+            return v
+        if self.device.type == "cuda":
+            torch.cuda._sleep(STALL_CYCLES)
+            return v
+        return _TimedVerdict(v, time.monotonic() + self.stall_s)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port: int, path: str) -> tuple:
+    """(status, body) of one GET on the supervisor's endpoint."""
+    import urllib.error
+    import urllib.request
+    try:
+        r = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                   timeout=60)
+        return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _metric(body: str, name: str, tile: str) -> int:
+    """One tile's sample of a family in a /metrics page (-1 if absent)."""
+    kind = tile.split(":", 1)[0]
+    key = f'fdtpu_{name}{{tile="{tile}",kind="{kind}"}} '
+    for line in body.splitlines():
+        if line.startswith(key):
+            return int(float(line[len(key):]))
+    return -1
+
+
+def _inj_bench_spec(name, device, buckets, n, seed, rate_ns, capture,
+                    **vcfg):
+    """verify-bench (source -> verify:0 -> dedup -> sink, the source's n
+    txns paced rate_ns apart) with a second in-link into the verify tile
+    that the caller writes by hand, its producer a sink-kind tile that
+    publishes nothing.  n 0: no source traffic (a sink-kind tile stands
+    in for the source; a source of count 0 would never stop)."""
+    from firedancer_tpu_torch.disco.topo import TopoBuilder
+    b = (TopoBuilder(name, wksp_mb=64)
+         .link("src_verify", depth=4096, mtu=1280)
+         .link("inj_verify", depth=4096, mtu=1280)
+         .link("verify_dedup", depth=256, mtu=1280)
+         .link("dedup_sink", depth=256, mtu=1280))
+    if n:
+        b.tile("source", "source", outs=["src_verify"], count=n, seed=seed,
+               rate_ns=rate_ns)
+    else:
+        b.tile("source", "sink", outs=["src_verify"])
+    return (b.tile("inj", "sink", outs=["inj_verify"])
+            .tile("verify:0", "verify", ins=["src_verify", "inj_verify"],
+                  outs=["verify_dedup"], device=device, buckets=buckets,
+                  **vcfg)
+            .tile("dedup", "dedup", ins=["verify_dedup"],
+                  outs=["dedup_sink"])
+            .tile("sink", "sink", ins=["dedup_sink"],
+                  capture_path=str(capture))
+            .build())
+
+
+def _inject_wires(run, link: str, wires):
+    """Publish wire txns on a running topology's link in one burst."""
+    from firedancer_tpu_torch.tango.ring import tx_burst
+    lnk = run.jt.links[link]
+    lens = np.array([len(w) for w in wires], np.int32)
+    offs = np.zeros(len(wires), np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    sigs = np.array([int.from_bytes(w[1:9], "little") & ((1 << 63) - 1)
+                     for w in wires], np.uint64)
+    tx_burst(lnk.mcache, lnk.dcache, lnk.dcache.chunk0, b"".join(wires),
+             offs, lens, sigs)
+
+
+def supervised_phase(pool, reset_counts, counts, note, device=None,
+                     buckets=None, workdir=None, n_run=64, kill_after=32,
+                     n_late=96, drill_txns=8, overhead_shape=(4096, 128),
+                     overhead_turns=6, overhead_calls=10):
+    """Phase 17: the supervised run, verify-bench at the bucket ladder
+    `buckets` (default the full DEFAULT_BUCKETS).  (o) The guard's
+    healthy-path cost: one dispatch_blob at overhead_shape wrapped and
+    bare, in alternating turns, with the launches of the wrapped calls
+    counted; the host backend's rate (it serves device "cpu" only).
+    (a) `python -m firedancer_tpu_torch.app.fdtpuctl run` as a
+    subprocess, `ready`, a scrape of /metrics (the guard's five families
+    read 0) and /healthz (ok), then `fdtpuctl drain` (SIGTERM to the
+    pidfile's supervisor): exit 0, the sink's txns the host oracle's.
+    (b) restart_policy respawn with fail_dispatch_n:1,boot:0 on verify:0
+    and no retry, its traffic written by hand on a second in-link: the
+    failed dispatch ends the tile (DeviceFault, nothing recomputed on the
+    host), its last metrics in a `respawn` bundle that `fdtpuctl
+    postmortem` renders, one respawn, the txns after it all verdicted,
+    nothing captured twice.  (b2) In process: the tile's first dispatch
+    stalled past a 50 ms device_deadline_s raises DeviceFault at the
+    harvest, nothing published; a new tile serves the rest, every
+    verdict once and the host oracle's.  (c) restart_policy respawn with
+    kill_after_frags:kill_after,boot:0 on verify:0, its traffic written
+    by hand on a second in-link: the txns before the kill all verdicted,
+    one respawn, a `respawn` bundle, nothing captured twice, the loss a
+    tail of the burst that crossed the kill, and txns injected after the
+    respawn all verdicted.  (d) The same kill on a packed_wire verify
+    tile, whose frags are written by hand in the blob row layout: the
+    frags it held unverdicted at its death counted.
+    device None is the card.  Raises on any failed check; returns the
+    numbers.  The work directory (a temporary one unless `workdir` is
+    given) is removed when every check passed."""
+    import shutil
+    import signal as signal_mod
+    import tempfile
+    import threading
+
+    from firedancer_tpu_torch.app import config as app_config
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.disco import flightrec
+    from firedancer_tpu_torch.disco import pipeline as pl
+    from firedancer_tpu_torch.disco.faultinject import KILL_EXIT_CODE
+    from firedancer_tpu_torch.disco.run import SupervisionPolicy, TopoRun
+    from firedancer_tpu_torch.disco.tiles import read_capture
+    from firedancer_tpu_torch.disco.topo import TopoBuilder
+    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
+    from firedancer_tpu_torch.models import verifier as V
+    from firedancer_tpu_torch.tango.ring import (PACKED_ROW_EXTRA, Cnc,
+                                                 packed_row_ml)
+    import torch
+
+    cuda = device is None
+    buckets = [list(b) for b in (buckets or pl.DEFAULT_BUCKETS)]
+    tag = f"cs17{os.getpid()}"
+    t_phase = time.perf_counter()
+    own_dir = workdir is None
+    workdir = Path(workdir or tempfile.mkdtemp(prefix="fdtpu_phase17_"))
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    passed = False
+    old_omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        # ---- (o) the guard's cost on the healthy path
+        rows, ml = overhead_shape
+        sv = V.SigVerifier(V.VerifierConfig(rows, ml), device=device)
+        guard = pl.GuardedVerifier(sv)
+        blob = V.pack_blob(*V.make_example_batch(rows, ml, sign_pool=64,
+                                                 seed=1701))
+        blob_t = torch.from_numpy(blob)
+        if cuda:
+            blob_t = blob_t.pin_memory()
+
+        def call(fn):
+            return np.asarray(fn.dispatch_blob(blob_t))
+
+        for fn in (sv, guard, sv, guard):
+            if not call(fn).all():
+                raise AssertionError("phase 17o: a valid row rejected")
+        turns = {"bare": [], "wrapped": []}
+        for i in range(overhead_turns):
+            order = (("bare", sv), ("wrapped", guard))
+            for name, fn in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                for _ in range(overhead_calls):
+                    call(fn)
+                turns[name].append((time.perf_counter() - t0) * 1e3
+                                   / overhead_calls)
+        reset_counts()
+        for _ in range(overhead_calls):
+            call(guard)
+        launches = counts()
+        if cuda and not (launches["sha512_ram"] == launches["verify_tail"]
+                         == launches["r_check"] == overhead_calls):
+            raise AssertionError(f"phase 17o: launches {launches} for "
+                                 f"{overhead_calls} wrapped calls")
+        if (guard.device_fail_cnt, guard.fallback_lanes, guard.degraded) \
+                != (0, 0, False):
+            raise AssertionError("phase 17o: the guard fell back")
+        bare = statistics.median(turns["bare"])
+        wrapped = statistics.median(turns["wrapped"])
+        out["overhead"] = {"bare_ms": bare, "wrapped_ms": wrapped,
+                           "turns": turns}
+        note(f"phase 17o: one {rows}x{ml} dispatch_blob + np.asarray, "
+             f"{overhead_turns} alternating turns of {overhead_calls} "
+             f"calls: bare {bare:.4f} ms, under GuardedVerifier "
+             f"{wrapped:.4f} ms a call (medians; {wrapped - bare:+.4f} ms,"
+             f" {100 * (wrapped / bare - 1):+.2f}%); {overhead_calls} "
+             f"wrapped calls launched sha512 {launches['sha512_ram']}, "
+             f"verify_tail {launches['verify_tail']}, r_check "
+             f"{launches['r_check']}")
+        # the host fallback's rate on live lanes (distinct signed rows,
+        # verify_one_host on Python ints, one lane at a time)
+        live = blob[:64]
+        t0 = time.perf_counter()
+        bits = V.host_verify_blob(live)
+        host_vps = len(live) / (time.perf_counter() - t0)
+        if not bits.all():
+            raise AssertionError("phase 17o: the host fallback rejected a "
+                                 "valid row")
+        out["host_live_vps"] = host_vps
+        note(f"phase 17o: the host fallback (models/verifier.py "
+             f"host_verify_blob) on {len(live)} live rows: "
+             f"{host_vps:.1f} lanes/s on this machine's host")
+        sv = guard = blob = blob_t = live = None
+
+        # ---- (a) fdtpuctl run, ready, /metrics, /healthz, drain
+        t_a = time.perf_counter()
+        port = _free_port()
+        env = dict(os.environ, TMPDIR=str(workdir))
+        (workdir / "a.toml").write_text(
+            f'name = "{tag}a"\ntopology = "verify-bench"\n'
+            f'[tiles.verify]\nbuckets = {json.dumps(buckets)}\n'
+            f'device = "{device or ""}"\n'
+            f'[tiles.sink]\ncapture_path = "{workdir / "a.cap"}"\n'
+            f'[development]\nsource_count = {n_run}\n'
+            f'[supervision]\ndrain_timeout_s = 120.0\n'
+            f'[observability]\nhttp_port = {port}\n'
+            f'flight_dir = "{workdir / "fa"}"\n')
+        cfg = app_config.load(str(workdir / "a.toml"), environ={})
+        spec = app_config.build_topology(cfg)
+        _shm_check(spec.wksp_mb << 20, note)
+        want_a = pool.starmap_async(_stream_part, [
+            (cfg["development"]["bench_seed"], 4, lo, min(lo + 16, n_run))
+            for lo in range(0, n_run, 16)])
+        ctl = [sys.executable, "-m", "firedancer_tpu_torch.app.fdtpuctl",
+               "--config", str(workdir / "a.toml")]
+        log_a = open(workdir / "a.log", "w+")
+        proc = subprocess.Popen(ctl + ["run"], cwd=ROOT, env=env,
+                                stdout=log_a, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            r = subprocess.run(ctl + ["ready", "--timeout", "300"], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=330)
+            if r.returncode != 0 or r.stdout.strip() != "ready":
+                raise AssertionError(f"phase 17a: ready {r}; "
+                                     f"{(workdir / 'a.log').read_text()}")
+            t_ready = time.perf_counter() - t_a
+            deadline = time.monotonic() + 300
+            while True:
+                code, body = _scrape(port, "/metrics")
+                if code == 200 and _metric(body, "frag_cnt", "sink") \
+                        == n_run:
+                    break
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"phase 17a: {n_run} txns never reached the sink "
+                        f"(run rc {proc.poll()})")
+                time.sleep(0.05)
+            fams = {f: _metric(body, f, "verify:0") for f in (
+                "degraded_mode", "device_fail_cnt", "fallback_lane_cnt",
+                "reprobe_cnt", "fallback_vps")}
+            if set(fams.values()) != {0}:
+                raise AssertionError(f"phase 17a: the guard's families "
+                                     f"{fams}")
+            code, health = _scrape(port, "/healthz")
+            if code != 200 or not health.startswith("ok\n"):
+                raise AssertionError(f"phase 17a: /healthz {code} {health}")
+            t0 = time.perf_counter()
+            r = subprocess.run(ctl + ["drain"], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=600)
+            rc = proc.wait(timeout=120)
+            t_drain = time.perf_counter() - t0
+            if r.returncode != 0 or rc != 0:
+                raise AssertionError(f"phase 17a: drain rc {r.returncode} "
+                                     f"{r.stdout} {r.stderr}, run rc {rc}: "
+                                     f"{(workdir / 'a.log').read_text()}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal_mod.SIGKILL)
+                proc.wait()
+            log_a.close()
+        got_a = read_capture(str(workdir / "a.cap"))
+        stream_a = [t for part in want_a.get(600) for t in part]
+        ok_a = pool.map(_txn_host_ok, [w for _, w in stream_a])
+        oracle_a = sorted(t for t, ok in zip(stream_a, ok_a) if ok)
+        if sorted(got_a) != oracle_a or len(oracle_a) != n_run:
+            raise AssertionError(f"phase 17a: the sink captured "
+                                 f"{len(got_a)} txns, the oracle "
+                                 f"{len(oracle_a)}")
+        out["a_s"] = time.perf_counter() - t_a
+        note(f"phase 17a: `fdtpuctl run` (verify-bench at buckets "
+             f"{buckets}) -> `ready` after {t_ready:.3f} s; /metrics: the "
+             f"sink at {n_run} txns, the guard's five families 0 ({fams});"
+             f" /healthz {health.splitlines()[0]!r}; `fdtpuctl drain` -> "
+             f"the supervisor exited 0 after {t_drain:.3f} s; the sink "
+             f"captured {len(got_a)} == the host oracle's {len(oracle_a)}; "
+             f"part (a) {out['a_s']:.1f} s")
+
+        # ---- (b) a device fault fails the tile; its respawn serves on
+        t_b = time.perf_counter()
+        spec = _inj_bench_spec(f"{tag}b", device, buckets, 0, 1705, 0,
+                               workdir / "b.cap",
+                               faults="verify:0=fail_dispatch_n:1,boot:0",
+                               supervision={"device_retry": 0})
+        # all the traffic on the hand-written in-link: `first`, whose one
+        # dispatch the plan fails, then n_late after the respawn's RUN
+        first = _forged(_stream_wires(pool, 1705, 8), 4)
+        first_ok = pool.map(_txn_host_ok, first)
+        late_b = _forged(_stream_wires(pool, 1706, n_late), 8)
+        want_late_b = {w for w, ok in zip(late_b,
+                                          pool.map(_txn_host_ok, late_b))
+                       if ok}
+        policy = SupervisionPolicy(restart_policy="respawn", max_restarts=2,
+                                   drain_timeout_s=120.0,
+                                   heartbeat_stale_by_kind={"verify": 120.0})
+        run = TopoRun(spec, policy=policy, flight_dir=str(workdir / "fb"))
+        sup = threading.Thread(target=run.supervise,
+                               kwargs={"poll_s": 0.02}, daemon=True)
+
+        def captured_b():
+            return {w for _, w in read_capture(str(workdir / "b.cap"))}
+
+        try:
+            run.wait_ready(timeout=300)
+            p0 = run.procs["verify:0"]
+            sup.start()
+            _inject_wires(run, "inj_verify", first)
+            _wait_for(lambda: not p0.is_alive(), 120,
+                      "verify:0's exit on the device fault")
+            t_death = time.perf_counter()
+            _wait_for(lambda: (run.procs["verify:0"] is not p0
+                               and run.jt.cnc["verify:0"].signal_query()
+                               == Cnc.SIGNAL_RUN), 300,
+                      "the respawned verify:0's RUN")
+            t_respawn_b = time.perf_counter() - t_death
+            _inject_wires(run, "inj_verify", late_b)
+            _wait_for(lambda: want_late_b <= captured_b(), 300,
+                      "the txns injected after the respawn at the sink")
+            run._drain_req = True
+            sup.join(300)
+            if sup.is_alive():
+                raise AssertionError("phase 17b: the drain did not end")
+            vb = run.metrics("verify:0")
+        finally:
+            run._halting = True
+            if sup.is_alive():
+                sup.join(60)
+            run.close()
+        if p0.exitcode in (0, KILL_EXIT_CODE) or set(
+                run.exitcodes.values()) != {0} or run.restarts != {
+                "verify:0": 1}:
+            raise AssertionError(f"phase 17b: the first verify:0 exited "
+                                 f"{p0.exitcode}; exit codes "
+                                 f"{run.exitcodes}, restarts {run.restarts}")
+        guard_clean(vb, "phase 17b (the respawned tile)")
+        got_b = [w for _, w in read_capture(str(workdir / "b.cap"))]
+        kept_b = set(got_b)
+        # the faulted dispatch held at least the first txn; a txn of
+        # `first` that a later dispatch took is verdicted as the oracle's
+        n_first = sum(w in kept_b for w in first)
+        if (len(got_b) != len(kept_b) or first[0] in kept_b
+                or kept_b - set(first) != want_late_b
+                or any(w in kept_b and not ok
+                       for w, ok in zip(first, first_ok))):
+            raise AssertionError(
+                f"phase 17b: captured {len(got_b)} ({len(kept_b)} "
+                f"distinct), {n_first} of `first`, the oracle after the "
+                f"respawn {len(want_late_b)}")
+        bundles = {flightrec.load_bundle(str(p))["manifest"]["reason"]: p
+                   for p in (workdir / "fb").iterdir()}
+        if set(bundles) != {"respawn"}:
+            raise AssertionError(f"phase 17b: bundles {sorted(bundles)}")
+        dead = flightrec.load_bundle(str(bundles["respawn"]))["metrics"][
+            "verify:0"]["slots"]
+        dead = {k: dead[k] for k in GUARD_SLOTS + ("reprobe_cnt",)}
+        if dead != {"device_fail_cnt": 1, "fallback_lane_cnt": 0,
+                    "degraded_mode": 0, "reprobe_cnt": 0}:
+            raise AssertionError(f"phase 17b: the dead tile's guard {dead}")
+        r = subprocess.run(
+            [sys.executable, "-m", "firedancer_tpu_torch.app.fdtpuctl",
+             "postmortem", str(bundles["respawn"])], cwd=ROOT,
+            capture_output=True, text=True, timeout=120)
+        if (r.returncode != 0 or "reason respawn" not in r.stdout
+                or "tile verify:0" not in r.stdout):
+            raise AssertionError(f"phase 17b: postmortem {r}")
+        out["b_s"] = time.perf_counter() - t_b
+        out["fault_respawn_s"] = t_respawn_b
+        note(f"phase 17b: verify-bench + a hand-written in-link, respawn "
+             f"policy, fail_dispatch_n:1,boot:0 on verify:0 (device_retry "
+             f"0): the first dispatch failed and the tile exited "
+             f"{p0.exitcode} (DeviceFault; nothing recomputed on the "
+             f"host); its last metrics in the `respawn` bundle {dead}, "
+             f"`fdtpuctl postmortem` rendered it "
+             f"({len(r.stdout.splitlines())} lines); death -> the "
+             f"respawned tile's RUN in {t_respawn_b:.3f} s; of the "
+             f"{len(first)} txns sent before the fault "
+             f"{len(first) - n_first} lost with the faulted dispatch; the "
+             f"{len(want_late_b)} valid of {n_late} injected after the "
+             f"respawn all captured, the forged none, each once; every "
+             f"tile's last incarnation exited 0; part (b) "
+             f"{out['b_s']:.1f} s")
+
+        # ---- (b2) in process: a verdict past the deadline
+        t_b2 = time.perf_counter()
+        stream = _forged(_stream_wires(pool, 1702, 10 * drill_txns), 5)
+        parts = [stream[i:i + drill_txns]
+                 for i in range(0, len(stream), drill_txns)]
+        oracle = [w for w, ok in zip(stream, pool.map(_txn_host_ok, stream))
+                  if ok and w not in parts[0]]
+        sup_cfg = {"device_deadline_s": 0.05, "device_retry": 0}
+
+        def tile_for(n_stall):
+            tile = VerifyTile()
+            ctx = _RecCtx({"buckets": buckets, "device": device,
+                           "supervision": sup_cfg})
+            tile.init(ctx)
+            if not cuda:
+                # the guard's card behaviour, to run the part on the CPU
+                tile.guard.on_card = True
+            stall = _StallFirst(tile.guard.fn, n_stall)
+            tile.guard.fn = stall
+            return tile, ctx, stall
+
+        def feed(tile, ctx, part):
+            pipe = tile.pipe
+            offs = np.zeros(len(part) + 1, np.int64)
+            np.cumsum([len(w) for w in part], out=offs[1:])
+            metas = np.zeros(len(part), dtype=[("sig", np.uint64)])
+            tile.on_burst(ctx, 0, metas, np.frombuffer(b"".join(part),
+                                                       np.uint8),
+                          offs, len(part))
+            tile._forward(ctx, pipe.dispatch_open())
+            deadline = time.monotonic() + 60
+            while pipe.inflight or pipe.lat_inflight:
+                tile.after_credit(ctx)
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 17b2: a harvest")
+                time.sleep(0.001)
+
+        tile, ctx, stall = tile_for(1)
+        t0 = time.perf_counter()
+        try:
+            feed(tile, ctx, parts[0])
+            raise AssertionError("phase 17b2: no DeviceFault past the "
+                                 "deadline")
+        except pl.DeviceFault as e:
+            fault_s = time.perf_counter() - t0
+            why = str(e)
+        tile.fini(ctx)
+        m0 = dict(ctx.metrics)
+        if (ctx.published or stall.dispatches != 1 or not tile.guard.faulted
+                or (m0["device_fail_cnt"], m0["fallback_lane_cnt"],
+                    m0["degraded_mode"]) != (1, 0, 0)):
+            raise AssertionError(f"phase 17b2: the faulted tile published "
+                                 f"{len(ctx.published)}, metrics {m0}")
+        if cuda:
+            torch.cuda.synchronize()     # the stall ends; nothing reads it
+        # the next incarnation: a new tile serves the parts that follow
+        tile = ctx = stall = None
+        tile, ctx, stall = tile_for(0)
+        reset_counts()
+        for part in parts[1:]:
+            feed(tile, ctx, part)
+        tile.fini(ctx)
+        launches = counts()
+        got = [p for p, _ in ctx.published]
+        n_dev = stall.dispatches
+        if sorted(got) != sorted(oracle) or len(set(got)) != len(got):
+            raise AssertionError(f"phase 17b2: published {len(got)} "
+                                 f"({len(set(got))} distinct), the oracle "
+                                 f"{len(oracle)}")
+        guard_clean(ctx.metrics, "phase 17b2 (the next tile)")
+        if cuda and not (launches["sha512_ram"] == launches["verify_tail"]
+                         == launches["r_check"] == n_dev):
+            raise AssertionError(f"phase 17b2: launches {launches} for "
+                                 f"{n_dev} device dispatches")
+        out["b2_s"] = time.perf_counter() - t_b2
+        note(f"phase 17b2: VerifyTile in process, device_deadline_s 50 ms: "
+             f"its first dispatch ({len(parts[0])} txns) stalled "
+             f"{STALL_CYCLES} cycles on the card; the harvest raised "
+             f"DeviceFault after {fault_s:.3f} s ({why!r}), nothing "
+             f"published, the late verdict never read, the metrics "
+             f"device_fail_cnt 1, fallback_lane_cnt 0, degraded_mode 0. A "
+             f"new tile (the respawn's stand-in) took the {len(parts) - 1} "
+             f"parts after it: {n_dev} dispatches, sha512 launches "
+             f"{launches['sha512_ram']}; published {len(got)}, each once, "
+             f"== the host oracle of those parts; part (b2) "
+             f"{out['b2_s']:.1f} s")
+        tile = ctx = stall = None
+
+        # ---- (c) respawn after an injected kill
+        t_c = time.perf_counter()
+        spec = _inj_bench_spec(
+            f"{tag}c", device, buckets, 0, 1703, 0, workdir / "c.cap",
+            faults=f"verify:0=kill_after_frags:{kill_after},boot:0")
+        # all the traffic on the hand-written in-link: `pre` txns the
+        # first incarnation verdicts, then 16 across its kill threshold,
+        # then n_late after the respawn's RUN
+        pre = kill_after - 8
+        txns = [w for part in pool.starmap(_stream_part, [
+            (1703, 4, lo, lo + 8) for lo in range(0, pre + 16, 8)])
+            for _, w in part]
+        first, cross = txns[:pre], txns[pre:]
+        late = _forged([w for part in pool.starmap(_stream_part, [
+            (1704, 4, lo, min(lo + 16, n_late))
+            for lo in range(0, n_late, 16)]) for _, w in part], 8)
+        late_ok = pool.map(_txn_host_ok, late)
+        want_late = {w for w, ok in zip(late, late_ok) if ok}
+        policy = SupervisionPolicy(restart_policy="respawn", max_restarts=2,
+                                   drain_timeout_s=120.0,
+                                   heartbeat_stale_by_kind={"verify": 120.0})
+        run = TopoRun(spec, policy=policy, flight_dir=str(workdir / "fc"))
+        sup = threading.Thread(target=run.supervise,
+                               kwargs={"poll_s": 0.02}, daemon=True)
+
+        def captured():
+            return {w for _, w in read_capture(str(workdir / "c.cap"))}
+
+        try:
+            run.wait_ready(timeout=300)
+            p0 = run.procs["verify:0"]
+            sup.start()
+            _inject_wires(run, "inj_verify", first)
+            _wait_for(lambda: set(first) <= captured(), 120,
+                      f"the first {pre} txns at the sink", run)
+            _inject_wires(run, "inj_verify", cross)
+            _wait_for(lambda: not p0.is_alive(), 120, "the injected kill")
+            t_death = time.perf_counter()
+            if p0.exitcode != 86:
+                raise AssertionError(f"phase 17c: the first verify:0 "
+                                     f"exited {p0.exitcode}")
+            _wait_for(lambda: (run.procs["verify:0"] is not p0
+                               and run.jt.cnc["verify:0"].signal_query()
+                               == Cnc.SIGNAL_RUN), 300,
+                      "the respawned verify:0's RUN")
+            t_respawn = time.perf_counter() - t_death
+            mode = smi("compute_mode") if cuda else "cpu"
+            _inject_wires(run, "inj_verify", late)
+            _wait_for(lambda: want_late <= captured(), 300,
+                      "the txns injected after the respawn at the sink")
+            run._drain_req = True
+            sup.join(300)
+            if sup.is_alive():
+                raise AssertionError("phase 17c: the drain did not end")
+            dd = run.metrics("dedup")
+            vc = run.metrics("verify:0")
+        finally:
+            run._halting = True
+            if sup.is_alive():
+                sup.join(60)
+            run.close()
+        if set(run.exitcodes.values()) != {0} or run.restarts != {
+                "verify:0": 1}:
+            raise AssertionError(f"phase 17c: exit codes {run.exitcodes}, "
+                                 f"restarts {run.restarts}")
+        guard_clean(vc, "phase 17c")
+        got_c = [w for _, w in read_capture(str(workdir / "c.cap"))]
+        kept = set(got_c)
+        # the kill fires before frag `kill_after`: at most the 7 of
+        # `cross` ahead of it were processed, and the loss is a tail of
+        # `cross` (those 7 unless their verdicts were published, the
+        # doomed frag, the rest of its burst)
+        n_cross = sum(w in kept for w in cross)
+        if (len(got_c) != len(kept) or dd["dup_drop_cnt"] != 0
+                or kept != set(first) | set(cross[:n_cross]) | want_late
+                or n_cross > kill_after - 1 - pre):
+            raise AssertionError(
+                f"phase 17c: captured {len(got_c)} ({len(kept)} distinct),"
+                f" {n_cross} of the {len(cross)} across the kill, dedup "
+                f"dups {dd['dup_drop_cnt']}")
+        bundles = sorted(flightrec.load_bundle(str(p))["manifest"]["reason"]
+                         for p in (workdir / "fc").iterdir())
+        if bundles != ["respawn"]:
+            raise AssertionError(f"phase 17c: bundles {bundles}")
+        out["c_s"] = time.perf_counter() - t_c
+        out["respawn_s"] = t_respawn
+        out["lost"] = len(cross) - n_cross
+        note(f"phase 17c: verify-bench + a hand-written in-link, respawn "
+             f"policy, kill_after_frags:{kill_after},boot:0 on verify:0 "
+             f"(exit 86): death -> the respawned tile's RUN in "
+             f"{t_respawn:.3f} s (backoff {policy.backoff_s(1, 'verify:0'):.3f}"
+             f" s, a new process and CUDA context, the kernels from the "
+             f"build cache, every ladder shape warmed); compute_mode "
+             f"{mode}; restarts {run.restarts}, one `respawn` bundle; "
+             f"{pre} txns verdicted before the kill, all captured; of the "
+             f"{len(cross)} sent across it {n_cross} captured and "
+             f"{len(cross) - n_cross} lost, the last ones (the tile's "
+             f"unverdicted frags, the doomed frag and its burst's tail); "
+             f"{len(want_late)} of {n_late} injected after the respawn "
+             f"passed the host oracle and all reached the sink, the forged "
+             f"none; nothing captured twice, dedup dup_drop "
+             f"{dd['dup_drop_cnt']}; every tile's last incarnation exited "
+             f"0; part (c) {out['c_s']:.1f} s")
+
+        # ---- (d) the same kill on a packed_wire tile: the frags it held
+        t_d = time.perf_counter()
+        rows_d = buckets[0][0]
+        ml_d = packed_row_ml(256)
+        stride_d = ml_d + PACKED_ROW_EXTRA
+        kd, per = 12, 4                 # kill threshold, txns a frag
+        pre_d = kd - 8
+        spec = (TopoBuilder(f"{tag}d", wksp_mb=96)
+                .link("inj_verify", depth=32, mtu=rows_d * stride_d)
+                .link("verify_dedup", depth=256, mtu=1280)
+                .link("dedup_sink", depth=256, mtu=1280)
+                .tile("inj", "sink", outs=["inj_verify"])
+                .tile("verify:0", "verify", ins=["inj_verify"],
+                      outs=["verify_dedup"], device=device, packed_wire=1,
+                      buckets=[[rows_d, ml_d]],
+                      faults=f"verify:0=kill_after_frags:{kd},boot:0")
+                .tile("dedup", "dedup", ins=["verify_dedup"],
+                      outs=["dedup_sink"])
+                .tile("sink", "sink", ins=["dedup_sink"],
+                      capture_path=str(workdir / "d.cap"))
+                .build())
+        _shm_check(spec.wksp_mb << 20, note)
+        # frags of `per` txns each (the first forged), the rest zero
+        # rows: pre_d frags the first incarnation verdicts, 16 across its
+        # kill threshold, 4 after the respawn's RUN
+        wires_d = _forged(_stream_wires(pool, 1707, (pre_d + 20) * per),
+                          per)
+        frags_d = [wires_d[i:i + per] for i in range(0, len(wires_d), per)]
+        ok_d = dict(zip(wires_d, pool.map(_txn_host_ok, wires_d)))
+
+        def packed(frag):
+            blk = np.zeros((rows_d, stride_d), np.uint8)
+            for j, w in enumerate(frag):
+                t = txn_lib.parse(w)
+                msg = t.message(w)
+                blk[j, :len(msg)] = np.frombuffer(msg, np.uint8)
+                blk[j, ml_d:] = np.frombuffer(
+                    w[1:65] + t.signer_pubkeys(w)[0]
+                    + np.int32(len(msg)).tobytes(), np.uint8)
+            return blk
+
+        cursor = {"chunk": None}
+
+        def inject_packed(frags):
+            lnk = run.jt.links["inj_verify"]
+            if cursor["chunk"] is None:
+                cursor["chunk"] = lnk.dcache.chunk0
+            metas = []
+            for frag in frags:
+                blk = packed(frag)
+                chunk = cursor["chunk"]
+                lnk.dcache.write_view(chunk, blk.nbytes)[:] = blk.ravel()
+                cursor["chunk"] = lnk.dcache.advance(chunk, blk.nbytes)
+                metas.append((chunk, int.from_bytes(frag[0][1:9], "little")
+                              & ((1 << 63) - 1), len(frag)))
+            for chunk, sig, n in metas:
+                lnk.mcache.publish(sig=sig, chunk=chunk, sz=n)
+
+        def passing(frags):
+            return {w for f in frags for w in f if ok_d[w]}
+
+        first_d = frags_d[:pre_d]
+        cross_d = frags_d[pre_d:pre_d + 16]
+        late_d = frags_d[pre_d + 16:]
+        policy = SupervisionPolicy(restart_policy="respawn", max_restarts=2,
+                                   drain_timeout_s=120.0,
+                                   heartbeat_stale_by_kind={"verify": 120.0})
+        run = TopoRun(spec, policy=policy, flight_dir=str(workdir / "fd"))
+        sup = threading.Thread(target=run.supervise,
+                               kwargs={"poll_s": 0.02}, daemon=True)
+
+        def captured_d():
+            return {w for _, w in read_capture(str(workdir / "d.cap"))}
+
+        try:
+            run.wait_ready(timeout=300)
+            p0 = run.procs["verify:0"]
+            sup.start()
+            inject_packed(first_d)
+            _wait_for(lambda: passing(first_d) <= captured_d(), 120,
+                      f"the first {pre_d} frags' txns at the sink", run)
+            inject_packed(cross_d)
+            _wait_for(lambda: not p0.is_alive(), 120, "the injected kill")
+            t_death = time.perf_counter()
+            _wait_for(lambda: (run.procs["verify:0"] is not p0
+                               and run.jt.cnc["verify:0"].signal_query()
+                               == Cnc.SIGNAL_RUN), 300,
+                      "the respawned verify:0's RUN")
+            t_respawn_d = time.perf_counter() - t_death
+            inject_packed(late_d)
+            _wait_for(lambda: passing(late_d) <= captured_d(), 300,
+                      "the frags injected after the respawn at the sink")
+            run._drain_req = True
+            sup.join(300)
+            if sup.is_alive():
+                raise AssertionError("phase 17d: the drain did not end")
+            dd = run.metrics("dedup")
+            vd = run.metrics("verify:0")
+        finally:
+            run._halting = True
+            if sup.is_alive():
+                sup.join(60)
+            run.close()
+        if (p0.exitcode != KILL_EXIT_CODE
+                or set(run.exitcodes.values()) != {0}
+                or run.restarts != {"verify:0": 1}):
+            raise AssertionError(f"phase 17d: the first verify:0 exited "
+                                 f"{p0.exitcode}; exit codes "
+                                 f"{run.exitcodes}, restarts {run.restarts}")
+        guard_clean(vd, "phase 17d")
+        got_d = [w for _, w in read_capture(str(workdir / "d.cap"))]
+        kept_d = set(got_d)
+        # the kill fires before frag kd: the kd - 1 - pre_d frags of
+        # cross_d ahead of it were taken and dispatched (their credits
+        # held until the verdict), the rest acked unread.  A taken frag
+        # is verdicted whole or lost whole, in dispatch order
+        taken = kd - 1 - pre_d
+        done = [bool(passing([f]) & kept_d) for f in cross_d]
+        n_done = sum(done)
+        if (len(got_d) != len(kept_d) or dd["dup_drop_cnt"] != 0
+                or done != [True] * n_done + [False] * (16 - n_done)
+                or n_done > taken
+                or kept_d != (passing(first_d) | passing(cross_d[:n_done])
+                              | passing(late_d))):
+            raise AssertionError(
+                f"phase 17d: captured {len(got_d)} ({len(kept_d)} "
+                f"distinct), frags of the 16 across the kill verdicted "
+                f"{done}, dedup dups {dd['dup_drop_cnt']}")
+        bundles = sorted(flightrec.load_bundle(str(p))["manifest"]["reason"]
+                         for p in (workdir / "fd").iterdir())
+        if bundles != ["respawn"]:
+            raise AssertionError(f"phase 17d: bundles {bundles}")
+        out["d_s"] = time.perf_counter() - t_d
+        out["packed_respawn_s"] = t_respawn_d
+        out["packed_held_lost"] = taken - n_done
+        note(f"phase 17d: a packed_wire verify:0 ({rows_d} x {ml_d} rows a "
+             f"frag, {per} txns each, the first forged), respawn policy, "
+             f"kill_after_frags:{kd},boot:0: {pre_d} frags before the kill "
+             f"all verdicted; of the 16 sent across it the tile took "
+             f"{taken} (dispatched, credits held) and acked "
+             f"{16 - taken} unread; of the {taken} taken {n_done} were "
+             f"verdicted before the deferred kill and "
+             f"{taken - n_done} lost holding their credits "
+             f"({per * (taken - n_done)} txns), with the {16 - taken} "
+             f"unread ones {16 - n_done} frags lost in all, none verdicted "
+             f"twice (dedup dup_drop {dd['dup_drop_cnt']}); death -> the "
+             f"respawned tile's RUN in {t_respawn_d:.3f} s; the {len(late_d)}"
+             f" frags after it all verdicted, the host oracle's; part (d) "
+             f"{out['d_s']:.1f} s")
+        passed = True
+    finally:
+        if old_omp is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = old_omp
+        if own_dir and passed:
+            shutil.rmtree(workdir, ignore_errors=True)
+        elif not passed:
+            note(f"phase 17: the work directory {workdir} is kept")
+    out["s"] = time.perf_counter() - t_phase
+    note(f"phase 17: {out['s']:.1f} s")
     return out
 
 
@@ -4232,6 +5056,10 @@ def main() -> int:
         # shred_recover -> sink in processes
         shred = shred_phase(pool, reset_counts, counts, note, cuda_ms,
                             int_ops_per_s, clock_mhz * 1e6)
+        # ---- phase 17: the supervised run: `fdtpuctl run`, the verify
+        # tile's guard under injected dispatch failures and a stalled
+        # card, and a respawn after an injected kill
+        supervised_phase(pool, reset_counts, counts, note)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels
@@ -4427,7 +5255,49 @@ def shred_only() -> int:
     return 0
 
 
+def supervised_only() -> int:
+    """Phase 17 alone: python3 chip_smoke.py --phase 17.  Builds the
+    kernels, runs supervised_phase on the card and prints its numbers; no
+    {"ok": ...} line, which only the whole run prints."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from firedancer_tpu_torch.kernels import build
+        from firedancer_tpu_torch.ops import r_check as rck
+        from firedancer_tpu_torch.ops import sha512_kernel as sk
+        from firedancer_tpu_torch.ops import verify_tail as vt
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing: {exc}",
+              file=sys.stderr)
+        return 2
+    card = smi("name,power.limit")
+    print(f"card: {card}")
+    build.build_all()
+    counted = {"sha512_ram": sk.sha512_ram, "verify_tail": vt.verify_tail,
+               "r_check": rck.r_check}
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def note(msg: str):
+        print(f"{msg}  [{card}]", flush=True)
+
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        out = supervised_phase(pool, reset_counts, counts, note)
+    print(json.dumps({k: v for k, v in out.items() if k != "overhead"}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase", "16"]:
         sys.exit(shred_only())
+    if sys.argv[1:] == ["--phase", "17"]:
+        sys.exit(supervised_only())
     sys.exit(main())

@@ -9,8 +9,10 @@ values; a user file overlays it key by key; FDTPU_* environment variables
 overlay scalars last (FDTPU_LAYOUT_VERIFY_TILE_COUNT=4 sets [layout]
 verify_tile_count).  build_topology materializes `verify-bench` and
 `leader-bench` (with one pack tile: `[leader] pack_shards > 1` needs the
-leader_merge tile and raises NotImplementedError); the `fdtpu` topology
-needs tiles the port does not have yet and raises NotImplementedError.
+leader_merge tile and raises NotImplementedError), each with the metric
+tile when `[tiles.metric] prometheus_port` is set; the `fdtpu` topology
+needs tiles the port does not have yet, and `[autotune] enabled` the
+autotuner, and both raise NotImplementedError.
 """
 
 import os
@@ -89,17 +91,42 @@ device = ""                 # the poh_dev tile's: "" = the GPU; "cpu" runs
                             # the plain versions
 
 [tiles.metric]
-prometheus_port = 0         # >0: the metric tile, not ported
+prometheus_port = 0         # 0 = disabled; >0: a metric tile serving
+                            # /metrics and /healthz on this port
+
+[observability]
+http_port = 0               # 0 = no supervisor /metrics + /healthz endpoint
+flight_dir = ""             # "" = flight recorder off; else postmortem
+                            # bundle dir (crash/degrade/respawn/SIGUSR2)
+flight_max_bundles = 16     # oldest-bundle rotation bound on flight_dir
+                            # (a crash loop can't fill the disk); evictions
+                            # counted in fdtpu_flightrec_evict_cnt
+slo_target_ms = 2.0         # e2e p99 latency target the stage budgets
+                            # and /healthz slo field grade against
 
 [autotune]
 enabled = 0                 # 1: the closed-loop tuner, not ported
 
 [supervision]
-restart_policy = "fail_fast"  # fail_fast (respawn: not ported)
+restart_policy = "fail_fast"  # fail_fast (ref run.c:279) | respawn
+max_restarts = 5              # per-tile respawn budget
+backoff_initial_s = 0.25      # exponential backoff: initial delay,
+backoff_max_s = 8.0           # cap, and +/- jitter fraction (jitter is
+backoff_jitter = 0.2          # deterministic per (tile, attempt))
 boot_grace_s = 300.0          # no staleness checks while a tile boots
 heartbeat_stale_s = 60.0      # default heartbeat staleness -> tile failed
-drain_timeout_s = 0.0         # >0: graceful drain budget a tile.  0
-                              # (default): drain never engages
+device_fail_threshold = 3     # consecutive dispatch failures -> CPU
+                              # fallback (device "cpu"; on the card the
+                              # first failure ends the tile)
+device_retry = 1              # bounded retries per device dispatch
+device_deadline_s = 30.0      # verdict materialization deadline
+device_reprobe_s = 5.0        # degraded-mode device re-probe interval
+                              # (device "cpu")
+drain_timeout_s = 0.0         # >0: graceful drain budget a tile (rolling
+                              # restarts, SIGTERM/SIGINT topology drain).
+                              # A tile not DRAINED within it falls back to
+                              # crash-respawn semantics + a flight bundle.
+                              # 0 (default): drain never engages
 drain_manifest_dir = ""       # where draining tiles persist their cursor
                               # manifests ("" = skip; $FDTPU_DRAIN_DIR also
                               # works per-process)
@@ -163,22 +190,16 @@ def _env_overlay(cfg: dict, environ=os.environ) -> dict:
 # Sections where an unknown key is an ERROR, not a silent no-op: they
 # carry tuning knobs, and a typo'd knob (deadline_uss) that no-ops is the
 # worst failure mode.  The valid key set IS the DEFAULT_TOML schema.
-_STRICT_SECTIONS = ("latency", "verify", "supervision")
+_STRICT_SECTIONS = ("latency", "verify", "supervision", "observability")
 _STRICT_SUBTABLES = {"supervision": ("heartbeat_stale",)}
 
 
 # Keys of the JAX package's config whose code the port does not have: a
 # value other than 0 would change nothing, so it is refused, naming the
 # missing part.
-_RESPAWN = "respawn (TopoRun.supervise)"
-_GUARD = "the verify tile's GuardedVerifier (host fallback)"
 _NOT_PORTED = {
     "leader": {"unroll": "the XLA scan unroll of the PoH step (the CUDA "
                          "kernel unrolls its rounds in full)"},
-    "supervision": {"max_restarts": _RESPAWN, "backoff_initial_s": _RESPAWN,
-                    "backoff_max_s": _RESPAWN, "backoff_jitter": _RESPAWN,
-                    "device_fail_threshold": _GUARD, "device_retry": _GUARD,
-                    "device_deadline_s": _GUARD, "device_reprobe_s": _GUARD},
 }
 
 
@@ -232,9 +253,6 @@ def build_topology(cfg: dict) -> TopoSpec:
             f"{_MISSING[name]}")
     if name not in _TOPOS:
         raise ValueError(f"unknown topology {name!r}")
-    if int(cfg["tiles"]["metric"]["prometheus_port"]):
-        raise NotImplementedError(
-            "[tiles.metric] prometheus_port: the metric tile is not ported")
     if int((cfg.get("autotune") or {}).get("enabled", 0) or 0):
         raise NotImplementedError(
             "[autotune] enabled: the Autotuner (disco/autotune.py) is not "
@@ -302,6 +320,14 @@ def _source_and_verify(cfg: dict, name: str, out_link: str):
     return b, nverify, egress_packed
 
 
+def _metric_tile(b, cfg: dict):
+    """[tiles.metric] prometheus_port > 0: the metric tile, serving
+    /metrics and /healthz over every tile's block on that port."""
+    port = int(cfg["tiles"]["metric"]["prometheus_port"])
+    if port:
+        b.tile("metric", "metric", ins=(), port=port)
+
+
 def _topo_verify_bench(cfg: dict) -> TopoSpec:
     """source -> verify[v] -> dedup -> sink: the synthetic sigverify load
     harness (the verify_synth_load.c / `fddev bench` analogue)."""
@@ -315,6 +341,7 @@ def _topo_verify_bench(cfg: dict) -> TopoSpec:
            **t["dedup"])
     b.tile("sink", "sink", ins=["dedup_sink"],
            **dict(t.get("sink") or {}))
+    _metric_tile(b, cfg)
     return b.build()
 
 
@@ -352,6 +379,7 @@ def _topo_leader_bench(cfg: dict) -> TopoSpec:
            device=ld.get("device") or None)
     b.tile("sink", "sink", ins=["poh_sink"],
            capture_path=str(ld.get("capture_path", "")))
+    _metric_tile(b, cfg)
     return b.build()
 
 

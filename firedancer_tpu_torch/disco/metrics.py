@@ -5,8 +5,9 @@ copy of firedancer_tpu/disco/metrics.py's schema and block.
 Each tile owns a fixed block of 64-bit slots in the workspace laid out by
 static offset from a declarative schema.  Writers are single-threaded per
 block (one tile = one writer, the reference's contract) and use aligned
-8-byte stores (atomic on every platform we run on); a supervisor snapshots
-blocks without coordination.
+8-byte stores (atomic on every platform we run on); the metric tile, the
+supervisor's /metrics endpoint and the monitor snapshot blocks without
+coordination (prometheus_render renders them as Prometheus text).
 
 The schema is a plain dict (kind -> slot defs).  A slot def is either a
 bare name (COUNTER) or a (name, kind) tuple.  The schema, the footprint
@@ -127,7 +128,11 @@ TILE_SLOTS: dict[str, list] = {
                                           # only count harvested rows)
         # self-healing (GuardedVerifier): device dispatch health + the
         # CPU ed25519 fallback that keeps verdicts flowing when the
-        # device path is sick
+        # device path is sick.  The fallback serves device "cpu" only: on
+        # the card the first failure ends the tile (DeviceFault), so the
+        # last four stay 0 there.  The two lane counts take every lane of
+        # a fallen-back batch, padding lanes included (the JAX package's
+        # count), so they read above the live lanes verdicted
         "device_fail_cnt",                # device dispatches failed/timed out
         "fallback_lane_cnt",              # sig lanes verdicted on the CPU path
         "reprobe_cnt",                    # degraded-mode device probes
@@ -258,6 +263,40 @@ def footprint() -> int:
     return (BLOCK_SLOTS + MAX_HISTS * (HIST_BUCKETS + 1)) * 8
 
 
+def lint_schema() -> None:
+    """CI gate over the declarative schema (the reference validates
+    metrics.xml at codegen time): slot names unique post-prefixing, the
+    block fits BLOCK_SLOTS, kinds valid, hist defs fit MAX_HISTS with
+    sane ranges."""
+    kinds = set(TILE_SLOTS) | set(TILE_HISTS)
+    for kind in kinds:
+        defs = slot_defs(kind)
+        names = [n for n, _ in defs]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"{kind}: duplicate slot names {dupes}")
+        if len(defs) > BLOCK_SLOTS:
+            raise ValueError(
+                f"{kind}: {len(defs)} slots exceed BLOCK_SLOTS={BLOCK_SLOTS}")
+        for n, k in defs:
+            if k not in (COUNTER, GAUGE):
+                raise ValueError(f"{kind}.{n}: invalid metric kind {k!r}")
+            if not n.isidentifier():
+                raise ValueError(f"{kind}.{n}: not a valid metric name")
+        hds = hist_defs(kind)
+        if len(hds) > MAX_HISTS:
+            raise ValueError(
+                f"{kind}: {len(hds)} hists exceed MAX_HISTS={MAX_HISTS}")
+        hnames = [h[0] for h in hds]
+        if len(set(hnames)) != len(hnames):
+            raise ValueError(f"{kind}: duplicate hist names")
+        for n, lo, hi in hds:
+            if not (0 < lo < hi):
+                raise ValueError(f"{kind}.{n}: bad hist range [{lo}, {hi}]")
+            if n in names:
+                raise ValueError(f"{kind}.{n}: hist name collides with slot")
+
+
 class MetricsBlock:
     """Writer/reader view of one tile's metrics block."""
 
@@ -291,6 +330,11 @@ class MetricsBlock:
     def get(self, name: str) -> int:
         return int(self._arr[self._idx[name]])
 
+    def has(self, name: str) -> bool:
+        """Schema probe — health checks ask kinds they don't own (e.g.
+        "does this tile export degraded_mode?") without try/except."""
+        return name in self._idx
+
     def snapshot(self) -> dict[str, int]:
         return {n: int(self._arr[i]) for n, i in self._idx.items()}
 
@@ -317,3 +361,71 @@ class MetricsBlock:
 
     def hist_names(self) -> list[str]:
         return list(self._hists)
+
+
+def _esc(v: str) -> str:
+    """Escape a label VALUE per the Prometheus text exposition format
+    (backslash, double-quote, newline — in that order)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _labels(d: dict) -> str:
+    return ",".join(f'{k}="{_esc(v)}"' for k, v in d.items())
+
+
+def prometheus_render(tiles: dict[str, "MetricsBlock"], extra=None) -> str:
+    """Render all tile blocks as Prometheus text exposition
+    (ref: src/app/fdctl/run/tiles/fd_metric.c:232-263 prometheus_print):
+    counters and gauges per the schema kind, shm histograms as native
+    `le`-bucket histograms with _sum/_count.
+
+    Conformant grouping: ALL samples of a family are emitted contiguously
+    under exactly one `# HELP`/`# TYPE` pair (strict parsers reject a
+    family split across the page), and label values are escaped.
+
+    `extra` is an optional iterable of (name, kind, help, labels_dict,
+    value) samples — disco/attrib.py feeds the producer->consumer link
+    families through it so the HTTP server stays one render call.
+    """
+    # family name -> (kind, help, [sample lines])
+    fams: dict[str, tuple[str, str, list[str]]] = {}
+
+    def fam(metric, kind, help_txt):
+        if metric in fams:
+            return fams[metric][2]
+        lines: list[str] = []
+        fams[metric] = (kind, help_txt, lines)
+        return lines
+
+    for tname, blk in tiles.items():
+        kind = blk.kind
+        base = {"tile": tname, "kind": kind}
+        for slot, val in blk.snapshot().items():
+            metric = f"fdtpu_{slot}"
+            fam(metric, blk._kinds[slot], f"{slot} per tile").append(
+                f"{metric}{{{_labels(base)}}} {val}")
+        for hname in blk.hist_names():
+            metric = f"fdtpu_{hname}"
+            lines = fam(metric, "histogram", f"{hname} distribution per tile")
+            edges, counts, hsum = blk.hist_snapshot(hname)
+            labels = _labels(base)
+            cum = 0
+            for i, e in enumerate(edges):
+                cum += int(counts[i])
+                lines.append(
+                    f'{metric}_bucket{{{labels},le="{e:.6g}"}} {cum}')
+            cum += int(counts[-1])  # overflow bucket
+            lines.append(f'{metric}_bucket{{{labels},le="+Inf"}} {cum}')
+            lines.append(f"{metric}_sum{{{labels}}} {hsum}")
+            lines.append(f"{metric}_count{{{labels}}} {cum}")
+    for name, kind, help_txt, labels, value in (extra or ()):
+        fam(name, kind, help_txt).append(
+            f"{name}{{{_labels(labels)}}} {value}")
+
+    out = []
+    for metric, (kind, help_txt, lines) in fams.items():
+        out.append(f"# HELP {metric} {help_txt}")
+        out.append(f"# TYPE {metric} {kind}")
+        out.extend(lines)
+    return "\n".join(out) + "\n"

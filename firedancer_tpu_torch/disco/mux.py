@@ -20,9 +20,11 @@ src/disco/tiles.h):
 and the burst and zero-copy rx hooks (on_burst, on_burst_view with
 credits_held), apply_knobs and the drain hook, described in run().
 
-The JAX package's fault injection (disco/faultinject.py) is not ported: a
-fault plan in a tile's cfg (`faults`) or in FDTPU_FAULTS raises
-NotImplementedError when the mux is built.
+A fault plan (disco/faultinject.py: the tile cfg's `faults` or
+FDTPU_FAULTS) arms a FaultInjector that the rx paths and housekeeping
+call; with no plan each site costs one `is not None` compare.  A tile
+respawned into a live workspace (restart_cnt > 0) resumes each in-link
+from its fseq cursor.
 """
 
 import os
@@ -32,6 +34,7 @@ from dataclasses import dataclass
 from ..tango import ring
 from ..tango.ring import FSeq, Cnc
 from ..utils.hist import Histf
+from . import faultinject
 from . import trace as trace_mod
 from .topo import JoinedTopology, TileSpec
 
@@ -142,17 +145,19 @@ class Mux:
     HOUSE_NS = 20_000_000   # ~20ms default housekeeping interval
     BURST = 64              # frags drained per mcache poll
 
-    def __init__(self, topo: JoinedTopology, tile_name: str, vtable):
+    def __init__(self, topo: JoinedTopology, tile_name: str, vtable,
+                 restart_cnt: int = 0):
         self.topo = topo
         self.tile = topo.tile_spec(tile_name)
         self.vt = vtable
         self.metrics = topo.metrics[tile_name]
         self.cnc: Cnc = topo.cnc[tile_name]
-        if self.tile.cfg.get("faults") or os.environ.get("FDTPU_FAULTS"):
-            raise NotImplementedError(
-                "fault injection (firedancer_tpu/disco/faultinject.py) is "
-                "not ported: drop `faults` from the tile cfg and "
-                "FDTPU_FAULTS from the environment")
+        # armed fault plan or None (the common case; every hot-path site
+        # below guards on `is not None` so disabled injection costs one
+        # identity compare per burst)
+        self.fault = faultinject.for_tile(tile_name, self.tile.cfg,
+                                          restart_cnt=restart_cnt)
+        self.restart_cnt = restart_cnt
         self._next_poke = 0
         # fdtrace: this tile's span ring (disco/trace.py) + the span-chain
         # origin stamp of the frag currently being processed — publishes
@@ -163,7 +168,8 @@ class Mux:
         self._cur_tsorig = 0
         # autotune knob mailbox: generation-checked once per housekeeping
         # (one int compare unarmed).  gen-seen starts at 0, so a tile
-        # that joins late applies whatever knob set is already posted.
+        # that joins late, or a respawned one, applies whatever knob set
+        # is already posted.
         self._knob_pod = topo.knobs.get(tile_name)
         self._knob_gen = 0
 
@@ -175,11 +181,17 @@ class Mux:
             # producer that booted first may already have published, and a
             # reliable consumer must see every frag from the beginning (the
             # credit system guarantees none were overwritten: the producer
-            # is gated on our fseq, which also starts at seq0).  The JAX
-            # package's respawned tile resumes from its fseq cursor
-            # instead; respawn is not ported.
+            # is gated on our fseq, which also starts at seq0).
+            # EXCEPT on respawn: a tile restarted into a live workspace
+            # resumes from its own persisted fseq cursor — every frag below
+            # it was already acked (by the previous incarnation, or by the
+            # supervisor's dead-consumer eviction while we were down), so
+            # re-processing would emit duplicate verdicts downstream.
+            seq = jl.mcache.seq0()
+            if restart_cnt > 0:
+                seq = max(seq, fs.query())
             self.ins.append(_InState(il.link, jl.mcache, jl.dcache, fs,
-                                     seq=jl.mcache.seq0()))
+                                     seq=seq))
         self.outs: list[_OutState] = []
         for ln in self.tile.out_links:
             jl = topo.links[ln]
@@ -272,7 +284,7 @@ class Mux:
         needs it (the loop-exit finally would otherwise overwrite it with
         the BOOT halted-ack immediately).  A tile that cannot run dry
         stays in DRAIN heartbeating — the supervisor's drain_timeout_s
-        bounds that by falling back to the plain halt (HALT, then
+        bounds that by falling back to crash-respawn semantics (HALT or
         terminate), so peers never hang on a wedged drain."""
         cb_drain = getattr(vt, "drain", None)
         while not ctx.halted:
@@ -300,10 +312,12 @@ class Mux:
             time.sleep(1e-3)
 
     def _write_drain_manifest(self):
-        """Cursor manifest for a completed drain: what an operator or a
-        test inspects to prove zero loss — per-in-link fseq cursor,
-        out-link publish cursor, the knob-pod generation the tile had
-        applied, and under "tile_state" what the tile's optional
+        """Cursor manifest for a completed drain.  The respawn itself
+        resumes from the fseq lines in shm (restart_cnt > 0 path); the
+        manifest is what an operator or a test inspects to prove zero
+        loss — per-in-link fseq cursor, out-link publish cursor, the
+        knob-pod generation this incarnation had applied, and under
+        "tile_state" what the tile's optional
         drain_manifest(ctx) hook returns.  Written to
         [supervision] drain_manifest_dir (threaded into tile cfg) or
         $FDTPU_DRAIN_DIR; skipped when neither is set — a drain must
@@ -319,6 +333,7 @@ class Mux:
             man = {
                 "tile": self.tile.name,
                 "kind": self.tile.kind,
+                "restart_cnt": self.restart_cnt,
                 "knob_gen": self._knob_gen,
                 "cursors": {i.name: int(i.fseq.query()) for i in self.ins},
                 "outs": {o.name: int(o.seq) for o in self.outs},
@@ -574,6 +589,8 @@ class Mux:
                     if idle_acc:
                         m.add("idle_ns", idle_acc)
                         idle_acc = 0
+                    if self.fault is not None:
+                        self.fault.house()
                     if self._knob_pod is not None and cb_knobs is not None:
                         g = self._knob_pod.gen
                         if g != self._knob_gen:
@@ -607,6 +624,9 @@ class Mux:
                             # frags are few and large)
                             mine = (metas[(metas["seq"] % rr_cnt) == rr_idx]
                                     if rr_cnt > 1 else metas)
+                            if self.fault is not None and len(mine):
+                                mine, _nd = self.fault.frags_view(
+                                    mine, i.dcache)
                             filt = cons - len(mine)
                             m0 = metas[0]
                             hop = (int(now) - int(m0["tspub"])) & 0xFFFFFFFF
@@ -662,6 +682,12 @@ class Mux:
                             min(BURST_RX, room),
                             rx_buf[iidx], rx_metas[iidx], rx_offs[iidx],
                             rr_cnt, rr_idx)
+                        if kept and self.fault is not None:
+                            # a kill threshold inside the burst trims it:
+                            # the prefix is processed + span-recorded, the
+                            # tail is acked-but-lost (outage semantics)
+                            kept = self.fault.burst(kept, rx_buf[iidx],
+                                                    rx_offs[iidx])
                         if kept:
                             m0 = rx_metas[iidx][0]
                             # one hop sample per burst keeps the
@@ -743,6 +769,13 @@ class Mux:
                                 m.add("in_ovrn_cnt")
                                 i.seq = i.mcache.seq_query()
                                 break
+                        if self.fault is not None:
+                            payload, _drop = self.fault.frag(payload)
+                            if _drop:
+                                i.fseq.diag_add(_D_FILT_CNT)
+                                m.add("in_filt_cnt")
+                                i.seq = seq + 1
+                                continue
                         hop = (int(now) - int(meta["tspub"])) & 0xFFFFFFFF
                         if hop >= 1 << 31:  # guard against stale stamps
                             hop = 0

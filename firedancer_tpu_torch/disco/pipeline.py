@@ -19,8 +19,15 @@ through one C call a frag at submit and one at harvest
 (native/hostpath.cpp).  native_hostpath=False moves the packed-row
 submit and finish onto NumPy over the same tcache, with bit-identical
 output; nothing falls back to a Python tcache or parser when the host
-library fails to build, and nothing falls back from the device to the
-host (the JAX package's GuardedVerifier comes in a later slice).
+library fails to build.
+
+GuardedVerifier is the verify tile's self-healing wrapper around the
+device verifier: bounded retries and a verdict deadline.  On the card a
+dispatch that still fails, or a late verdict, raises DeviceFault and the
+tile exits for its restart policy to replace; on device "cpu" the batch
+falls back to the host ed25519 backend, with degraded mode and a
+periodic re-probe, as in the JAX package.  Every failure is counted
+(device_fail_cnt, fallback_lane_cnt, degraded_mode).
 """
 
 import ctypes
@@ -36,6 +43,7 @@ from ..ballet import txn as txn_lib
 from ..ballet import txn_native as tn
 from ..ops.ed25519 import PACKED_EXTRA
 from ..tango.tcache import NativeTCache
+from ..utils import log
 from ..utils.hist import Histf
 from . import trace as trace_mod
 
@@ -58,6 +66,241 @@ LAT_PRIO_BIT = 1 << 63
 
 # default low-latency lane shape ladder (lanes per pre-warmed shape)
 DEFAULT_LAT_SHAPES = (16, 64, 256)
+
+
+class DeviceFault(RuntimeError):
+    """A verify dispatch on the card that failed after its retries, or
+    whose verdict came later than the guard's deadline.  The tile exits
+    with it, and its supervisor's restart policy decides what follows (a
+    respawn starts a new process with a new CUDA context)."""
+
+
+def _on_card(fn) -> bool:
+    dev = getattr(fn, "device", None)
+    return dev is not None and torch.device(dev).type == "cuda"
+
+
+class _GuardedVerdict:
+    """Verdict future with a harvest-side deadline (GuardedVerifier's
+    async half).  Implements exactly the surface the pipeline touches on
+    a dispatched verdict: is_ready() polls (the device Verdict's CUDA
+    event query, no synchronization), np.asarray materializes,
+    copy_to_host_async passes through.  A future that is still not ready
+    past the deadline, or whose materialization raises, counts as a
+    device failure (GuardedVerifier._device_failed): on the CPU the
+    verdict is recomputed on the host from the still-pinned inputs (the
+    pipeline holds packed blobs and row views until _finish, so the bytes
+    are live here), on the card it raises DeviceFault.  Either way the
+    late device verdict is dropped unread: only what __array__ returns is
+    published."""
+
+    __slots__ = ("_g", "_dev", "_host_call", "_t0")
+
+    def __init__(self, g, dev, host_call, t0):
+        self._g = g
+        self._dev = dev
+        self._host_call = host_call
+        self._t0 = t0
+
+    def is_ready(self) -> bool:
+        if _is_ready(self._dev):
+            return True
+        if self._g.deadline_s <= 0:     # deadline disabled: poll only
+            return False
+        # a hung dispatch becomes "ready" at the deadline so harvest()
+        # reaches __array__ and the failure path fires
+        return self._g._clock() - self._t0 > self._g.deadline_s
+
+    def copy_to_host_async(self):
+        fn = getattr(self._dev, "copy_to_host_async", None)
+        if fn is not None:
+            fn()
+
+    def __array__(self, dtype=None, copy=None):
+        g = self._g
+        if (_is_ready(self._dev) or g.deadline_s <= 0
+                or g._clock() - self._t0 <= g.deadline_s):
+            try:
+                ok = np.asarray(self._dev)
+                g._consec = 0
+                return ok if dtype is None else ok.astype(dtype)
+            except Exception as e:  # noqa: BLE001 — any materialization
+                why = f"verdict fetch failed: {e}"
+        else:
+            why = f"verdict hung past the {g.deadline_s:.3f}s deadline"
+        log.warning("device %s", why)
+        ok = g._device_failed(self._host_call, why)
+        return ok if dtype is None else ok.astype(dtype)
+
+
+class GuardedVerifier:
+    """Self-healing wrapper around a device verifier (the graceful-
+    degradation half of supervision).
+
+    Wraps dispatch_blob, the one dispatch surface the pipeline uses, and
+    passes everything else (.mode, .device, ...) through.  Behavior:
+
+      * every device dispatch gets `retries` bounded retries; a dispatch
+        that still raises is a device failure (`device_fail_cnt` counts)
+      * a dispatched verdict that never materializes within `deadline_s`
+        is also a failure (caught at harvest via _GuardedVerdict); set
+        deadline_s <= 0 to disable the hang watchdog (benchmarks on a
+        contended 1-core CPU host legitimately outlast any sane deadline)
+
+    What a failure does depends on where the wrapped verifier runs.  On
+    the card it raises DeviceFault: the work is never moved to the host,
+    the tile exits, and its restart policy replaces it (a respawn gets a
+    new CUDA context, which also clears a sticky CUDA error that would
+    fail every later dispatch of this process).  On the CPU (device
+    "cpu", as the JAX package's guard does on any device) the failed
+    batch is verdicted by the host ed25519 backend, and
+    `fail_threshold` CONSECUTIVE failures flip `degraded` on: all
+    dispatches go straight to the host backend, and every `reprobe_s`
+    seconds one live batch probes the device; a probe that materializes
+    in time clears degraded and restores the device path.  Host verdicts
+    are bit-identical to device verdicts: both implement the same
+    acceptance rules, conformance-tested against
+    ops.ed25519.verify_one_host.
+
+    The guard adds no launch and no synchronization on the healthy path;
+    an injected dispatch failure raises before the wrapped dispatch, so
+    nothing launches for it."""
+
+    def __init__(self, fn, fail_threshold: int = 3, retries: int = 1,
+                 deadline_s: float = 30.0, reprobe_s: float = 5.0,
+                 fault=None, clock=time.monotonic, host_blob=None):
+        self.fn = fn
+        self.fail_threshold = max(1, int(fail_threshold))
+        self.retries = max(0, int(retries))
+        self.deadline_s = float(deadline_s)
+        self.reprobe_s = float(reprobe_s)
+        self.fault = fault          # FaultInjector or None
+        self._clock = clock
+        self._host_blob = host_blob
+        self.on_card = _on_card(fn)
+        self.faulted = False        # a DeviceFault was raised
+        self.degraded = False
+        self.device_fail_cnt = 0
+        self.fallback_lanes = 0
+        self.reprobe_cnt = 0
+        self._consec = 0
+        self._next_probe = 0.0
+        self._fb_t0 = None          # fallback-rate window origin
+        self._fb_lanes0 = 0
+
+    def __getattr__(self, name):
+        # .mode / .device / anything else the pipeline introspects
+        return getattr(self.__dict__["fn"], name)
+
+    def dispatch_blob(self, blob, maxlen=None):
+        return self._dispatch(
+            lambda: self.fn.dispatch_blob(blob, maxlen=maxlen),
+            lambda: self._host_b(blob, maxlen))
+
+    # -- host backend (device "cpu" only) ----------------------------------
+    def _host_b(self, blob, maxlen):
+        if self._host_blob is None:
+            from ..models.verifier import host_verify_blob
+            self._host_blob = host_verify_blob
+        return self._host_blob(blob, maxlen=maxlen)
+
+    def _host(self, host_call):
+        ok = np.asarray(host_call()).astype(bool)
+        # every lane of the batch, padding lanes included (the JAX
+        # package's count); the backend skips all-zero padding lanes
+        self.fallback_lanes += len(ok)
+        return ok
+
+    def fallback_vps(self) -> int:
+        """CPU-fallback verify rate (lanes/s, padding lanes counted) over
+        the current degraded window; 0 when healthy."""
+        if self._fb_t0 is None:
+            return 0
+        dt = self._clock() - self._fb_t0
+        if dt <= 0:
+            return 0
+        return int((self.fallback_lanes - self._fb_lanes0) / dt)
+
+    # -- state machine -----------------------------------------------------
+    def _enter_degraded(self):
+        self.degraded = True
+        self._next_probe = self._clock() + self.reprobe_s
+        self._fb_t0 = self._clock()
+        self._fb_lanes0 = self.fallback_lanes
+        log.warning("verify device path degraded after %d consecutive "
+                    "failures: serving off the CPU ed25519 fallback "
+                    "(reprobe every %.1fs)", self._consec, self.reprobe_s)
+
+    def _recover(self):
+        self.degraded = False
+        self._consec = 0
+        self._fb_t0 = None
+        log.warning("verify device path recovered; leaving degraded mode")
+
+    def _device_failed(self, host_call, why: str):
+        """Shared failure accounting (dispatch raise or harvest timeout).
+        On the card: DeviceFault.  On the CPU: the host fallback for the
+        affected batch."""
+        self.device_fail_cnt += 1
+        self._consec += 1
+        if self.on_card:
+            self.faulted = True
+            raise DeviceFault(f"verify dispatch on the card: {why}")
+        if self.degraded:
+            self._next_probe = self._clock() + self.reprobe_s
+        elif self._consec >= self.fail_threshold:
+            self._enter_degraded()
+        return self._host(host_call)
+
+    def _try_materialize(self, dev):
+        """Degraded-mode probe: block (bounded by deadline_s) on a live
+        dispatch; returns the verdict array or None on hang/raise."""
+        deadline = self._clock() + self.deadline_s
+        while not _is_ready(dev):
+            if self._clock() > deadline:
+                return None
+            time.sleep(0.001)
+        try:
+            return np.asarray(dev)
+        except Exception as e:  # noqa: BLE001
+            log.warning("device probe materialization failed: %s", e)
+            return None
+
+    def _dispatch(self, dev_call, host_call):
+        now = self._clock()
+        if self.degraded and now < self._next_probe:
+            return self._host(host_call)
+        probing = self.degraded
+        if probing:
+            self.reprobe_cnt += 1
+        last = "probe verdict hung or failed"
+        for _ in range(self.retries + 1):
+            try:
+                if self.fault is not None:
+                    self.fault.dispatch()
+                dev = dev_call()
+            except Exception as e:  # noqa: BLE001 — a dispatch-time raise
+                last = str(e)       # of ANY kind means the device path is
+                continue            # not producing verdicts right now
+                # (stringified: keeping the exception would pin the whole
+                # frag-loop stack through its traceback if a log handler
+                # retains the record)
+            if probing:
+                # degraded-mode probe: this live batch decides recovery,
+                # so (unlike the healthy path) we block on it
+                ok = self._try_materialize(dev)
+                if ok is None:
+                    break
+                self._recover()
+                return ok.astype(bool)
+            # NOTE: _consec is NOT reset here — only a verdict that
+            # actually materializes clears it (_GuardedVerdict.__array__);
+            # a device that accepts dispatches but never completes them
+            # must still cross the threshold
+            return _GuardedVerdict(self, dev, host_call, now)
+        log.warning("device dispatch failed (consec=%d): %s",
+                    self._consec + 1, last)
+        return self._device_failed(host_call, f"dispatch failed: {last}")
 
 
 @dataclass

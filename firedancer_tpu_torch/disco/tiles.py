@@ -13,7 +13,8 @@ TileSpec.kind.  The verify-bench data plane is
 with the port's VerifyTile (disco/verify_tile.py) dispatching to the card;
 the leader-bench topology adds the leader_pack and poh_dev tiles
 (disco/leader_tiles.py), and the follower's turbine shred lane the
-shred, shred_recover and store tiles (disco/shred_tiles.py).  The net,
+shred, shred_recover and store tiles (disco/shred_tiles.py); the metric
+tile serves /metrics and /healthz over every tile's block.  The net,
 quic, bank and later tiles are not ported yet; neither are the source's executable transfers, stream
 adoption and blockhash feedback, nor the dedup tile's sharded tcache and
 restart preload: those options raise NotImplementedError.
@@ -370,6 +371,21 @@ def read_capture(path: str) -> list[tuple[int, bytes]]:
     return out
 
 
+class MetricTile:
+    """Prometheus exporter over HTTP (ref: run/tiles/fd_metric.c:135-263),
+    snapshotting every tile's shared-memory metrics block: the same
+    /metrics and /healthz handler the supervisor's
+    TopoRun(metrics_port=...) endpoint serves.  cfg: port."""
+
+    def init(self, ctx):
+        from .run import MetricsHttpServer
+        self.server = MetricsHttpServer(
+            ctx.topo, port=ctx.cfg.get("port", 7999))
+
+    def fini(self, ctx):
+        self.server.close()
+
+
 TILES: dict[str, type] = {
     "source": SourceTile,
     "verify": VerifyTile,
@@ -380,4 +396,5 @@ TILES: dict[str, type] = {
     "shred": ShredTile,
     "shred_recover": ShredRecoverTile,
     "store": StoreTile,
+    "metric": MetricTile,
 }

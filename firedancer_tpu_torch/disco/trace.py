@@ -8,7 +8,9 @@ mux run loop records one span per frag (scalar path) or per burst (native
 path); the verify pipeline adds coalesce, compile, dispatch, device and
 harvest spans through the same writer.  The record layout and footprint
 are the JAX package's, so either package's readers drain the other's
-rings.
+rings.  `fdtpuctl trace` drains every ring read-only and exports Chrome
+`trace_event` JSON (chrome_trace, loadable in Perfetto or
+chrome://tracing) plus a terminal p50/p99-per-hop table (hop_table).
 
 Concurrency contract (same as disco/metrics.py): one writer per ring,
 aligned 8-byte stores, readers snapshot without coordination and drop
@@ -17,6 +19,8 @@ records the cursor may have overwritten mid-copy.
 This module stays import-light (numpy only): the topology layout and
 every tile process import it.
 """
+
+import json
 
 import numpy as np
 
@@ -46,11 +50,23 @@ KIND_DISPATCH = 7   # verify bucket: dispatch call + over-budget queue drain
 KIND_PUBLISH = 8    # verify: verdicted txns -> downstream publish
 KIND_HARVEST = 9    # verify: verdict materialize -> passing txns rebuilt
 
+KIND_NAMES = {
+    KIND_FRAG: "frag", KIND_BURST: "burst", KIND_COALESCE: "coalesce",
+    KIND_DEVICE: "device", KIND_COMPILE: "compile", KIND_STAGE: "stage",
+    KIND_DISPATCH: "dispatch", KIND_PUBLISH: "publish",
+    KIND_HARVEST: "harvest",
+}
+
 # lane tag: the iidx field's top bit marks spans from the verify
 # pipeline's low-latency lane, so a reader separates the deadline-driven
 # lane from the throughput lane on the same tile row.  In-link and bucket
 # indexes stay far below 2^15, so the split is lossless.
 LANE_LAT = 1 << 15
+
+
+def _lane_split(iidx: int) -> tuple[int, bool]:
+    """(index, is_low_latency_lane) from a raw span iidx."""
+    return iidx & (LANE_LAT - 1), bool(iidx & LANE_LAT)
 
 DEPTH = 4096        # spans retained per tile (~160 KiB: DEPTH * 40B + header)
 _HDR = 64           # [magic, depth, cursor, reserved...] as u64
@@ -109,3 +125,153 @@ class TraceRing:
         if lapped > lo:
             out = out[lapped - lo:]
         return cur, out
+
+
+# -- chrome trace_event export ---------------------------------------------
+
+def chrome_trace(spans_by_tile: dict[str, np.ndarray]) -> dict:
+    """Build a Chrome trace_event JSON object (Perfetto-loadable): one
+    pid per app, one tid per tile, "X" complete events with microsecond
+    timestamps.  Span args carry hop/age/cnt for drill-down."""
+    events = []
+    for tid, (tile, recs) in enumerate(sorted(spans_by_tile.items())):
+        events.append({"ph": "M", "name": "thread_name", "pid": 1,
+                       "tid": tid, "args": {"name": tile}})
+        for r in recs:
+            kind = KIND_NAMES.get(int(r["kind"]), str(int(r["kind"])))
+            idx, is_lat = _lane_split(int(r["iidx"]))
+            events.append({
+                "ph": "X",
+                "name": f"{kind}:in{idx}" + (":lat" if is_lat else ""),
+                "cat": kind,
+                "pid": 1,
+                "tid": tid,
+                "ts": int(r["ts"]) / 1e3,
+                "dur": max(int(r["dur"]), 1) / 1e3,
+                "args": {"hop_ns": int(r["hop_ns"]),
+                         "age_ns": int(r["age_ns"]),
+                         "cnt": int(r["cnt"]),
+                         "seq": int(r["seq"]),
+                         "lane": "lat" if is_lat else "bulk"},
+            })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(path: str, spans_by_tile: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(chrome_trace(spans_by_tile), f)
+
+
+# -- terminal per-hop table ------------------------------------------------
+
+def hop_table(spans_by_tile: dict[str, np.ndarray]) -> str:
+    """p50/p99 per (tile, kind, in-link) over hop latency and span
+    duration — the terminal companion of the mux's in*_hop gauges,
+    computed from the SAME samples through the same Histf percentile."""
+    from ..utils.hist import Histf
+    rows = []
+    for tile, recs in sorted(spans_by_tile.items()):
+        for kind in np.unique(recs["kind"]) if len(recs) else []:
+            km = recs[recs["kind"] == kind]
+            for iidx in np.unique(km["iidx"]):
+                sel = km[km["iidx"] == iidx]
+                hh, dh = Histf(100, 10e9), Histf(100, 10e9)
+                frags = 0
+                for r in sel:
+                    if int(r["hop_ns"]):
+                        hh.sample(int(r["hop_ns"]))
+                    dh.sample(max(int(r["dur"]), 1))
+                    frags += int(r["cnt"])
+                idx, is_lat = _lane_split(int(iidx))
+                kname = KIND_NAMES.get(int(kind), str(int(kind)))
+                rows.append((
+                    tile, kname + (":lat" if is_lat else ""),
+                    idx, len(sel), frags,
+                    hh.percentile(0.50) if hh.count() else 0.0,
+                    hh.percentile(0.99) if hh.count() else 0.0,
+                    dh.percentile(0.50), dh.percentile(0.99)))
+    lines = [f"{'TILE':<14}{'SPAN':<10}{'IN':>3}{'SPANS':>8}{'FRAGS':>9}"
+             f"{'HOP p50':>10}{'HOP p99':>10}{'DUR p50':>10}{'DUR p99':>10}"]
+    for t, k, i, n, fr, h50, h99, d50, d99 in rows:
+        def _us(v):
+            return f"{v / 1e3:,.0f}us" if v else "-"
+        lines.append(f"{t:<14}{k:<10}{i:>3}{n:>8}{fr:>9}"
+                     f"{_us(h50):>10}{_us(h99):>10}"
+                     f"{_us(d50):>10}{_us(d99):>10}")
+    return "\n".join(lines)
+
+
+# -- in-process recorder (offline stage timings) --------------------------
+
+class SpanRecorder:
+    """Offline span sink with the same record shape as TraceRing but
+    string stage names: tools use it so their stage timings export
+    through the SAME chrome_trace/hop_table renderers (one
+    instrumentation source, no drift vs the live pipeline)."""
+
+    def __init__(self, tile: str = "offline"):
+        self.tile = tile
+        self._names: list[str] = []
+        self._recs: list[tuple] = []
+
+    def _stage_idx(self, name: str) -> int:
+        try:
+            return self._names.index(name)
+        except ValueError:
+            self._names.append(name)
+            return len(self._names) - 1
+
+    def record(self, name: str, ts: int, dur: int, cnt: int = 1):
+        self._recs.append((ts, dur, 0, 0, 0, self._stage_idx(name),
+                           KIND_STAGE, cnt))
+
+    def span(self, name: str, cnt: int = 1):
+        """Context manager timing one stage into the recorder."""
+        import time
+
+        class _Span:
+            def __enter__(s):
+                s.t0 = time.perf_counter_ns()
+                return s
+
+            def __exit__(s, *exc):
+                self.record(name, s.t0, time.perf_counter_ns() - s.t0, cnt)
+
+        return _Span()
+
+    def records(self) -> np.ndarray:
+        return np.array(self._recs, dtype=TRACE_REC_DTYPE)
+
+    def stage_name(self, iidx: int) -> str:
+        return self._names[iidx] if iidx < len(self._names) else str(iidx)
+
+    def chrome(self) -> dict:
+        """chrome_trace with stage names substituted for in-link labels."""
+        out = chrome_trace({self.tile: self.records()})
+        for ev in out["traceEvents"]:
+            if ev["ph"] == "X":
+                ev["name"] = self.stage_name(
+                    int(ev["name"].rsplit(":in", 1)[1]))
+        return out
+
+    def table(self) -> str:
+        """Per-stage p50/p99/mean, through the same Histf percentile the
+        mux hop gauges use."""
+        from ..utils.hist import Histf
+        recs = self.records()
+        lines = [f"{'STAGE':<28}{'SPANS':>7}{'p50':>12}{'p99':>12}"
+                 f"{'mean':>12}"]
+        for i, name in enumerate(self._names):
+            sel = recs[recs["iidx"] == i] if len(recs) else recs
+            if not len(sel):
+                continue
+            h = Histf(100, 60e9)
+            for r in sel:
+                h.sample(max(int(r["dur"]), 1))
+            mean = float(sel["dur"].mean())
+            lines.append(
+                f"{name:<28}{len(sel):>7}"
+                f"{h.percentile(0.50) / 1e6:>10.2f}ms"
+                f"{h.percentile(0.99) / 1e6:>10.2f}ms"
+                f"{mean / 1e6:>10.2f}ms")
+        return "\n".join(lines)

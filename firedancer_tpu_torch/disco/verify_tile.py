@@ -10,8 +10,15 @@ every bucket and latency-lane shape: its dispatch_blob takes any blob no
 larger than that.  Boot builds the CUDA kernels and dispatches one zero
 blob through every shape before the pipeline exists, so nothing is built
 on the hot path (the JAX tile loads AOT executables or compiles
-instead).  The tile does not wrap its verifier in a host fallback: a
-device, build or launch failure surfaces as an exception.
+instead).  A build or warm-up failure is a fatal boot failure.  After the
+warm-up the verifier serves under a GuardedVerifier (disco/pipeline.py),
+as the JAX tile's does, and its counts go to the tile's metrics
+(degraded_mode, device_fail_cnt, fallback_lane_cnt, reprobe_cnt and
+fallback_vps).  On the card a dispatch that fails after its retries, or
+a verdict past device_deadline_s, raises DeviceFault: the tile writes its
+metrics and exits without touching the card again, and the supervisor's
+restart policy decides what follows.  On device "cpu" the batch is
+recomputed on the host, as in the JAX package.
 """
 
 import os
@@ -24,8 +31,8 @@ from ..kernels import build
 from ..models.verifier import SigVerifier, VerifierConfig
 from ..ops.ed25519 import PACKED_EXTRA
 from . import trace as trace_mod
-from .pipeline import (DEFAULT_LAT_SHAPES, LAT_PRIO_BIT, PackedVerdicts,
-                       VerifyPipeline)
+from .pipeline import (DEFAULT_LAT_SHAPES, LAT_PRIO_BIT, GuardedVerifier,
+                       PackedVerdicts, VerifyPipeline)
 
 
 class VerifyTile:
@@ -39,8 +46,11 @@ class VerifyTile:
     n_buffers, burst, packed_wire, egress_packed, native_hostpath (the
     packed rows' one-pass C submit and finish, default 1; 0 runs them in
     NumPy), latency {enabled,
-    shapes, deadline_us, max_inflight, spill_age_factor}, mode, and device
-    (None is the GPU; "cpu" runs the kernels' plain versions).  Wire
+    shapes, deadline_us, max_inflight, spill_age_factor}, supervision
+    {device_fail_threshold, device_retry, device_deadline_s,
+    device_reprobe_s} (the guard's; the threshold and re-probe act on
+    device "cpu" only), mode, and device (None is the GPU;
+    "cpu" runs the kernels' plain versions).  Wire
     bursts go through the native burst parser either way.  dp_shards > 1,
     mode antipa, aot_dir, aot_require and jax_trace_dir are not ported and
     raise NotImplementedError.
@@ -123,6 +133,23 @@ class VerifyTile:
                                    f"{bits.shape}")
         if hb is not None:
             hb()
+        # self-healing dispatch, AFTER the warm-up (a warm-up failure
+        # stays a fatal boot failure): bounded retries and a verdict
+        # deadline; past them a DeviceFault on the card, the host
+        # fallback with degraded mode and re-probes on device "cpu".
+        # The mux armed this tile's
+        # FaultInjector (or None); the guard shares it, so the tile runs
+        # one deterministic fault stream.
+        sup = cfg.get("supervision") or {}
+        mux = getattr(ctx, "_mux", None)
+        self.guard = GuardedVerifier(
+            fn,
+            fail_threshold=int(sup.get("device_fail_threshold", 3)),
+            retries=int(sup.get("device_retry", 1)),
+            deadline_s=float(sup.get("device_deadline_s", 30.0)),
+            reprobe_s=float(sup.get("device_reprobe_s", 5.0)),
+            fault=getattr(mux, "fault", None))
+        fn = self.guard
         self.pipe = VerifyPipeline(
             fn, buckets=[tuple(b) for b in buckets],
             tcache_depth=cfg.get("tcache_depth", 1 << 16),
@@ -368,6 +395,14 @@ class VerifyTile:
         ctx.metrics.set("lat_spill_cnt", s.lat_spill)
         ctx.metrics.set("lat_batch_cnt", s.lat_batches)
         ctx.metrics.set("lat_deadline_close_cnt", s.lat_deadline_closes)
+        # self-healing dispatch health (GuardedVerifier): the degraded
+        # gauge is what flips /healthz from "ok" to "degraded"
+        g = self.guard
+        ctx.metrics.set("degraded_mode", 1 if g.degraded else 0)
+        ctx.metrics.set("device_fail_cnt", g.device_fail_cnt)
+        ctx.metrics.set("fallback_lane_cnt", g.fallback_lanes)
+        ctx.metrics.set("reprobe_cnt", g.reprobe_cnt)
+        ctx.metrics.set("fallback_vps", g.fallback_vps())
         # the whole distributions, not only derived percentiles
         ctx.metrics.hist_store("batch_ns", s.batch_ns)
         ctx.metrics.hist_store("coalesce_ns", s.coalesce_ns)
@@ -393,7 +428,12 @@ class VerifyTile:
     def fini(self, ctx):
         """At halt: dispatch what is open, wait for every verdict and
         publish the passing txns.  A device error propagates, so the tile
-        does not exit cleanly over it."""
+        does not exit cleanly over it.  After a DeviceFault nothing more
+        goes to the card: the metrics are written and the fault goes on
+        up, the open and in-flight batches unpublished."""
+        if self.guard.faulted:
+            self._sync_metrics(ctx)
+            return
         self._forward(ctx, self.pipe.flush())
         self._sync_metrics(ctx)
 

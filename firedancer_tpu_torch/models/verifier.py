@@ -257,6 +257,38 @@ class _LazyRlcVerdict:
         return self._materialize().any()
 
 
+def host_verify_blob(blob, maxlen: int | None = None,
+                     mode: str = "strict"):
+    """CPU ed25519 backend of the guard on device "cpu" (degraded mode),
+    over the packed row blob (row = msg[ml] | sig[64] | pub[32] |
+    len-le32, ed25519.PACKED_EXTRA): the layout dispatch_blob uploads,
+    verified lane by lane with ops.ed25519.verify_one_host on Python
+    ints.  Verdict[i] matches the device's verify_blob bit for bit.
+    Orders of magnitude slower than a device dispatch.  A torch tensor on
+    the host is read in place.  Only the strict mode is ported (antipa
+    raises NotImplementedError, as SigVerifier does)."""
+    if mode == "antipa":
+        raise NotImplementedError(
+            "antipa mode is not ported yet (firedancer_tpu_torch)")
+    if mode != "strict":
+        raise ValueError(f"unknown verifier mode {mode!r}")
+    blob = np.asarray(blob, dtype=np.uint8)
+    ml = (blob.shape[1] - ed.PACKED_EXTRA) if maxlen is None else int(maxlen)
+    lens = np.clip(np.ascontiguousarray(
+        blob[:, ml + 96:ml + 100]).view(np.int32).ravel(), 0, ml)
+    out = np.zeros(len(blob), dtype=bool)
+    for i, row in enumerate(blob):
+        sig = bytes(row[ml:ml + 64])
+        pub = bytes(row[ml + 64:ml + 96])
+        if not (any(sig) or any(pub)):
+            # all-zero sig+pub = padding lane; the device rejects it too
+            # ((0,...) decompresses to a small-order point), skip the
+            # expensive scalar math
+            continue
+        out[i] = ed.verify_one_host(sig, bytes(row[:lens[i]]), pub)
+    return out
+
+
 @dataclass(frozen=True)
 class WorkloadDesc:
     """What the rotation core needs to know about a packed workload:

@@ -819,24 +819,48 @@ def test_load_drain_manifest_validates(tmp_path):
     ({"config": {"autotune": {"enabled": 1}}}, "Autotuner"),
     ({"policy": SupervisionPolicy(restart_policy="respawn")}, "respawn"),
 ])
-def test_toporun_refuses_what_is_not_ported(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TopoRun(_mini_spec("nr"), start=False, **kw)
+def test_toporun_refuses_what_is_not_ported(kw, match, tmp_path):
+    """Only the autotuner is still refused; the /metrics endpoint, the
+    flight recorder and respawn are ported, and each option is live on
+    the run it builds."""
+    if match == "Autotuner":
+        with pytest.raises(NotImplementedError, match=match):
+            TopoRun(_mini_spec("nr"), start=False, **kw)
+        return
+    if "flight_dir" in kw:
+        kw = {"flight_dir": str(tmp_path / "f")}
+    run = TopoRun(_mini_spec("nr"), start=False, **kw)
+    try:
+        if match == "metrics_port":
+            assert run.metrics_port > 0
+        elif match == "flight_dir":
+            assert run.flight_dump("sigusr2") is not None
+        else:
+            assert run.policy.restart_policy == "respawn"
+    finally:
+        run.close()
 
 
 def test_fault_plans_are_refused(monkeypatch):
+    """Fault plans are armed now, with the JAX package's grammar: a tile
+    cfg `faults` plan or FDTPU_FAULTS naming the tile arms the mux's
+    FaultInjector; a string outside the grammar names no tile and arms
+    nothing, as in the JAX package."""
+    from firedancer_tpu.disco import faultinject as jfi
     jt = topo_mod.create(_mini_spec("fp", faults="v:0:kill@3"))
     try:
-        with pytest.raises(NotImplementedError, match="faultinject"):
-            Mux(jt, "v:0", _DrainVt())
+        assert Mux(jt, "v:0", _DrainVt()).fault is None
+        assert jfi.for_tile("v:0", {"faults": "v:0:kill@3"}) is None
     finally:
         jt.close()
         jt.unlink()
-    jt = topo_mod.create(_mini_spec("fe"))
+    jt = topo_mod.create(_mini_spec("fe", faults="v:0=kill_after_frags:3"))
     try:
-        monkeypatch.setenv("FDTPU_FAULTS", "v:0:kill@3")
-        with pytest.raises(NotImplementedError, match="faultinject"):
-            Mux(jt, "v:0", _DrainVt())
+        f = Mux(jt, "v:0", _DrainVt()).fault
+        assert f is not None and f._kill_after == 3
+        monkeypatch.setenv("FDTPU_FAULTS", "v=fail_dispatch_n:2")
+        f = Mux(jt, "v:0", _DrainVt()).fault
+        assert (f._kill_after, f._fail_n) == (3, 2)
     finally:
         jt.close()
         jt.unlink()

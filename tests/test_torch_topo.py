@@ -58,14 +58,11 @@ def test_verify_bench_spec_equals_the_jax_package(packed, nverify):
     js, ps = _specs("s", packed, nverify)
     assert _shape(ps) == _shape(js)
     for pt, jt in zip(ps.tiles, js.tiles):
-        # the port's verify cfg adds `device` (None: the GPU) and lacks
-        # the keys whose code it does not have (config._NOT_PORTED); it
-        # carries [ingest] native_hostpath as the JAX package's does
+        # the port's verify cfg adds `device` (None: the GPU); it carries
+        # the whole [supervision] section (the guard's device_* keys and
+        # the respawn keys) and [ingest] native_hostpath as the JAX
+        # package's does
         want = dict(jt.cfg)
-        if "supervision" in want:
-            want["supervision"] = {
-                k: v for k, v in want["supervision"].items()
-                if k not in pconfig._NOT_PORTED["supervision"]}
         assert {k: v for k, v in pt.cfg.items() if k != "device"} == want
         assert pt.cfg.get("device", None) is None
 
@@ -91,10 +88,6 @@ def test_leader_bench_spec_equals_the_jax_package(packed, nverify):
     for pt, jt in zip(ps.tiles, js.tiles):
         want = dict(jt.cfg)
         want.pop("unroll", None)
-        if "supervision" in want:
-            want["supervision"] = {
-                k: v for k, v in want["supervision"].items()
-                if k not in pconfig._NOT_PORTED["supervision"]}
         assert {k: v for k, v in pt.cfg.items() if k != "device"} == want
         assert pt.cfg.get("device", None) is None
     pl = {k: v for k, v in pconfig.load(environ={})["leader"].items()
@@ -307,12 +300,15 @@ def test_config_layers_and_refusals(tmp_path):
     c["autotune"]["enabled"] = 1
     with pytest.raises(NotImplementedError, match="Autotuner"):
         pconfig.build_topology(c)
-    # the JAX package's keys whose code the port lacks: refused when set
-    for env, missing in (("FDTPU_SUPERVISION_MAX_RESTARTS", "respawn"),
-                         ("FDTPU_SUPERVISION_DEVICE_RETRY", "GuardedVerifier")):
-        with pytest.raises(NotImplementedError, match=missing):
-            pconfig.load(environ={env: "1"})
-        assert pconfig.load(environ={env: "0"})
+    # the respawn and guard keys, refused before their code was ported,
+    # load as the JAX package loads them and reach the policy
+    for env, key in (("FDTPU_SUPERVISION_MAX_RESTARTS", "max_restarts"),
+                     ("FDTPU_SUPERVISION_DEVICE_RETRY", "device_retry")):
+        for val in ("0", "1"):
+            c = pconfig.load(environ={env: val})
+            assert c["supervision"] == jconfig.load(
+                environ={env: val})["supervision"]
+            assert getattr(SupervisionPolicy.from_cfg(c), key) == int(val)
     # [ingest] native_hostpath: on by default, the env overlays it, and
     # every verify tile gets it, as in the JAX package's topology
     assert pconfig.load(environ={})["ingest"]["native_hostpath"] == 1

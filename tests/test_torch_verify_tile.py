@@ -215,7 +215,10 @@ def test_port_tile_one_verifier_covers_the_ladder():
                     latency={"enabled": 1, "shapes": [2, 8]})
     tile = VerifyTile()
     tile.init(ctx)
-    fn = tile.pipe.verify_fn
+    # the pipeline dispatches through the tile's guard, which wraps the
+    # one SigVerifier
+    assert tile.pipe.verify_fn is tile.guard
+    fn = tile.guard.fn
     assert isinstance(fn, SigVerifier)
     assert (fn.cfg.batch, fn.cfg.msg_maxlen) == (8, 128)
     assert tile.pipe.metrics.compile_cnt == 0
@@ -295,7 +298,7 @@ def test_port_tile_matches_jax_tile():
     port = _run(VerifyTile(), _port_ctx())
     ref = _run(JaxVerifyTile(), RecCtx(dict(CFG)))
     assert port.published == ref.published == _expected()
-    # times; the JAX tile's GuardedVerifier gauges (not ported); and the
+    # times; the GuardedVerifier gauges; and the
     # lane occupancy: a repeat takes a lane or not as its first copy's
     # batch was harvested yet or not, and the JAX CPU backend dispatches
     # asynchronously
