@@ -41,7 +41,13 @@ whole slot at the Solana clock defaults with its entries re-checked,
 leader-bench (source -> verify -> leader_pack -> poh_dev -> sink) in
 spawned processes with forged txns injected, and the poh_dev tile at
 the clock defaults under the port's Mux, with the chain-lane hashes its
-dispatches ran by the slot's close.  Each path runs with the launch counts set to 0
+dispatches ran by the slot's close.  Then the shred lane (phase 16), the
+supervised run (phase 17) and the antipa mode (phase 18): the
+antipa_tail kernel against its plain version and the host on edge lanes
+fed digests directly, SigVerifier(mode="antipa") at the serving
+buckets against strict and the host twin (sha512 and antipa_tail
+kernels), the engine, and a verify tile with FDTPU_VERIFY_MODE=antipa
+on wire txns and torsion forgeries.  Each path runs with the launch counts set to 0
 just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
@@ -3134,14 +3140,15 @@ def shred_phase(pool, reset_counts, counts, note, cuda_ms, int_ops_per_s,
 # ---- phase 17: the supervised run ---------------------------------------
 
 
-def _txn_host_ok(wire: bytes) -> bool:
-    """The host oracle of a wire txn: every signature by verify_one_host,
-    for a pool worker."""
+def _txn_host_ok(wire: bytes, mode: str = "strict") -> bool:
+    """The host oracle of a wire txn: every signature by verify_one_host
+    (or verify_one_host_antipa for mode "antipa"), for a pool worker."""
     from firedancer_tpu_torch.ballet import txn as txn_lib
     from firedancer_tpu_torch.ops import ed25519 as ed
+    one = ed.verify_one_host_antipa if mode == "antipa" else ed.verify_one_host
     t = txn_lib.parse(wire)
     msg = t.message(wire)
-    return all(ed.verify_one_host(s, msg, k)
+    return all(one(s, msg, k)
                for s, k in zip(t.signatures(wire), t.signer_pubkeys(wire)))
 
 
@@ -3930,6 +3937,425 @@ def supervised_phase(pool, reset_counts, counts, note, device=None,
     return out
 
 
+def serving_buckets(shapes=BUCKETS):
+    """The serving buckets' blobs, (batch, ml, ragged) each: valid
+    signatures (256 distinct signings), message lengths 64 at ml 128 and
+    uniform in [0, ml] where ragged, a quarter of the rows with one bit
+    of S flipped.  Returns ([(batch, ml, blob, expected bits, SHA-512
+    blocks, message bytes)], {(batch, ml): the clean arrays})."""
+    from firedancer_tpu_torch.models import verifier as V
+    buckets, clean = [], {}
+    for batch, bml, ragged in shapes:
+        r = np.random.default_rng(batch + bml)
+        blens = r.integers(0, bml + 1, batch) if ragged else None
+        bm, bl, bs, bp = V.make_example_batch(batch, bml, True, batch + bml,
+                                              sign_pool=256, lens=blens)
+        clean[(batch, bml)] = (bm, bl, bs.copy(), bp)
+        bad = r.choice(batch, batch // 4, replace=False)
+        bs[bad, 32 + r.integers(0, 31, len(bad))] ^= 1   # corrupt S
+        expect = np.ones(batch, bool)
+        expect[bad] = False
+        buckets.append((batch, bml, V.pack_blob(bm, bl, bs, bp), expect,
+                        int(((bl.astype(np.int64) + 64 + 17 + 127)
+                             // 128).sum()), int(bl.sum())))
+    return buckets, clean
+
+
+# ---- phase 18: the antipa mode -------------------------------------------
+
+
+def antipa_edge_ks() -> list:
+    """The divstep halving's edge scalars: 0 .. 3, L - 1, L - 2, 2^127 - 1,
+    2^127, 2^128, the inverses of small primes (slow for Euclid), powers
+    of two and 2^250 mod L (the premultiply)."""
+    from firedancer_tpu_torch.ops import scalar25519 as sc
+    L = sc.L
+    ks = [0, 1, 2, 3, L - 1, L - 2, (1 << 127) - 1, 1 << 127, 1 << 128]
+    ks += [pow(x, L - 2, L) for x in (2, 3, 5, 7, 11, 97)]
+    ks += [pow(2, j, L) for j in (1, 63, 125, 126, 127, 128, 251)]
+    return ks + [pow(2, sc.DIVSTEP_ITERS, L)]
+
+
+def torsion_forgery(seed: bytes, msg: bytes, order: int, tag: bytes = b""):
+    """(sig, pub, k) whose verify defect [S]B - [k]A - R is a point of
+    order `order` (1, 2 or 4): R = [r]B + T with the honest S = r + k a.
+    Strict verify rejects it unless order is 1; antipa accepts it where
+    the order divides v."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    P, L = ed.P, ed.L
+    t = {1: (0, 1, 1, 0), 2: (0, P - 1, 1, 0),
+         4: (ed.cv.SQRT_M1, 0, 1, 0)}[order]
+    pub, a, _ = ed.keypair_from_seed(seed)
+    r = int.from_bytes(hashlib.sha512(b"forge" + tag + seed + msg).digest(),
+                       "little") % L
+    rb = ed._compress_host(ed._pt_add_host(ed._scalar_mul_base_host(r), t))
+    k = int.from_bytes(hashlib.sha512(rb + pub + msg).digest(),
+                       "little") % L
+    return rb + ((r + k * a) % L).to_bytes(32, "little"), pub, k
+
+
+def torsion_forgeries(msg: bytes, seed: bytes = bytes(range(7, 39))) -> list:
+    """One forgery of each case that decides antipa against strict: order
+    2 with v even (antipa accepts) and odd, order 4 with v = 0 mod 4
+    (accepts) and not.  (sig, pub, k, order, v) each, the first nonce tag
+    that gives the case."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    want, out = [(2, True), (2, False), (4, True), (4, False)], {}
+    for t in range(512):
+        for order in (2, 4):
+            sig, pub, k = torsion_forgery(seed, msg, order, t.to_bytes(2,
+                                                                  "little"))
+            v = ed._divstep_halve_host(k)[1]
+            out.setdefault((order, v % order == 0), (sig, pub, k, order, v))
+        if len(out) == len(want):
+            return [out[w] for w in want]
+    raise AssertionError("torsion_forgeries: a case was not found")
+
+
+def antipa_edge_lanes(seed: bytes = bytes(range(3, 35))) -> list:
+    """The antipa tail's edge lanes, fed digests directly: (pub, r, s,
+    digest) 160-byte rows.  A signature made valid for each edge scalar
+    k (antipa_edge_ks; R = [r]B, S = r + k a), its digest k and k + L;
+    valid ones for seeded k whose c = v S mod L has its 32nd window >= 8
+    (the signed recode's carry into a 33rd digit) and whose c >> 128 has
+    a 32nd window 0; the torsion forgeries of torsion_forgeries with
+    their real digests; and prechecks at their edges: S = L, R the
+    identity's encoding (small order), R's y >= p (accepted mod p), A
+    of order 8.  Each lane's bit on the host is ed.antipa_k_host."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    from firedancer_tpu_torch.ops import scalar25519 as sc
+    L = sc.L
+    pub, a, _ = ed.keypair_from_seed(seed)
+
+    def signed(k: int, tag: bytes = b""):
+        r = int.from_bytes(hashlib.sha512(b"edge" + tag + k.to_bytes(
+            32, "little")).digest(), "little") % L
+        return (ed._compress_host(ed._scalar_mul_base_host(r)),
+                ((r + k * a) % L).to_bytes(32, "little"))
+
+    rows = []
+    for k in antipa_edge_ks():
+        rb, sb = signed(k)
+        for d in (k, k + L):
+            rows.append(pub + rb + sb + d.to_bytes(64, "little"))
+    rng = np.random.default_rng(int.from_bytes(seed[:4], "little"))
+    found = 0
+    while found < 4:
+        k = int.from_bytes(rng.bytes(32), "little") % L
+        rb, sb = signed(k)
+        v = ed._divstep_halve_host(k)[1]
+        c = v * int.from_bytes(sb, "little") % L
+        if (c >> 124) & 0xF >= 8:
+            rows.append(pub + rb + sb + k.to_bytes(64, "little"))
+            found += 1
+    msg = bytes(range(32))
+    for sig, pk, _, _, _ in torsion_forgeries(msg):
+        rows.append(pk + sig + hashlib.sha512(sig[:32] + pk + msg).digest())
+    k = antipa_edge_ks()[-1]
+    rb, sb = signed(k, b"pre")
+    ident = (1).to_bytes(32, "little")
+    # the least y whose y + p still fits 255 bits and decompresses
+    y0 = next(y for y in range(2, 19)
+              if ed._decompress_host(y.to_bytes(32, "little")))
+    hi = (y0 + ed.P).to_bytes(32, "little")
+    o8 = ed.cv.ORDER8_Y0.to_bytes(32, "little")
+    kd = k.to_bytes(64, "little")
+    rows += [pub + rb + L.to_bytes(32, "little") + kd,
+             pub + ident + sb + kd, pub + hi + sb + kd, o8 + rb + sb + kd]
+    return rows
+
+
+def _antipa_k_row(row: bytes) -> bool:
+    """antipa_tail's bit on the host for one (pub, r, s, digest) row, for
+    a pool worker."""
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    return ed.antipa_k_host(row[32:96], row[:32],
+                            int.from_bytes(row[96:], "little") % ed.L)
+
+
+def torsion_txns(seed: int = 1818) -> list:
+    """Wire txns of one signature each, signed by torsion forgeries of
+    order 2: (wire, v even) for the first two nonces of each parity.  The
+    antipa host twin accepts the even ones; strict rejects all four."""
+    from firedancer_tpu_torch.ballet import txn as txn_lib
+    from firedancer_tpu_torch.ops import ed25519 as ed
+    rng = np.random.default_rng(seed)
+    key, blockhash, program = rng.bytes(32), rng.bytes(32), rng.bytes(32)
+    pub = ed.keypair_from_seed(key)[0]
+    out = {True: [], False: []}
+    for i in range(256):
+        msg = txn_lib.build_unsigned(
+            [pub], blockhash, [(1, bytes([0]), (1 << 40 | i).to_bytes(
+                8, "little"))], extra_accounts=[program])
+        sig, _, k = torsion_forgery(key, msg, 2)
+        even = ed._divstep_halve_host(k)[1] % 2 == 0
+        if len(out[even]) < 2:
+            out[even].append(txn_lib.assemble([sig], msg))
+        if len(out[True]) == len(out[False]) == 2:
+            return [(w, e) for e in (True, False) for w in out[e]]
+    raise AssertionError("torsion_txns: too few forgeries of a parity")
+
+
+def antipa_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
+                 int_ops_per_s, buckets=None, device=None,
+                 lanes=(1, 4096, 4097, 32768), n_sample=256,
+                 engine_cfg=(4096, 128), n_batches=8, tile_buckets=None,
+                 n_wires=512):
+    """Phase 18: the antipa mode, through every layer that serves it.
+    (a) The antipa_tail kernel against its plain version and the host
+    (ed.antipa_k_host) at `lanes` lanes, the edge lanes of
+    antipa_edge_lanes (fed digests directly) first, then the adversarial
+    kinds with their real digests.  (b) SigVerifier(mode="antipa")
+    .dispatch_blob at the serving buckets (serving_buckets, or `buckets`):
+    sha512_ram and antipa_tail launched once a dispatch and nothing else;
+    bits == as constructed == the strict fused verifier's, and the host
+    twin's on n_sample seeded rows a bucket; each kernel against its
+    plain version at the path's shapes; on the card the kernel's call
+    and device ms beside its bound, and dispatch_blob in both modes in
+    turns.  (c) The engine (make_ingest) at engine_cfg over n_batches
+    batches against serial dispatch_blob.  (d) A port VerifyTile with
+    FDTPU_VERIFY_MODE=antipa at tile_buckets (DEFAULT_BUCKETS) on
+    n_wires wire txns (a ninth forged) and four torsion forgeries: the
+    accepted set the antipa host twin's (the even-v forgeries in it,
+    which strict rejects), compile_cnt and the guard's counters 0.
+    device None is the card.  Raises on any failed check; returns the
+    numbers for the kernels record."""
+    import torch
+
+    from firedancer_tpu_torch.disco import pipeline as pl
+    from firedancer_tpu_torch.disco.verify_tile import VerifyTile
+    from firedancer_tpu_torch.models import verifier as V
+    from firedancer_tpu_torch.ops import antipa_tail as at
+    from firedancer_tpu_torch.ops import sha512_kernel as sk
+    from firedancer_tpu_torch.tools.kernel_time import antipa_bound_ms
+    t_phase = time.perf_counter()
+    cuda = device is None
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def tail_args(blob, ml):
+        r, s, a = blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64], \
+            blob[:, ml + 64:ml + 96]
+        return a, r, s, sk.sha512_ram(blob[:, :ml], r, a, blob[:, ml + 96:])
+
+    def hold(args, what) -> None:
+        got, want = at.antipa_tail(*args), at.antipa_tail_plain(*args)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"phase 18 {what}: antipa_tail differs from "
+                                 f"plain on {int((got != want).sum())} of "
+                                 f"{len(want)} lanes")
+
+    # ---- (a) the kernel against plain and the host, edge lanes first
+    edges = antipa_edge_lanes()
+    msgs, lens, sigs, pubs, _ = V.make_adversarial_batch(TAIL_LANES, 128)
+    ab = torch.from_numpy(V.pack_blob(msgs, lens, sigs, pubs)).to(dev)
+    dig = tail_args(ab, 128)[3].cpu().numpy()
+    rows = np.frombuffer(b"".join(edges + [
+        bytes(pubs[i]) + bytes(sigs[i]) + bytes(dig[i])
+        for i in range(len(pubs))]), np.uint8).reshape(-1, 160)
+    host = np.array(pool.map(_antipa_k_row, [bytes(r) for r in rows]))
+    for n in lanes:
+        t = torch.from_numpy(np.resize(rows, (n, 160))).to(dev)
+        args = (t[:, :32], t[:, 32:64], t[:, 64:96], t[:, 96:])
+        hold(args, f"{n} lanes")
+        bits = at.antipa_tail(*args).cpu().numpy()
+        if not np.array_equal(bits, np.resize(host, n)):
+            raise AssertionError(f"phase 18a: {n} lanes differ from the "
+                                 f"host on {int((bits != np.resize(host, n)).sum())}")
+    note(f"phase 18a: antipa_tail == plain == host (antipa_k_host) at "
+         f"{', '.join(map(str, lanes))} lanes, 0 lanes differing: "
+         f"{len(edges)} edge lanes fed digests directly ({int(host[:len(edges)].sum())} "
+         f"accept: the halving's edge scalars as k and k + L, c's 32nd "
+         f"window >= 8, order-2 and order-4 forgeries with v even and "
+         f"odd, S = L, R the identity, R's y >= p, A of order 8), then "
+         f"{len(pubs)} adversarial lanes")
+
+    # ---- (b) dispatch_blob at the serving buckets
+    if buckets is None:
+        buckets = serving_buckets()[0]
+    shapes = [(b, m) for b, m, *_ in buckets]
+    strict_v = {bm: V.SigVerifier(V.VerifierConfig(*bm), device=device)
+                for bm in shapes}
+    anti_v = {bm: V.SigVerifier(V.VerifierConfig(*bm), mode="antipa",
+                                device=device) for bm in shapes}
+    strict_bits = [np.asarray(strict_v[(b, m)].dispatch_blob(x))
+                   for b, m, x, *_ in buckets]
+    reset_counts()
+    res = [np.asarray(anti_v[(b, m)].dispatch_blob(x))
+           for b, m, x, *_ in buckets]
+    launches = counts()
+    want_l = {k: len(buckets) if k in ("sha512_ram", "antipa_tail") else 0
+              for k in launches}
+    if launches != want_l:
+        raise AssertionError(f"phase 18b: launches {launches}, expected "
+                             f"{want_l}")
+    rng = np.random.default_rng(18)
+    for (b, m, x, expect, *_), r, sb in zip(buckets, res, strict_bits):
+        if not (np.array_equal(r, expect) and np.array_equal(r, sb)):
+            raise AssertionError(f"phase 18b: {b}x{m}: {int((r != sb).sum())} "
+                                 f"bits differ from strict, "
+                                 f"{int((r != expect).sum())} from as built")
+        idx = np.sort(rng.choice(b, min(n_sample, b), replace=False))
+        hb = np.concatenate([np.asarray(h, bool) for h in pool.map(
+            _host_blob_antipa, np.array_split(x[idx], 8))])
+        if not np.array_equal(hb, r[idx]):
+            raise AssertionError(f"phase 18b: {b}x{m}: "
+                                 f"{int((hb != r[idx]).sum())} of {len(idx)} "
+                                 f"sampled rows differ from the host twin")
+        blob = torch.from_numpy(x).to(dev)
+        hold(tail_args(blob, m), f"{b}x{m}")
+        note(f"phase 18b: SigVerifier(mode='antipa').dispatch_blob {b}x{m}: "
+             f"{int(r.sum())} accept == as built == strict fused; the host "
+             f"twin on {len(idx)} seeded rows; antipa_tail == plain")
+    note(f"phase 18b: launches {launches} for {len(buckets)} dispatches")
+    out = {"launches": launches["antipa_tail"], "err": 0, "times": {}}
+    if cuda:
+        for b, m, x, *_ in buckets:
+            blob = torch.from_numpy(x).to(dev)
+            args = tail_args(blob, m)
+            t_k = cuda_ms(lambda: at.antipa_tail(*args))
+            d_k = dev_ms(lambda: at.antipa_tail(*args), "antipa_tail_kernel")
+            bd = antipa_bound_ms(b, int_ops_per_s)
+            e2e = {"strict": [], "antipa": []}
+            for mode in ("strict", "antipa", "antipa", "strict"):
+                ver = (anti_v if mode == "antipa" else strict_v)[(b, m)]
+                for _ in range(3):
+                    np.asarray(ver.dispatch_blob(x))
+                ts = []
+                for _ in range(RUNS):
+                    t0 = time.perf_counter()
+                    np.asarray(ver.dispatch_blob(x))
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                e2e[mode].append(statistics.median(ts))
+            out["times"][f"{b}x{m}"] = {
+                "ms": t_k, "device_ms": d_k, "bound_ms": bd[0],
+                "bound_by": bd[1], "dispatch_antipa_ms": e2e["antipa"],
+                "dispatch_strict_ms": e2e["strict"]}
+            note(f"phase 18 {b}x{m}: antipa_tail call {t_k:.5f} ms, device "
+                 f"{d_k:.5f} ms (bound {bd[0]:.5f} ms, {bd[1]}); "
+                 f"dispatch_blob + harvest, strict fused "
+                 f"{e2e['strict'][0]:.4f}, {e2e['strict'][1]:.4f} ms, antipa "
+                 f"{e2e['antipa'][0]:.4f}, {e2e['antipa'][1]:.4f} ms "
+                 f"(turns strict, antipa, antipa, strict; median of {RUNS})")
+        b, m, x = buckets[0][:3]
+        args = tail_args(torch.from_numpy(x).to(dev), m)
+        out["plain_ms"] = cuda_ms(lambda: at.antipa_tail_plain(*args),
+                                  PLAIN_RUNS, 1)
+        note(f"phase 18 {b}x{m}: plain antipa_tail {out['plain_ms']:.4f} ms")
+
+    # ---- (c) the engine against serial dispatch_blob
+    b, ml = engine_cfg
+    sv = anti_v.get((b, ml)) or V.SigVerifier(V.VerifierConfig(b, ml),
+                                             mode="antipa", device=device)
+    batches = [V.make_example_batch(b, ml, i % 2 == 0, 1800 + i,
+                                    sign_pool=32)
+               for i in range(n_batches - 1)]
+    batches.append(V.make_adversarial_batch(b, ml, seed=1899)[:4])
+    serial = [np.asarray(sv.dispatch_blob(V.pack_blob(*x))) for x in batches]
+    strict_sv = V.SigVerifier(V.VerifierConfig(b, ml), device=device)
+    strict_ser = [np.asarray(strict_sv.dispatch_blob(V.pack_blob(*x)))
+                  for x in batches]
+    eng = sv.make_ingest(nbuf=3, depth=2)
+    reset_counts()
+    got = []
+    for x in batches:
+        got += eng.submit(*x)
+    got += eng.drain()
+    launches_c = counts()
+    if len(got) != n_batches or any(not np.array_equal(g, s) or
+                                    not np.array_equal(g, t)
+                                    for g, s, t in zip(got, serial,
+                                                       strict_ser)):
+        raise AssertionError("phase 18c: the engine's bits differ from "
+                             "serial dispatch_blob or from strict")
+    if not (launches_c["sha512_ram"] == launches_c["antipa_tail"]
+            == eng.dispatches == n_batches and launches_c["verify_tail"]
+            == launches_c["r_check"] == 0):
+        raise AssertionError(f"phase 18c: launches {launches_c}")
+    note(f"phase 18c: engine {b}x{ml}, make_ingest(nbuf=3, depth=2) in "
+         f"antipa mode: bits == serial dispatch_blob == strict on all "
+         f"{n_batches} x {b} rows; sha512 and antipa_tail launches "
+         f"{launches_c['antipa_tail']} == dispatches; stats {eng.stats()}")
+
+    # ---- (d) the verify tile with FDTPU_VERIFY_MODE=antipa
+    tb = [list(x) for x in (tile_buckets or pl.DEFAULT_BUCKETS)]
+    tors = torsion_txns()
+    wires = _forged(_stream_wires(pool, 1818, n_wires), 9)
+    wires = wires[:n_wires // 2] + [w for w, _ in tors] + wires[n_wires // 2:]
+    host_a = pool.map(functools.partial(_txn_host_ok, mode="antipa"), wires)
+    host_s = pool.map(_txn_host_ok, wires)
+    want = {w for w, ok in zip(wires, host_a) if ok}
+    even = {w for w, e in tors if e}
+    if not (even <= want and not even & {w for w, ok in zip(wires, host_s)
+                                         if ok}):
+        raise AssertionError("phase 18d: the even-v forgeries do not split "
+                             "the two host twins")
+    prev = os.environ.get("FDTPU_VERIFY_MODE")
+    os.environ["FDTPU_VERIFY_MODE"] = "antipa"
+    try:
+        cfg = {"buckets": tb}
+        if device is not None:
+            cfg["device"] = device
+        tile, ctx = VerifyTile(), _RecCtx(cfg)
+        t0 = time.perf_counter()
+        tile.init(ctx)
+        t_boot = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            del os.environ["FDTPU_VERIFY_MODE"]
+        else:
+            os.environ["FDTPU_VERIFY_MODE"] = prev
+    if tile.guard.fn.mode != "antipa":
+        raise AssertionError("phase 18d: the tile's verifier is not antipa")
+    reset_counts()
+    t0 = time.perf_counter()
+    for lo in range(0, len(wires), 64):
+        part = wires[lo:lo + 64]
+        offs = np.zeros(len(part) + 1, np.int64)
+        np.cumsum([len(w) for w in part], out=offs[1:])
+        metas = np.zeros(len(part), dtype=[("sig", np.uint64)])
+        tile.on_burst(ctx, 0, metas, np.frombuffer(b"".join(part), np.uint8),
+                      offs, len(part))
+        tile.after_credit(ctx)
+    tile._forward(ctx, tile.pipe.flush())
+    sync()
+    t_wire = time.perf_counter() - t0
+    tile._sync_metrics(ctx)
+    guard_clean(ctx.metrics, "phase 18d")
+    launches_d = counts()
+    snap = tile.pipe.metrics.snapshot()
+    got_w = [p for p, _ in ctx.published]
+    if len(got_w) != len(set(got_w)) or set(got_w) != want:
+        raise AssertionError(f"phase 18d: accepted {len(got_w)} wire txns, "
+                             f"the antipa host twin {len(want)}")
+    if snap["compile_cnt"] or not (
+            launches_d["sha512_ram"] == launches_d["antipa_tail"]
+            == snap["batches"] > 0 and launches_d["verify_tail"] == 0):
+        raise AssertionError(f"phase 18d: compile_cnt {snap['compile_cnt']}, "
+                             f"launches {launches_d} for {snap['batches']} "
+                             f"dispatches")
+    note(f"phase 18d: VerifyTile with FDTPU_VERIFY_MODE=antipa at buckets "
+         f"{tb}: boot {t_boot:.3f} s; {len(wires)} wire txns "
+         f"({len(wires) - len(want)} rejected: a ninth forged and the odd-v "
+         f"order-2 forgeries), accepted {len(got_w)} == the antipa host "
+         f"twin, the {len(even)} even-v order-2 forgeries among them "
+         f"(strict rejects them); {len(wires) / t_wire:.1f} txns/s; sha512 "
+         f"and antipa_tail launches {launches_d['antipa_tail']} == "
+         f"{snap['batches']} dispatches; compile_cnt 0; guard counters 0")
+    out["phase_s"] = time.perf_counter() - t_phase
+    note(f"phase 18: {out['phase_s']:.1f} s")
+    return out
+
+
+def _host_blob_antipa(blob):
+    """host_verify_blob in antipa mode, for a pool worker."""
+    from firedancer_tpu_torch.models import verifier as V
+    return V.host_verify_blob(blob, mode="antipa")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3939,6 +4365,7 @@ def main() -> int:
     try:
         from firedancer_tpu_torch.kernels import build
         from firedancer_tpu_torch.models import verifier as V
+        from firedancer_tpu_torch.ops import antipa_tail as at
         from firedancer_tpu_torch.ops import curve25519 as cv
         from firedancer_tpu_torch.ops import decompress as dc
         from firedancer_tpu_torch.ops import dsm
@@ -4176,20 +4603,7 @@ def main() -> int:
           f"{', '.join(ed.TAILS)} layouts")
 
     # ---- phase 5: the main path, SigVerifier.dispatch_blob
-    buckets, clean = [], {}
-    for batch, bml, ragged in BUCKETS:
-        r = np.random.default_rng(batch + bml)
-        blens = r.integers(0, bml + 1, batch) if ragged else None
-        bm, bl, bs, bp = V.make_example_batch(batch, bml, True, batch + bml,
-                                              sign_pool=256, lens=blens)
-        clean[(batch, bml)] = (bm, bl, bs.copy(), bp)
-        bad = r.choice(batch, batch // 4, replace=False)
-        bs[bad, 32 + r.integers(0, 31, len(bad))] ^= 1   # corrupt S
-        expect = np.ones(batch, bool)
-        expect[bad] = False
-        buckets.append((batch, bml, V.pack_blob(bm, bl, bs, bp), expect,
-                        int(((bl.astype(np.int64) + 64 + 17 + 127)
-                             // 128).sum()), int(bl.sum())))
+    buckets, clean = serving_buckets()
     verifiers = {(b, m): V.SigVerifier(V.VerifierConfig(b, m))
                  for b, m, *_ in buckets}
     counted = {"sha512_ram": sk.sha512_ram, "verify_tail": vt.verify_tail,
@@ -4199,7 +4613,7 @@ def main() -> int:
                "double_scalar_mul_base": dsm.double_scalar_mul_base,
                "rlc_recode": rl.rlc_recode, "poh_spans": ps.poh_spans,
                "mixin_tree": mt.mixin_tree, "gf2_recover": gf2.gf2_recover,
-               "bmtree_walk": bw.bmtree_walk}
+               "bmtree_walk": bw.bmtree_walk, "antipa_tail": at.antipa_tail}
 
     def reset_counts():
         for fn in counted.values():
@@ -5060,6 +5474,11 @@ def main() -> int:
         # tile's guard under injected dispatch failures and a stalled
         # card, and a respawn after an injected kill
         supervised_phase(pool, reset_counts, counts, note)
+        # ---- phase 18: the antipa mode: the antipa_tail kernel against
+        # plain and the host, SigVerifier(mode="antipa") at the serving
+        # buckets, the engine and a verify tile in antipa mode
+        anti = antipa_phase(pool, reset_counts, counts, note, cuda_ms,
+                            dev_ms, int_ops_per_s, buckets=buckets)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels
@@ -5193,6 +5612,26 @@ def main() -> int:
          "bound_term": shred["d_term"], "library_ms": None,
          "device_ms_by": "CUDA events around each launch",
          "shape": f"{SIG_BATCH} shreds of a 32:32 set (depth 6)"}]
+    # the antipa mode's hand kernel (the JAX package runs these steps as
+    # XLA device code); launches from phase 18b's dispatches, times at
+    # 4096 x 128 (plain there) and 32768 x 128
+    a4, a32 = (anti["times"][f"{b}x{m}"] for b, m, _ in BUCKETS[:2])
+    kernels.append(
+        {"name": "antipa_tail", "route": "cuda",
+         "source": "firedancer_tpu_torch/csrc/antipa_tail.cu",
+         "replaces": "firedancer_tpu/ops/ed25519.py:326 verify_batch_antipa"
+                     " (after the digest), firedancer_tpu/ops/"
+                     "scalar25519.py:353 halve_scalar",
+         "launches": anti["launches"], "max_abs_err": anti["err"],
+         "ms": a4["ms"], "device_ms": a4["device_ms"],
+         "plain_ms": anti["plain_ms"], "bound_ms": a4["bound_ms"],
+         "bound_by": a4["bound_by"], "library_ms": None,
+         "shape": f"{BUCKETS[0][0]}x{BUCKETS[0][1]}",
+         "ms_32768": a32["ms"], "device_ms_32768": a32["device_ms"],
+         "bound_ms_32768": a32["bound_ms"],
+         "dispatch_ms": {k: {"antipa": v["dispatch_antipa_ms"],
+                             "strict": v["dispatch_strict_ms"]}
+                         for k, v in anti["times"].items()}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -5295,9 +5734,65 @@ def supervised_only() -> int:
     return 0
 
 
+def antipa_only() -> int:
+    """Phase 18 alone: python3 chip_smoke.py --phase 18.  Builds the
+    kernels, runs antipa_phase on the card and prints its numbers; no
+    {"ok": ...} line, which only the whole run prints."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from firedancer_tpu_torch.kernels import build
+        from firedancer_tpu_torch.ops import antipa_tail as at
+        from firedancer_tpu_torch.ops import r_check as rck
+        from firedancer_tpu_torch.ops import sha512_kernel as sk
+        from firedancer_tpu_torch.ops import verify_tail as vt
+        from firedancer_tpu_torch.tools import kernel_time as kt
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing: {exc}",
+              file=sys.stderr)
+        return 2
+    card = smi("name,power.limit")
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"card: {card}")
+    logs = build.build_all()
+    for line in logs["antipa_tail"].splitlines():
+        if "Used" in line or "stack frame" in line:
+            print(f"  antipa_tail.cu ptxas: {line.split(':', 1)[-1].strip()}")
+    counted = {"sha512_ram": sk.sha512_ram, "antipa_tail": at.antipa_tail,
+               "verify_tail": vt.verify_tail, "r_check": rck.r_check}
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def note(msg: str):
+        print(f"{msg}  [{card}]", flush=True)
+
+    def dev_ms(fn, entry):
+        return kt.device_ms(torch, fn, entry, RUNS)[0]
+
+    with mp.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        out = antipa_phase(
+            pool, reset_counts, counts, note,
+            lambda fn, runs=RUNS, warmup=3: kt.cuda_ms(torch, fn, runs,
+                                                       warmup)[0],
+            dev_ms, sms * INT32_LANES_PER_SM * clock_hz)
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase", "16"]:
         sys.exit(shred_only())
+    if sys.argv[1:] == ["--phase", "18"]:
+        sys.exit(antipa_only())
     if sys.argv[1:] == ["--phase", "17"]:
         sys.exit(supervised_only())
     sys.exit(main())

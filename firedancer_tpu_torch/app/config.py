@@ -30,7 +30,9 @@ affinity = ""               # "" = no pinning | "auto" | "0,2,3" cpu list
                             # (tiles take cpus in topology order, wrapping)
 
 [verify]
-mode = "strict"             # strict (antipa: not ported).
+mode = "strict"             # strict | antipa (the halved-scalar chain:
+                            # strict's bits on honest and corrupted
+                            # signatures, torsion-lax on forgeries).
                             # Env: FDTPU_VERIFY_MODE
 
 [ingest]

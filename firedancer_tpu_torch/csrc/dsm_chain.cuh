@@ -256,10 +256,11 @@ FD_FN void g4_add_niels(fe *p, int r0, const uint32_t *tab, int e,
   g4_add_niels_cols(p, r0, col, neg);
 }
 
-// curve25519.add_affine_niels in place without T, with B's entry bq (4
-// rows) and sign sn: ranks 0, 1 and 3 make A = (Y - X) bq[sn], B = (Y +
-// X) bq[1 - sn] and C = T bq[2 + sn]; rank 2, which reads itself, makes
-// 2Z by an addition and drops its product.
+// curve25519.add_affine_niels in place without T (with T for WANT_T),
+// with B's entry bq (4 rows) and sign sn: ranks 0, 1 and 3 make A = (Y -
+// X) bq[sn], B = (Y + X) bq[1 - sn] and C = T bq[2 + sn]; rank 2, which
+// reads itself, makes 2Z by an addition and drops its product.
+template <bool WANT_T = false>
 FD_FN void g4_add_affine(fe *p, int r0, const fe *bq, int sn) {
   fe got[G4_RANKS], v[G4_RANKS];
   int src[G4_RANKS];
@@ -278,7 +279,7 @@ FD_FN void g4_add_affine(fe *p, int r0, const fe *bq, int sn) {
     fe_mul(m, m, bq[q == 0 ? sn : q == 1 ? 1 - sn : 2 + sn]);
     g4_pick(v[i], q == 2, l, m);
   }
-  g4_finish<false>(p, v, r0, false);
+  g4_finish<WANT_T>(p, v, r0, false);
 }
 
 // The sums of a point that a unified add and a Niels column read: l gets

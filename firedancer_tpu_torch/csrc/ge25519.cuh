@@ -171,6 +171,20 @@ FD_FN bool ge_frombytes_inl(fe &x, fe &y, bool &small, const uint8_t *b,
   return ok;
 }
 
+// A canonical y is one of the five small-order y values {0, 1, -1,
+// y8_0, y8_1}: the byte test of R in the strict finish (r_check.cu) and
+// the antipa tail, which rejects R by its encoding, as the JAX graph does.
+FD_FN bool ge_small_y(const fe &yc, const fe &y8_0, const fe &y8_1) {
+  fe one, m1, zero;
+  fe_set(one, 1);
+  fe_set(zero, 0);
+  fe_neg(m1, one);
+  fe_canonical(m1, m1);
+  return fe_eq_canon(yc, zero) || fe_eq_canon(yc, one) ||
+         fe_eq_canon(yc, m1) || fe_eq_canon(yc, y8_0) ||
+         fe_eq_canon(yc, y8_1);
+}
+
 GE_FN bool ge_frombytes(fe &x, fe &y, bool &small, const uint8_t *b,
                         const fe &d, const fe &sqrt_m1, const fe &y8_0,
                         const fe &y8_1) {

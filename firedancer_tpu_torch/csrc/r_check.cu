@@ -70,17 +70,10 @@ FD_FN bool rc_den(fe &den, const fe &qz) {
 
 FD_FN void rc_setup(rc_in &s, const rc_consts &c, const fe &qx_in,
                     const fe &qz_in, const uint8_t *r) {
-  fe one, m1, zero;
-  fe_set(one, 1);
-  fe_set(zero, 0);
-  fe_neg(m1, one);
-  fe_canonical(m1, m1);
   fe_frombytes(s.yr, r);
   fe_canonical(s.yr, s.yr);   // R's encoded y, mod p
   s.sign = r[31] >> 7;
-  s.small = fe_eq_canon(s.yr, zero) || fe_eq_canon(s.yr, one) ||
-            fe_eq_canon(s.yr, m1) || fe_eq_canon(s.yr, c.y8_0) ||
-            fe_eq_canon(s.yr, c.y8_1);
+  s.small = ge_small_y(s.yr, c.y8_0, c.y8_1);
   fe_canonical(s.qx, qx_in);
   fe_canonical(s.qz, qz_in);
   s.z_ok = rc_den(s.den, s.qz);

@@ -190,12 +190,14 @@ FD_FN void sc_windows(const uint32_t *x, Sink &&sink) {
 // drops it.  For word q: sink(q, me, mo, se, so), the magnitudes and
 // signs of windows 8 q + 2 j (byte j of me, se) and 8 q + 2 j + 1 (mo,
 // so).
-template <typename Sink>
-FD_FN void sc_signed_recode(const uint32_t *x, Sink &&sink) {
+// sc_signed_recode_n runs it on N words and returns the carry out of
+// the top window instead of dropping it.
+template <int N, typename Sink>
+FD_FN uint32_t sc_signed_recode_n(const uint32_t *x, Sink &&sink) {
   const uint32_t b0 = 0x11111111u, y0 = 0x01010101u, y4 = 0x0f0f0f0fu;
   uint32_t carry = 0;
 #pragma unroll
-  for (int q = 0; q < 8; q++) {
+  for (int q = 0; q < N; q++) {
     const uint32_t v = x[q], b3 = v >> 3;
     const uint32_t low = v | v >> 1 | v >> 2;     // bit 4 i: bits 0..2 of i
     const uint32_t g = b3 & low & b0, p = b3 & ~low & b0;
@@ -210,6 +212,12 @@ FD_FN void sc_signed_recode(const uint32_t *x, Sink &&sink) {
     const uint32_t mo = dd ^ ((dd ^ (0x10101010u - dd)) & so * 0xffu);
     sink(q, me, mo, se, so);
   }
+  return carry;
+}
+
+template <typename Sink>
+FD_FN void sc_signed_recode(const uint32_t *x, Sink &&sink) {
+  sc_signed_recode_n<8>(x, sink);
 }
 
 // Window bytes of word q (as the sinks above get them) into a uint8
@@ -261,6 +269,222 @@ FD_FN bool sc_reduce_recode(const uint8_t *s, const uint8_t *digest,
   sc_load_words<8>(sw, s);
   sc_signed_windows_of(smag, ssgn, sw);
   return sc_is_canonical(sw);
+}
+
+// ---- Antipa halving: k -> (u, v), u == v k (mod L), u, |v| < 2^128 ----
+//
+// The divstep model of firedancer_tpu_torch/ops/scalar25519.py
+// halve_scalar (and of the JAX package's), step for step: DIVSTEP_ITERS
+// Bernstein-Yang divsteps on (f, g) = (L, 2^250 k mod L) with the
+// k-coefficients (bf, bg), then LAGRANGE_ITERS rounds of binary Lagrange
+// reduction of the vectors (f, bf), (g, bg) under the sup norm, then the
+// shorter vector with u made non-negative.  The tie-breaks are the
+// model's: swap when |F| < |G|; t = min(blen |F| - blen |G|, 31); F -
+// 2^t G unless F + 2^t G is strictly shorter; F replaced only when that
+// strictly shrinks it; F when |F| <= |G|.
+//
+// Values are 256-bit two's-complement integers in 8 little-endian words.
+// Every one fits: |f|, |g| <= L < 2^253 through the divsteps (each new g
+// is (g +- f) / 2 or g / 2) and |bf|, |bg| <= 2^250 (at most doubling a
+// step); in the Lagrange rounds the norms never grow, so every component
+// stays below 2^253, and a candidate F +- 2^t G below 2^(blen |F| + 1)
+// <= 2^254.  All selects are by masks: the warp's lanes run one
+// instruction stream.
+#define SC_DIVSTEP_ITERS 250
+#define SC_LAGRANGE_ITERS 24
+
+FD_FN int sc_clz(uint32_t x) {
+#if defined(__CUDACC__)
+  return __clz((int)x);
+#else
+  return x ? __builtin_clz(x) : 32;
+#endif
+}
+
+// r = a + b, or a - b where m is all ones (m 0 or ~0).
+FD_FN void sc_w_addsub(uint32_t *r, const uint32_t *a, const uint32_t *b,
+                       uint32_t m) {
+  uint64_t c = m & 1;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (uint64_t)a[i] + (b[i] ^ m);
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// r = c ? a : b, for c 0 or ~0.
+FD_FN void sc_w_sel(uint32_t *r, uint32_t c, const uint32_t *a,
+                    const uint32_t *b) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = (a[i] & c) | (b[i] & ~c);
+}
+
+// |a|; returns ~0 where a < 0, else 0.
+FD_FN uint32_t sc_w_abs(uint32_t *r, const uint32_t *a) {
+  const uint32_t neg = (uint32_t)((int32_t)a[7] >> 31);
+  const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  uint32_t n[8];
+  sc_w_addsub(n, zero, a, ~0u);
+  sc_w_sel(r, neg, n, a);
+  return neg;
+}
+
+// ~0 where a < b (both non-negative), else 0: the sign of a - b.
+FD_FN uint32_t sc_w_lt(const uint32_t *a, const uint32_t *b) {
+  uint32_t d[8];
+  sc_w_addsub(d, a, b, ~0u);
+  return (uint32_t)((int32_t)d[7] >> 31);
+}
+
+// The sup norm max(|a|, |b|).
+FD_FN void sc_w_norm(uint32_t *r, const uint32_t *a, const uint32_t *b) {
+  uint32_t x[8], y[8];
+  sc_w_abs(x, a);
+  sc_w_abs(y, b);
+  sc_w_sel(r, sc_w_lt(x, y), y, x);
+}
+
+// Bit length of a non-negative value.
+FD_FN int sc_w_blen(const uint32_t *a) {
+  int bl = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++)
+    bl = a[i] ? 32 * i + 32 - sc_clz(a[i]) : bl;
+  return bl;
+}
+
+// r = a 2^t for t in [0, 31] (the value fits, see above).
+FD_FN void sc_w_shl(uint32_t *r, const uint32_t *a, int t) {
+#pragma unroll
+  for (int i = 7; i >= 0; i--) {
+    const uint64_t w = (uint64_t)a[i] << 32 | (i ? a[i - 1] : 0u);
+    r[i] = (uint32_t)((w << t) >> 32);
+  }
+}
+
+// Arithmetic shift right by one (exact on the even values it gets).
+FD_FN void sc_w_shr1(uint32_t *r, const uint32_t *a) {
+#pragma unroll
+  for (int i = 0; i < 7; i++) r[i] = a[i] >> 1 | a[i + 1] << 31;
+  r[7] = (uint32_t)((int32_t)a[7] >> 1);
+}
+
+// 16 words of a b for 8-word a and b (a 512-bit product).
+FD_FN void sc_w_mul(uint32_t *r, const uint32_t *a, const uint32_t *b) {
+#pragma unroll
+  for (int i = 0; i < 16; i++) r[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (uint64_t)a[i] * b[j] + r[i + j];
+      r[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    r[i + 8] = (uint32_t)c;
+  }
+}
+
+// 8 words (any value below 2^256) times b mod L -> 8 words, canonical.
+FD_FN void sc_w_mul_mod_l(uint32_t *r, const uint32_t *a, const uint32_t *b) {
+  uint32_t p[16], l[10];
+  sc_w_mul(p, a, b);
+  sc_reduce512(l, p);
+  sc_limbs_to_words(r, l);
+}
+
+// k (8 words, canonical) -> u (8 words, u >= 0), |v| (8 words) and the
+// sign of v: returns true where v >= 0.  k = 0 gives (0, 1).
+FD_FN bool sc_halve(uint32_t *u, uint32_t *av, const uint32_t *k) {
+  // g = 2^250 k mod L: k shifted into the words of a 512-bit value
+  uint32_t f[8], g[8], bf[8], bg[8], sh[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) sh[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    sh[7 + i] |= k[i] << 26;
+    sh[8 + i] |= k[i] >> 6;
+  }
+  uint32_t gl[10];
+  sc_reduce512(gl, sh);
+  sc_limbs_to_words(g, gl);
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    f[i] = sc_l_word(i);
+    bf[i] = 0;
+    bg[i] = i == 0;
+  }
+  int32_t delta = 1;
+  for (int it = 0; it < SC_DIVSTEP_ITERS; it++) {
+    const uint32_t mo = 0u - (g[0] & 1);                 // g odd
+    const uint32_t ms = (delta > 0) ? mo : 0u;           // swap
+    delta = ms ? 1 - delta : 1 + delta;
+    uint32_t fa[8], ba[8], t[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      fa[i] = f[i] & mo;
+      ba[i] = bf[i] & mo;
+    }
+    // swap: (f, g, bf, bg) <- (g, (g - f) / 2, 2 bg, bg - bf);
+    // else: (f, (g + odd f) / 2, 2 bf, bg + odd bf)
+    uint32_t nf[8], nb[8];
+    sc_w_sel(nf, ms, g, f);
+    sc_w_sel(nb, ms, bg, bf);
+    sc_w_addsub(t, g, fa, ms);
+    sc_w_shr1(g, t);
+    sc_w_addsub(bg, bg, ba, ms);
+    sc_w_shl(bf, nb, 1);
+#pragma unroll
+    for (int i = 0; i < 8; i++) f[i] = nf[i];
+  }
+  uint32_t nf[8], ng[8];
+  sc_w_norm(nf, f, bf);
+  sc_w_norm(ng, g, bg);
+  for (int it = 0; it < SC_LAGRANGE_ITERS; it++) {
+    const uint32_t sw = sc_w_lt(nf, ng);
+    uint32_t t0[8], t1[8];
+#define SC_W_SWAP(a, b)            \
+  sc_w_sel(t0, sw, b, a);          \
+  sc_w_sel(t1, sw, a, b);          \
+  for (int i = 0; i < 8; i++) {    \
+    a[i] = t0[i];                  \
+    b[i] = t1[i];                  \
+  }
+    SC_W_SWAP(f, g)
+    SC_W_SWAP(bf, bg)
+    SC_W_SWAP(nf, ng)
+#undef SC_W_SWAP
+    int t = sc_w_blen(nf) - sc_w_blen(ng);
+    t = t < 0 ? 0 : t > 31 ? 31 : t;
+    uint32_t sg[8], sbg[8], p[8], pb[8], m[8], mb[8], np[8], nm[8];
+    sc_w_shl(sg, g, t);
+    sc_w_shl(sbg, bg, t);
+    sc_w_addsub(p, f, sg, ~0u);
+    sc_w_addsub(pb, bf, sbg, ~0u);
+    sc_w_addsub(m, f, sg, 0u);
+    sc_w_addsub(mb, bf, sbg, 0u);
+    sc_w_norm(np, p, pb);
+    sc_w_norm(nm, m, mb);
+    const uint32_t um = sc_w_lt(nm, np);
+    sc_w_sel(p, um, m, p);
+    sc_w_sel(pb, um, mb, pb);
+    sc_w_sel(np, um, nm, np);
+    const uint32_t better = sc_w_lt(np, nf);
+    sc_w_sel(f, better, p, f);
+    sc_w_sel(bf, better, pb, bf);
+    sc_w_sel(nf, better, np, nf);
+  }
+  const uint32_t tg = sc_w_lt(ng, nf);
+  uint32_t v[8], nv[8];
+  sc_w_sel(u, tg, g, f);
+  sc_w_sel(v, tg, bg, bf);
+  const uint32_t un = sc_w_abs(u, u);
+  const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  sc_w_addsub(nv, zero, v, ~0u);
+  sc_w_sel(v, un, nv, v);
+  return !sc_w_abs(av, v);
 }
 
 #if defined(__CUDACC__)

@@ -31,6 +31,7 @@ periodic re-probe, as in the JAX package.  Every failure is counted
 """
 
 import ctypes
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -198,10 +199,16 @@ class GuardedVerifier:
             lambda: self._host_b(blob, maxlen))
 
     # -- host backend (device "cpu" only) ----------------------------------
+    # The default backend follows the wrapped verifier's mode: an antipa
+    # verifier degrades to the antipa host verify (torsion laxity
+    # included), so fallback verdicts stay bit-identical to the device's.
+    # An injected host_blob is used as given.
     def _host_b(self, blob, maxlen):
         if self._host_blob is None:
             from ..models.verifier import host_verify_blob
-            self._host_blob = host_verify_blob
+            self._host_blob = functools.partial(
+                host_verify_blob,
+                mode=getattr(self.__dict__["fn"], "mode", "strict"))
         return self._host_blob(blob, maxlen=maxlen)
 
     def _host(self, host_call):
@@ -502,11 +509,12 @@ class VerifyPipeline:
     Single-bucket form:  VerifyPipeline(fn, batch=B, msg_maxlen=L)
     Multi-bucket form:   VerifyPipeline(fn, buckets=DEFAULT_BUCKETS)
 
-    verify_fn is a strict verifier with dispatch_blob (the port's
-    SigVerifier, covering the largest bucket): each bucket is a packed
-    blob dispatched in one upload, pinned when verify_fn.device is a CUDA
-    device, and the verdict is a future with is_ready /
-    copy_to_host_async / np.asarray.  tcache_depth: the dedup window in
+    verify_fn is a per-signature verifier (mode strict or antipa) with
+    dispatch_blob (the port's SigVerifier, covering the largest bucket):
+    each bucket is a packed blob dispatched in one upload, pinned when
+    verify_fn.device is a CUDA device, and the verdict is a future with
+    is_ready / copy_to_host_async / np.asarray.  tcache_depth: the dedup
+    window in
     distinct signatures, held in a NativeTCache.  native_hostpath runs the
     packed-row submit and finish as one C call a frag; False runs them in
     NumPy, bit-identical.  max_inflight > 0 runs the async data plane
@@ -531,9 +539,11 @@ class VerifyPipeline:
                 raise ValueError("need either (batch, msg_maxlen) or buckets")
             buckets = ((batch, msg_maxlen),)
         if (not hasattr(verify_fn, "dispatch_blob")
-                or getattr(verify_fn, "mode", "strict") != "strict"):
+                or getattr(verify_fn, "mode", "strict")
+                not in ("strict", "antipa")):
             raise ValueError("the pipeline dispatches packed blobs: it "
-                             "needs a strict verifier with dispatch_blob")
+                             "needs a strict verifier with dispatch_blob, "
+                             "or an antipa one")
         self.verify_fn = verify_fn
         dev = getattr(verify_fn, "device", None)
         pinned = isinstance(dev, torch.device) and dev.type == "cuda"

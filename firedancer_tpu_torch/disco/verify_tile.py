@@ -49,11 +49,11 @@ class VerifyTile:
     shapes, deadline_us, max_inflight, spill_age_factor}, supervision
     {device_fail_threshold, device_retry, device_deadline_s,
     device_reprobe_s} (the guard's; the threshold and re-probe act on
-    device "cpu" only), mode, and device (None is the GPU;
-    "cpu" runs the kernels' plain versions).  Wire
-    bursts go through the native burst parser either way.  dp_shards > 1,
-    mode antipa, aot_dir, aot_require and jax_trace_dir are not ported and
-    raise NotImplementedError.
+    device "cpu" only), mode (strict or antipa; FDTPU_VERIFY_MODE
+    overrides it), and device (None is the GPU; "cpu" runs the kernels'
+    plain versions).  Wire bursts go through the native burst parser
+    either way.  dp_shards > 1, aot_dir, aot_require and jax_trace_dir
+    are not ported and raise NotImplementedError.
 
     packed_wire: each in-link frag is meta.sz rows already in the device
     blob layout in the dcache, at the first bucket's shape.  The rows go
@@ -84,11 +84,7 @@ class VerifyTile:
                     "building the kernels and warming every shape")
         self.verify_mode = str(
             os.environ.get("FDTPU_VERIFY_MODE") or cfg.get("mode", "strict"))
-        if self.verify_mode == "antipa":
-            raise NotImplementedError(
-                "[verify] mode = antipa is not ported yet "
-                "(firedancer_tpu_torch)")
-        if self.verify_mode != "strict":
+        if self.verify_mode not in ("strict", "antipa"):
             raise ValueError(f"[verify] mode must be strict|antipa, "
                              f"got {self.verify_mode!r}")
         if cfg.get("jax_trace_dir"):
@@ -105,7 +101,7 @@ class VerifyTile:
         warm_shapes = [(int(b), int(ml)) for b, ml in buckets] + lat_warm
         fn = SigVerifier(VerifierConfig(max(b for b, _ in warm_shapes),
                                         max(ml for _, ml in warm_shapes)),
-                         device=cfg.get("device"))
+                         mode=self.verify_mode, device=cfg.get("device"))
         self._init_pipeline(ctx, cfg, fn, buckets, warm_shapes, latc,
                             lat_warm)
 

@@ -1,10 +1,11 @@
 """The serving verifier: fixed-bucket batched ed25519 verification.
 
 Counterpart of firedancer_tpu/models/verifier.py (single device, the
-strict and rlc modes).  The host pipeline fills (batch, msg_maxlen)
-buckets and gets pass bits back.  In strict mode a batch goes to the card
-as one packed row blob (ed25519 PACKED_EXTRA layout); in rlc mode as the
-four arrays, checked by one random-linear-combination batch equation.
+strict, antipa and rlc modes).  The host pipeline fills (batch,
+msg_maxlen) buckets and gets pass bits back.  In the per-signature modes
+(strict, antipa) a batch goes to the card as one packed row blob (ed25519
+PACKED_EXTRA layout); in rlc mode as the four arrays, checked by one
+random-linear-combination batch equation.
 Either way the verdict comes back as a future that meets the pipeline's
 duck protocol (disco/pipeline.py): is_ready() polls a CUDA event,
 copy_to_host_async() starts the device-to-host copy, and np.asarray()
@@ -85,7 +86,11 @@ class SigVerifier:
     MSM kernel's table select); when it fails, a binary-split descent
     settles the exact strict bits (_resolve), its leaves in strict_tail's
     layout.  z is drawn per call from rng, a numpy Generator seeded from
-    OS entropy unless one is given.  mode="antipa" is not ported."""
+    OS entropy unless one is given.  mode="antipa" verifies each
+    signature by the halved-scalar chain (ed.verify_batch_antipa: the
+    sha512 and antipa_tail kernels), strict's bits on honest and
+    corrupted signatures, torsion-lax on forgeries; strict_tail is not
+    read then."""
 
     # slices this small go straight to strict bits
     _SPLIT_LEAF = 256
@@ -94,10 +99,7 @@ class SigVerifier:
                  mode: str = "strict", msm_m: int = 8, device=None,
                  rng: np.random.Generator | None = None,
                  rlc_select: str = "legacy", strict_tail: str = "fused"):
-        if mode == "antipa":
-            raise NotImplementedError(
-                "antipa mode is not ported yet (firedancer_tpu_torch)")
-        if mode not in ("strict", "rlc"):
+        if mode not in ("strict", "antipa", "rlc"):
             raise ValueError(f"unknown verifier mode {mode!r}")
         if mode == "rlc" and cfg.batch % msm_m:
             raise ValueError(f"rlc mode needs batch ({cfg.batch}) divisible "
@@ -115,7 +117,8 @@ class SigVerifier:
         self.strict_tail = strict_tail
         self.device = resolve_device(device)
         self._rng = np.random.default_rng() if rng is None else rng
-        self._fn = functools.partial(ed.verify_batch, tail=strict_tail)
+        self._fn = (ed.verify_batch_antipa if mode == "antipa" else
+                    functools.partial(ed.verify_batch, tail=strict_tail))
 
     def _to_device(self, x):
         if isinstance(x, torch.Tensor):
@@ -128,7 +131,7 @@ class SigVerifier:
             msg_len = np.asarray(msg_len, dtype=np.int32)
         args = tuple(self._to_device(x)
                      for x in (msgs, msg_len, sigs, pubkeys))
-        if self.mode == "strict":
+        if self.mode != "rlc":
             return Verdict(self._fn(*args))
         all_ok, _ = self._rlc(args)
         return _LazyRlcVerdict(self, args, all_ok)
@@ -143,11 +146,11 @@ class SigVerifier:
 
     def dispatch_blob(self, blob, maxlen: int | None = None) -> Verdict:
         """Dispatch an already packed (batch, ml + PACKED_EXTRA) blob; it
-        is read in place on the device, with no unpacking copy.  Strict
-        mode only: running it for an rlc verifier would bypass the
-        configured mode."""
+        is read in place on the device, with no unpacking copy.  The
+        per-signature modes only: running it for an rlc verifier would
+        bypass the configured mode."""
         if self.mode == "rlc":
-            raise ValueError("dispatch_blob is strict-only (mode='rlc'); "
+            raise ValueError("dispatch_blob is per-sig-only (mode='rlc'); "
                              "dispatch the four arrays instead")
         ml = blob.shape[1] - ed.PACKED_EXTRA
         if maxlen is not None and maxlen != ml:
@@ -157,13 +160,15 @@ class SigVerifier:
             raise ValueError(
                 f"blob {tuple(blob.shape)} exceeds the bucket "
                 f"({self.cfg.batch}, {self.cfg.msg_maxlen})")
-        return Verdict(ed.verify_blob(self._to_device(blob),
-                                      tail=self.strict_tail))
+        blob = self._to_device(blob)
+        if self.mode == "antipa":
+            return Verdict(ed.verify_blob_antipa(blob))
+        return Verdict(ed.verify_blob(blob, tail=self.strict_tail))
 
     def make_ingest(self, ml: int | None = None, nbuf: int = 2,
                     depth: int | None = None) -> "PackedIngest":
         """Rotating-buffer ingest engine over this verifier's packed
-        dispatch (strict mode only, as dispatch_blob)."""
+        dispatch (the per-signature modes only, as dispatch_blob)."""
         if self.mode == "rlc":
             raise ValueError(
                 f"make_ingest is per-sig-only (mode={self.mode!r})")
@@ -262,15 +267,14 @@ def host_verify_blob(blob, maxlen: int | None = None,
     """CPU ed25519 backend of the guard on device "cpu" (degraded mode),
     over the packed row blob (row = msg[ml] | sig[64] | pub[32] |
     len-le32, ed25519.PACKED_EXTRA): the layout dispatch_blob uploads,
-    verified lane by lane with ops.ed25519.verify_one_host on Python
-    ints.  Verdict[i] matches the device's verify_blob bit for bit.
-    Orders of magnitude slower than a device dispatch.  A torch tensor on
-    the host is read in place.  Only the strict mode is ported (antipa
-    raises NotImplementedError, as SigVerifier does)."""
-    if mode == "antipa":
-        raise NotImplementedError(
-            "antipa mode is not ported yet (firedancer_tpu_torch)")
-    if mode != "strict":
+    verified lane by lane on Python ints, by ops.ed25519.verify_one_host
+    (mode "strict") or verify_one_host_antipa (mode "antipa", torsion
+    laxity included).  Verdict[i] matches the device's verify_blob or
+    verify_blob_antipa bit for bit.  Orders of magnitude slower than a
+    device dispatch.  A torch tensor on the host is read in place."""
+    one = {"strict": ed.verify_one_host,
+           "antipa": ed.verify_one_host_antipa}.get(mode)
+    if one is None:
         raise ValueError(f"unknown verifier mode {mode!r}")
     blob = np.asarray(blob, dtype=np.uint8)
     ml = (blob.shape[1] - ed.PACKED_EXTRA) if maxlen is None else int(maxlen)
@@ -285,7 +289,7 @@ def host_verify_blob(blob, maxlen: int | None = None,
             # ((0,...) decompresses to a small-order point), skip the
             # expensive scalar math
             continue
-        out[i] = ed.verify_one_host(sig, bytes(row[:lens[i]]), pub)
+        out[i] = one(sig, bytes(row[:lens[i]]), pub)
     return out
 
 

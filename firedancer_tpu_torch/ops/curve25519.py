@@ -161,12 +161,14 @@ def _pt_add_host(p, q):
     return (e * f % P, g * h % P, f * g % P, e * h % P)
 
 
-def base_table_ints():
+def base_table_ints(base=None):
     """[0..8]B in affine Niels form as Python ints: rows (y - x, y + x,
     2dxy, -2dxy), the negated product precomputed so a negative digit
-    costs a swap and a pick."""
+    costs a swap and a pick.  base, extended coordinates, replaces B."""
     rows = [(1, 1, 0, 0)]
-    pt = base = (BASE_X, BASE_Y, 1, BASE_X * BASE_Y % P)
+    if base is None:
+        base = (BASE_X, BASE_Y, 1, BASE_X * BASE_Y % P)
+    pt = base
     for _ in range(8):
         x, y, z, _ = pt
         zi = pow(z, P - 2, P)
@@ -230,6 +232,23 @@ def double_scalar_mul_base(s_mag, s_sgn, k_mag, k_sgn, a: Point) -> Point:
                                torch.where(neg_s, bym, byp),
                                torch.where(neg_s, bnt2d, bt2d),
                                want_t=False)
+    return acc
+
+
+def double_scalar_mul_halved(u_windows, v_windows, p: Point, q: Point,
+                             nwin: int = 32) -> Point:
+    """[u]P + [v]Q over nwin shared unsigned 4-bit windows (nwin, batch),
+    low first: the antipa halved-scalar chain (ref curve25519
+    double_scalar_mul_halved), 4 nwin doublings and two Niels adds a
+    window from [0..15]P and [0..15]Q tables.  The plain version of the
+    antipa_tail kernel's chain, which groups the same sum otherwise."""
+    p_tab, q_tab = niels_table(p, 16), niels_table(q, 16)
+    acc = identity(p.X.shape[1], p.X.device)
+    for w in range(nwin - 1, -1, -1):
+        for j in range(4):
+            acc = double(acc, want_t=(j == 3))
+        acc = add_niels(acc, Niels(*_pick(p_tab, u_windows[w].long())))
+        acc = add_niels(acc, Niels(*_pick(q_tab, v_windows[w].long())))
     return acc
 
 

@@ -1,4 +1,4 @@
-"""Batched strict ed25519 verification on torch tensors.
+"""Batched ed25519 verification on torch tensors: strict, antipa and RLC.
 
 Counterpart of firedancer_tpu/ops/ed25519.py: the same acceptance rules
 (fd_ed25519_verify, Agave's verify_strict):
@@ -31,6 +31,12 @@ Between them:
 On a CUDA tensor the kernels launch; on a CPU tensor their plain versions
 run.
 
+verify_batch_antipa and verify_blob_antipa are the antipa mode: the same
+rules with k split as u / v (mod L) and the equation multiplied by v,
+two kernels, sha512_ram and antipa_tail (ops/antipa_tail.py); strict's
+bits on honest and corrupted signatures, torsion-lax on forgeries.
+verify_one_host_antipa is its host twin.
+
 verify_batch_rlc is the random-linear-combination batch check (one bit
 for a whole batch): one decompress launch for A and R, the same SHA-512
 kernel, the rlc_recode kernel for the per-signature scalars, the msm
@@ -48,6 +54,7 @@ import torch
 from . import curve25519 as cv
 from . import f25519 as fe
 from . import scalar25519 as sc
+from .antipa_tail import antipa_tail
 from .decompress import decompress, decompress_pair
 from .dsm import double_scalar_mul_base, dsm_tail_q
 from .msm import msm
@@ -122,6 +129,39 @@ def verify_blob(blob, tail: str = "fused"):
     return _verify_rows(blob[:, :ml], blob[:, ml + 96:ml + 100],
                         blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
                         blob[:, ml + 64:ml + 96], tail)
+
+
+# ------------------------------------------------- antipa verification
+
+
+def _verify_rows_antipa(msgs, len4, r, s, pub):
+    return antipa_tail(pub, r, s, sha512_ram(msgs, r, pub, len4))
+
+
+def verify_batch_antipa(msgs, msg_len, sigs, pubkeys):
+    """Per-signature verify by Antipa's halved scalars: the arguments and
+    result of verify_batch.  k = SHA-512(R || A || M) mod L is split as k
+    == u / v (mod L) with u, |v| < 2^128 (scalar25519.halve_scalar), and
+    [S]B - [k]A == R times v becomes [v S mod L]B + [u](-A) + [|v|]R~ ==
+    identity (R~ = -R where v >= 0, R where v < 0): a 32-window chain
+    instead of 64, at the cost of decompressing R.  Two kernels: sha512_ram
+    and antipa_tail (ops/antipa_tail.py).
+
+    Multiplying by v is torsion-lax: a forgery whose defect [S]B - [k]A
+    - R is a point of small order T passes when ord(T) divides v, where
+    verify_batch rejects it.  Honest and corrupted signatures get
+    verify_batch's bits.  As in the JAX package's verify_batch_antipa."""
+    return _verify_rows_antipa(msgs, lens_to_bytes(msg_len), sigs[:, :32],
+                               sigs[:, 32:], pubkeys)
+
+
+def verify_blob_antipa(blob):
+    """verify_batch_antipa over a packed blob, read in place, as
+    verify_blob."""
+    ml = blob.shape[1] - PACKED_EXTRA
+    return _verify_rows_antipa(blob[:, :ml], blob[:, ml + 96:ml + 100],
+                               blob[:, ml:ml + 32], blob[:, ml + 32:ml + 64],
+                               blob[:, ml + 64:ml + 96])
 
 
 # ------------------------------------------------- RLC batch verification
@@ -296,6 +336,64 @@ def verify_one_host(sig: bytes, msg: bytes, pub: bytes) -> bool:
         _scalar_mul_base_host(s),
         _scalar_mul_host(_k_host(sig, msg, pub), _neg_host(a)))
     return (xq - r[0] * zq) % P == 0 and (yq - r[1] * zq) % P == 0
+
+
+def _divstep_halve_host(k: int) -> tuple[int, int]:
+    """scalar25519.halve_scalar on Python ints, step for step: the same
+    (u, v) pair (v signed), which decides the antipa bit on a torsion
+    forgery (ref ed25519._divstep_halve_host)."""
+    f, g = L, pow(2, sc.DIVSTEP_ITERS, L) * (k % L) % L
+    bf, bg, delta = 0, 1, 1
+    for _ in range(sc.DIVSTEP_ITERS):
+        if delta > 0 and g & 1:
+            delta, f, g, bf, bg = 1 - delta, g, (g - f) >> 1, 2 * bg, bg - bf
+        else:
+            b = g & 1
+            delta, f, g, bf, bg = (1 + delta, f, (g + b * f) >> 1,
+                                   2 * bf, bg + b * bf)
+
+    def nrm(v):
+        return max(abs(v[0]), abs(v[1]))
+
+    F, G = (f, bf), (g, bg)
+    for _ in range(sc.LAGRANGE_ITERS):
+        if nrm(F) < nrm(G):
+            F, G = G, F
+        t = min(max(0, nrm(F).bit_length() - nrm(G).bit_length()), 31)
+        sg = (G[0] << t, G[1] << t)
+        p = (F[0] - sg[0], F[1] - sg[1])
+        m = (F[0] + sg[0], F[1] + sg[1])
+        c = p if nrm(p) <= nrm(m) else m
+        if nrm(c) < nrm(F):
+            F = c
+    u, v = F if nrm(F) <= nrm(G) else G
+    return (-u, -v) if u < 0 else (u, v)
+
+
+def antipa_k_host(sig: bytes, pub: bytes, k: int) -> bool:
+    """verify_one_host_antipa with k given: the antipa_tail kernel's bit
+    for a lane whose digest reduces to k."""
+    dec = prechecks_host(sig, pub)
+    if dec is None:
+        return False
+    s, a, r = dec
+    u, v = _divstep_halve_host(k)
+    r_eff = r if v < 0 else _neg_host(r)
+    q = _pt_add_host(
+        _scalar_mul_base_host(v * s % L),
+        _pt_add_host(_scalar_mul_host(u, _neg_host(a)),
+                     _scalar_mul_host(abs(v), r_eff)))
+    return _is_identity_host(q)
+
+
+def verify_one_host_antipa(sig: bytes, msg: bytes, pub: bytes) -> bool:
+    """The antipa mode's bit on Python ints (verify_batch_antipa's host
+    twin, torsion laxity included): the prechecks of verify_one_host,
+    then [v S mod L]B + [u](-A) + [|v|]R~ == identity with (u, v) from
+    _divstep_halve_host."""
+    if len(sig) != 64 or len(pub) != 32:
+        return False
+    return antipa_k_host(sig, pub, _k_host(sig, msg, pub))
 
 
 def has_torsion_host(p) -> bool:

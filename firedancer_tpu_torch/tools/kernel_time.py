@@ -4,7 +4,8 @@
     python3 firedancer_tpu_torch/tools/kernel_time.py [--root DIR]
         [--label L] [--kernels msm,verify_tail,r_check,dsm_tail_q,
         dsm_base,sha512,decompress,reduce_recode,rlc_recode,poh_spans,
-        mixin_tree,gf2_recover,bmtree_walk] [--lanes N,...] [--sass]
+        mixin_tree,gf2_recover,bmtree_walk,antipa_tail] [--lanes N,...]
+        [--sass]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
@@ -34,6 +35,9 @@ On inputs made from fixed seeds:
   r_check      at the same shapes, on verify_tail's X, Z and ok bits of
                those signatures and their R, as the fused layout gives
                them;
+  antipa_tail  at the same shapes, on the same signatures' keys, R, S
+               and digests, as the antipa mode's dispatch_blob gives
+               them, each beside its bound (antipa_bound_ms);
   dsm_tail_q   at the same shapes' 128-byte ones, on the same
                signatures' windows (reduce_recode), decompressed keys
                and R's y;
@@ -105,7 +109,8 @@ SOURCES = {"msm": "msm", "verify_tail": "verify_tail", "r_check": "r_check",
            "dsm_base": "dsm", "sha512": "sha512", "decompress": "decompress",
            "reduce_recode": "reduce_recode", "rlc_recode": "rlc_recode",
            "poh_spans": "poh_spans", "mixin_tree": "mixin_tree",
-           "gf2_recover": "gf2_recover", "bmtree_walk": "bmtree_walk"}
+           "gf2_recover": "gf2_recover", "bmtree_walk": "bmtree_walk",
+           "antipa_tail": "antipa_tail"}
 # each kernel's entry, as the profiler names its device events
 ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
            "r_check": "r_check_kernel",
@@ -114,7 +119,38 @@ ENTRIES = {"msm": "msm_kernel", "verify_tail": "verify_tail_kernel",
            "reduce_recode": "reduce_recode_kernel",
            "rlc_recode": "rlc_recode_kernel",
            "poh_spans": "poh_spans_kernel", "mixin_tree": "mixin_tree_kernel",
-           "gf2_recover": "gf2_kernel", "bmtree_walk": "bmtree_walk_kernel"}
+           "gf2_recover": "gf2_kernel", "bmtree_walk": "bmtree_walk_kernel",
+           "antipa_tail": "antipa_tail_kernel"}
+
+# The antipa tail's least work a lane (csrc/antipa_tail.cu), counted from
+# its code as chip_smoke.py counts the strict tail's (TAIL_SQR,
+# TAIL_MUL).  Field products: two decompressions (257 S + 18 M each),
+# two [0..8] Niels tables (72 M each), 32 windows of four doublings (16 S
+# + 13 M) and 33 windows of two Niels adds (8 M each), an affine add
+# with T (7 M) and one without (6 M); a squaring is 55 and a product 100
+# 32 x 32 -> 64 multiply-adds (csrc/fe25519.cuh).  The scalar half's
+# 32-bit operations: 250 divsteps of 84 (two masks, two selects, two
+# masked additions and two shifts of 8 words, delta and the swap bit),
+# 24 Lagrange rounds of 384 (three swaps, two bit lengths, two shifts,
+# four additions, two norms of 72, two compares with their selects), the
+# two starting norms, three reductions mod L of 158 (chip_smoke's
+# SC_REDUCE_OPS: k, 2^250 k and |v| S), the 64 word products of |v| S (2
+# each) and their carries, the 2^250 shift and the negation (16 each),
+# four 4-word recodes of 80 and S < L (8).  Bytes: pub, R, S and the
+# digest read, the bit written.
+AP_SQR = 2 * 257 + 32 * 16
+AP_MUL = 2 * 18 + 2 * 72 + 32 * 13 + 33 * (2 * 8 + 7 + 6)
+AP_SCALAR_OPS = (250 * 84 + 24 * 384 + 2 * 72 + 3 * 158 + 3 * 64 + 2 * 16
+                 + 4 * 80 + 8)
+AP_BYTES = 3 * 32 + 64 + 1
+
+
+def antipa_bound_ms(n: int, int_ops_per_s: float) -> tuple[float, str]:
+    """(least ms, what bounds it) of antipa_tail on n lanes: AP_BYTES a
+    lane over 3.35 TB/s against its operations over int_ops_per_s."""
+    tb = n * AP_BYTES / 3.35e12
+    to = n * (AP_SQR * 55 + AP_MUL * 100 + AP_SCALAR_OPS) / int_ops_per_s
+    return max(tb, to) * 1e3, "bytes" if tb > to else "operations"
 
 
 def cuda_ms(torch, fn, runs: int = RUNS, warmup: int = 3) -> list[float]:
@@ -491,7 +527,7 @@ def main() -> int:
               lambda: bw.bmtree_walk(lf4, ln4, ix4, pf4, dp4))
     shapes = ([(int(n), 128) for n in args.lanes.split(",")] if args.lanes
               else [(4096, 128), (32768, 128), (4096, 1232)])
-    wide_only = {"verify_tail", "r_check", "sha512"}
+    wide_only = {"verify_tail", "r_check", "sha512", "antipa_tail"}
     for n, ml in shapes:
         if ml != 128 and not wide_only & set(kernels):
             continue
@@ -516,6 +552,18 @@ def main() -> int:
             ok_t, qx, qz = vt.verify_tail(a_, s_, digest, r_)
             timed(f"r_check {n}x{ml}", "r_check",
                   lambda: rck.r_check(qx, qz, r_, ok_t))
+        if "antipa_tail" in kernels:
+            from firedancer_tpu_torch.ops import antipa_tail as at
+            timed(f"antipa_tail {n}x{ml}", "antipa_tail",
+                  lambda: at.antipa_tail(a_, r_, s_, digest))
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            clock_hz = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True).stdout.split()[0]) * 1e6
+            b_ms, b_by = antipa_bound_ms(n, sms * 64 * clock_hz)
+            print(f"{args.label} antipa_tail {n}x{ml}: bound {b_ms:.5f} ms "
+                  f"({b_by})")
         if ml != 128:
             continue
         if "decompress" in kernels:

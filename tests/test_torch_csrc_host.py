@@ -50,12 +50,14 @@ from firedancer_tpu_torch.ops import scalar25519 as sc
 from firedancer_tpu_torch.ops import sha512_kernel as sk
 from firedancer_tpu_torch.ops import verify_tail as vt
 from _torch_threads import one_torch_thread  # noqa: F401
-from chip_smoke import (WALK_EDGE_LENS, r_check_edges, r_check_long_lanes,
-                        r_check_long_zs, rc_divsteps)
+from chip_smoke import (WALK_EDGE_LENS, antipa_edge_ks, antipa_edge_lanes,
+                        r_check_edges, r_check_long_lanes, r_check_long_zs,
+                        rc_divsteps)
 
 CSRC = Path(__file__).resolve().parent.parent / "firedancer_tpu_torch" / "csrc"
 
 HARNESS = r"""
+#include "antipa_tail.cu"
 #include "decompress.cu"
 #include "dsm.cu"
 #include "msm.cu"
@@ -253,6 +255,43 @@ int main() {
       rd(r, sizeof r);
       const uint8_t ok = rc_lane(c, qx, qz, ml ? &qy : nullptr, oky != 0, r);
       fwrite(&ok, 1, 1, stdout);
+    }
+  } else if (mode == 'h') {     // k (8 words) -> u, |v| (8 words each)
+    for (int i = 0; i < n; i++) {   // and v >= 0 (the antipa halving)
+      uint32_t k[8], u[8], av[8];
+      rd(k, sizeof k);
+      const uint8_t pos = sc_halve(u, av, k);
+      fwrite(u, sizeof u, 1, stdout);
+      fwrite(av, sizeof av, 1, stdout);
+      fwrite(&pos, 1, 1, stdout);
+    }
+  } else if (mode == 'y') {     // 4 words -> 33 signed digits (the
+    for (int i = 0; i < n; i++) {   // antipa chain's recode)
+      uint32_t x[4];
+      uint8_t mag[33], sgn[33];
+      rd(x, sizeof x);
+      mag[32] = (uint8_t)sc_signed_recode_n<4>(
+          x, [&](int q, uint32_t me, uint32_t mo, uint32_t se,
+                 uint32_t so) {
+            sc_put_windows(mag, q, me, mo);
+            sc_put_windows(sgn, q, se, so);
+          });
+      sgn[32] = 0;
+      fwrite(mag, 1, 33, stdout);
+      fwrite(sgn, 1, 33, stdout);
+    }
+  } else if (mode == 'a') {     // consts, then (pub, r, s, digest) lanes
+    ap_consts c;                // -> the antipa tail's bit, the lane's
+    rd(&c, sizeof c);           // four ranks in lockstep
+    for (int i = 0; i < n; i++) {
+      uint8_t in[160];
+      rd(in, sizeof in);
+      bool ok[4];
+      uint32_t ta[G4_TAB_WORDS * G4_RANKS], tr[G4_TAB_WORDS * G4_RANKS];
+      ap_lane4(c, in, in + 32, in + 64, in + 96, ok, ta, tr, 0);
+      const uint8_t b = ok[0], b2 = ok[2];
+      fwrite(&b, 1, 1, stdout);
+      fwrite(&b2, 1, 1, stdout);
     }
   } else if (mode == 'i') {     // z -> 1 / z and the batches run
     for (int i = 0; i < n; i++) {
@@ -1382,3 +1421,80 @@ def test_bmtree_walk_lane_matches_plain_and_hashlib(harness_shred, case):
         assert [bytes(r) for r in got] == bm.np_batch_walk_roots(
             [leaf[i, :lens[i]] for i in range(B)], idxs.tolist(),
             [list(proofs[i, :depths[i]]) for i in range(B)]), at
+
+
+# ---- the antipa tail (csrc/antipa_tail.cu, sc_halve in sc25519.cuh)
+
+
+def test_sc_halve_matches_the_divstep_model(harness):
+    """sc_halve's (u, v) == the divstep model's on the edge scalars and
+    10,000 seeded k: the pair exactly, v's sign and 2-adic valuation
+    included."""
+    from firedancer_tpu_torch.ops import ed25519 as ped
+    rng = np.random.default_rng(4242)
+    ks = antipa_edge_ks() + [int.from_bytes(rng.bytes(32), "little") % sc.L
+                             for _ in range(10_000)]
+    out = harness(b"h", len(ks), 0,
+                  b"".join(k.to_bytes(32, "little") for k in ks))
+    got = []
+    for i in range(len(ks)):
+        rec = out[65 * i:65 * (i + 1)]
+        av = int.from_bytes(rec[32:64], "little")
+        got.append((int.from_bytes(rec[:32], "little"),
+                    av if rec[64] else -av))
+    assert got == [ped._divstep_halve_host(k) for k in ks]
+
+
+def test_antipa_recode_keeps_the_carry_digit(harness):
+    """The chain's signed recode of a 128-bit scalar into 33 digits:
+    magnitudes 0..8, the value kept, the carry out of a top window >= 8
+    in the 33rd digit."""
+    rng = np.random.default_rng(8)
+    xs = [0, 1, 8, 9, (1 << 128) - 1, 1 << 127, 0x8 << 124, 0x7 << 124,
+          (0x8 << 124) - 1] + [int.from_bytes(rng.bytes(16), "little")
+                               for _ in range(200)]
+    out = np.frombuffer(harness(b"y", len(xs), 0, b"".join(
+        x.to_bytes(16, "little") for x in xs)), np.uint8).reshape(-1, 66)
+    nib = torch.tensor([[(x >> (4 * i)) & 0xF for x in xs]
+                        for i in range(32)])
+    mag_p, sgn_p = sc.signed_windows_ext(nib)
+    assert out[:, :33].T.tolist() == mag_p.tolist()
+    assert out[:, 33:].T.tolist() == sgn_p.tolist()
+    for x, rec in zip(xs, out):
+        mag, sgn = rec[:33].tolist(), rec[33:].tolist()
+        assert max(mag) <= 8
+        assert sum((-m if g else m) << (4 * i)
+                   for i, (m, g) in enumerate(zip(mag, sgn))) == x
+    assert out[:, 32].any()
+
+
+def test_antipa_lane_matches_the_host_and_plain(harness):
+    """A whole antipa_tail lane, its four ranks in lockstep, fed digests
+    directly: the edge lanes of chip_smoke's antipa_edge_lanes (the
+    halving's edge scalars, a c whose 32nd window is >= 8, the torsion
+    forgeries with v even and odd, the prechecks' edges) and the
+    adversarial kinds with their real digests, against antipa_k_host and
+    the plain version; every rank reads the same bit."""
+    from firedancer_tpu_torch.ops import antipa_tail as at
+    from firedancer_tpu_torch.ops import ed25519 as ped
+    rows = antipa_edge_lanes()
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
+    bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
+    digest = sk.sha512_ram(bt[:, :64], bt[:, 64:96], bt[:, 128:160],
+                           bt[:, 160:]).numpy()
+    rows += [bytes(pubs[i]) + bytes(sigs[i]) + bytes(digest[i])
+             for i in range(len(pubs))]
+    n = len(rows)
+    consts = at.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    rec = np.frombuffer(harness(b"a", n, 0, consts.tobytes()
+                                + b"".join(rows)), np.uint8).reshape(n, 2)
+    lanes = torch.from_numpy(np.frombuffer(b"".join(rows), np.uint8)
+                             .reshape(n, 160).copy())
+    plain = at.antipa_tail_plain(lanes[:, :32], lanes[:, 32:64],
+                                 lanes[:, 64:96], lanes[:, 96:])
+    host = [ped.antipa_k_host(r[32:96], r[:32],
+                              int.from_bytes(r[96:], "little") % sc.L)
+            for r in rows]
+    assert rec[:, 0].tolist() == rec[:, 1].tolist()
+    assert rec[:, 0].astype(bool).tolist() == plain.tolist() == host
+    assert any(host) and not all(host)

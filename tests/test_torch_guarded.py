@@ -239,9 +239,55 @@ def test_card_injected_failure_raises_before_the_device():
     assert g.fn.calls == 0 and g.device_fail_cnt == 1 and g.faulted
 
 
-def test_port_host_backend_refuses_antipa():
-    with pytest.raises(NotImplementedError, match="antipa"):
-        pver.host_verify_blob(np.zeros((1, 100), np.uint8), mode="antipa")
+def _torsion_blob():
+    """A packed blob of one order-2 torsion forgery whose v is even (the
+    antipa twin accepts it, the strict one rejects it), an honest row
+    and a padding row."""
+    from chip_smoke import torsion_forgeries
+    msg = bytes(range(32))
+    sig, pub, *_ = torsion_forgeries(msg)[0]
+    msgs, lens, sigs, pubs = pver.make_example_batch(3, 64, seed=31,
+                                                     lens=[32, 32, 0])
+    msgs[0, :32] = np.frombuffer(msg, np.uint8)
+    sigs[0] = np.frombuffer(sig, np.uint8)
+    pubs[0] = np.frombuffer(pub, np.uint8)
+    msgs[2], lens[2], sigs[2], pubs[2] = 0, 0, 0, 0
+    return pver.pack_blob(msgs, lens, sigs, pubs)
+
+
+def test_port_host_backend_serves_antipa():
+    """host_verify_blob(mode="antipa") is verify_one_host_antipa row by
+    row (lengths clamped, padding rows rejected), and the JAX package's
+    antipa backend gives the same bits."""
+    blob = _torsion_blob()
+    got = pver.host_verify_blob(blob, mode="antipa").tolist()
+    ml = blob.shape[1] - ed.PACKED_EXTRA
+    want = [ed.verify_one_host_antipa(bytes(r[ml:ml + 64]), bytes(r[:32]),
+                                      bytes(r[ml + 64:ml + 96]))
+            for r in blob[:2]] + [False]
+    assert got == want == [True, True, False]
+    assert got == jver.host_verify_blob(blob, mode="antipa").tolist()
+    assert pver.host_verify_blob(blob).tolist() == [False, True, False]
+    with pytest.raises(ValueError, match="unknown verifier mode"):
+        pver.host_verify_blob(blob, mode="rlc")
+
+
+def test_port_guard_fallback_routes_by_mode():
+    """On device "cpu" a failed dispatch falls back to the host twin of
+    the wrapped verifier's mode: the even-v order-2 forgery reads False
+    behind a strict verifier and True behind an antipa one."""
+    blob = _torsion_blob()
+    bits = {}
+    for mode in ("strict", "antipa"):
+        sv = pver.SigVerifier(pver.VerifierConfig(4, 64), mode=mode,
+                              device="cpu")
+        g = ppl.GuardedVerifier(sv, fail_threshold=1, retries=0,
+                                fault=pfi.FaultInjector(
+                                    "verify:0", {"fail_dispatch_n": 1}))
+        bits[mode] = np.asarray(g.dispatch_blob(blob)).tolist()
+        assert g.degraded and g.fallback_lanes == 3 and not g.on_card
+    assert bits == {"strict": [False, True, False],
+                    "antipa": [True, True, False]}
 
 
 @pytest.fixture(scope="module")

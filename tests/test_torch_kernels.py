@@ -514,3 +514,35 @@ def test_bmtree_walk_kernel_on_unaligned_rows(cuda, at):
     assert torch.equal(got, bw.bmtree_walk_plain(
         blob[:, at:at + ml].contiguous(), torch.from_numpy(lens),
         torch.from_numpy(idxs), proofs, torch.from_numpy(depths)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 4097])
+def test_antipa_tail_kernel_matches_plain_and_host(cuda, n):
+    """antipa_tail on chip_smoke's edge lanes (fed digests directly) and
+    adversarial lanes with their real digests, at lane counts around its
+    blocks of 8: bits equal the plain version's and antipa_k_host's, one
+    launch a call; and the antipa mode's dispatch_blob equals strict's
+    on the adversarial rows."""
+    from chip_smoke import antipa_edge_lanes
+    from firedancer_tpu_torch.ops import antipa_tail as at
+    msgs, lens, sigs, pubs, _ = tv.make_adversarial_batch(33, 64)
+    blob = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
+    dig = sk.sha512_ram(*[c for i, c in enumerate(_cols(blob, 64))
+                          if i != 2]).numpy()
+    rows = antipa_edge_lanes() + [bytes(pubs[i]) + bytes(sigs[i])
+                                  + bytes(dig[i]) for i in range(33)]
+    lanes = np.resize(np.frombuffer(b"".join(rows), np.uint8)
+                      .reshape(-1, 160), (n, 160))
+    t = torch.from_numpy(lanes).to(cuda)
+    args = (t[:, :32], t[:, 32:64], t[:, 64:96], t[:, 96:])
+    before = at.antipa_tail.launches
+    got = at.antipa_tail(*args).cpu()
+    assert at.antipa_tail.launches == before + 1
+    assert torch.equal(got, at.antipa_tail_plain(*args).cpu())
+    host = [ed.antipa_k_host(r[32:96], r[:32],
+                             int.from_bytes(r[96:], "little") % ed.L)
+            for r in rows[:n]]
+    assert got.tolist() == np.resize(host, n).tolist()
+    sv = tv.SigVerifier(tv.VerifierConfig(33, 64), mode="antipa")
+    assert np.asarray(sv.dispatch_blob(blob.numpy())).tolist() == \
+        ed.verify_blob(blob.to(cuda)).cpu().tolist()

@@ -104,11 +104,12 @@ def _frags():
 FRAGS = _frags()
 
 
-def _expected():
-    """The host verifier's answer: every signature must pass, the first
-    copy of a first-signature tag wins, and no message over 256 bytes."""
+def _expected(frags=None, one=jed.verify_one_host):
+    """The host verifier's answer (`one` a signature): every signature
+    must pass, the first copy of a first-signature tag wins, and no
+    message over 256 bytes."""
     out, seen = [], set()
-    for p in FRAGS:
+    for p in FRAGS if frags is None else frags:
         try:
             t = txn_lib.parse(p)
         except txn_lib.TxnParseError:
@@ -117,7 +118,7 @@ def _expected():
         tag = int.from_bytes(p[1:9], "little")
         if len(msg) > 256 or tag in seen:
             continue
-        if all(jed.verify_one_host(s, msg, k) for s, k in
+        if all(one(s, msg, k) for s, k in
                zip(t.signatures(p), t.signer_pubkeys(p))):
             seen.add(tag)
             out.append((p, tag))
@@ -135,11 +136,12 @@ def _burst(frags):
     return metas, np.frombuffer(buf, np.uint8), offs
 
 
-def _run(tile, ctx, half_lat=False):
-    """Feed FRAGS as two rx bursts, then halt: fini flushes the pipeline
-    and publishes the verdicts."""
+def _run(tile, ctx, half_lat=False, frags=None):
+    """Feed FRAGS (or frags) as two rx bursts, then halt: fini flushes
+    the pipeline and publishes the verdicts."""
+    frags = FRAGS if frags is None else frags
     tile.init(ctx)
-    for part in (FRAGS[:13], FRAGS[13:]):
+    for part in (frags[:13], frags[13:]):
         metas, buf, offs = _burst(part)
         if half_lat:
             metas["sig"][::2] |= np.uint64(LAT_PRIO_BIT)
@@ -232,7 +234,6 @@ def test_port_tile_one_verifier_covers_the_ladder():
 
 @pytest.mark.parametrize("cfg,match", [
     ({"dp_shards": 2}, "dp_shards"),
-    ({"mode": "antipa"}, "antipa"),
     ({"aot_require": True}, "aot_require"),
     ({"aot_dir": "store"}, "aot_dir"),
     ({"jax_trace_dir": "trace"}, "jax_trace_dir"),
@@ -240,6 +241,35 @@ def test_port_tile_one_verifier_covers_the_ladder():
 def test_port_tile_refuses_what_is_not_ported(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
         VerifyTile().init(_port_ctx(**cfg))
+
+
+@pytest.mark.parametrize("how", ["cfg", "env"])
+def test_port_tile_serves_antipa_mode(monkeypatch, how):
+    """[verify] mode = antipa, or FDTPU_VERIFY_MODE=antipa over a strict
+    cfg: the tile warms and serves an antipa SigVerifier under its guard,
+    and publishes what the antipa host twin accepts, the torsion
+    forgeries whose v is even among them; any other mode still raises."""
+    from chip_smoke import torsion_txns
+    tors = torsion_txns()
+    frags = FRAGS[:20] + [w for w, _ in tors] + FRAGS[20:]
+    if how == "env":
+        monkeypatch.setenv("FDTPU_VERIFY_MODE", "antipa")
+        ctx = _port_ctx(mode="strict")
+    else:
+        monkeypatch.delenv("FDTPU_VERIFY_MODE", raising=False)
+        ctx = _port_ctx(mode="antipa")
+    tile = VerifyTile()
+    _run(tile, ctx, frags=frags)
+    assert tile.verify_mode == "antipa" and tile.guard.fn.mode == "antipa"
+    want = _expected(frags, jed.verify_one_host_antipa)
+    assert ctx.published == want
+    even = [w for w, e in tors if e]
+    assert set(even) <= {p for p, _ in want}
+    assert not set(even) & {p for p, _ in _expected(frags)}
+    assert ctx.metrics.d["compile_cnt"] == 0
+    monkeypatch.setenv("FDTPU_VERIFY_MODE", "fast")
+    with pytest.raises(ValueError, match="strict|antipa"):
+        VerifyTile().init(_port_ctx())
 
 
 @pytest.mark.parametrize("cfg_val,native", [
