@@ -4098,14 +4098,17 @@ def torsion_txns(seed: int = 1818) -> list:
 
 def antipa_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
                  int_ops_per_s, buckets=None, device=None,
-                 lanes=(1, 4096, 4097, 32768), n_sample=256,
+                 lanes=(1, 7, 32, 4096, 4097, 4111, 32768), n_sample=256,
                  engine_cfg=(4096, 128), n_batches=8, tile_buckets=None,
                  n_wires=512):
     """Phase 18: the antipa mode, through every layer that serves it.
     (a) The antipa_tail kernel against its plain version and the host
-    (ed.antipa_k_host) at `lanes` lanes, the edge lanes of
-    antipa_edge_lanes (fed digests directly) first, then the adversarial
-    kinds with their real digests.  (b) SigVerifier(mode="antipa")
+    (ed.antipa_k_host) at `lanes` lanes (whole blocks of the kernel's
+    32 lanes at 32, 4096 and 32768, a partial last block at the
+    others), the edge lanes of antipa_edge_lanes (fed digests directly)
+    first, then the adversarial kinds with their real digests; on the
+    card the kernel's residency (registers, shared bytes, blocks an
+    SM).  (b) SigVerifier(mode="antipa")
     .dispatch_blob at the serving buckets (serving_buckets, or `buckets`):
     sha512_ram and antipa_tail launched once a dispatch and nothing else;
     bits == as constructed == the strict fused verifier's, and the host
@@ -4127,10 +4130,16 @@ def antipa_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
     from firedancer_tpu_torch.models import verifier as V
     from firedancer_tpu_torch.ops import antipa_tail as at
     from firedancer_tpu_torch.ops import sha512_kernel as sk
-    from firedancer_tpu_torch.tools.kernel_time import antipa_bound_ms
+    from firedancer_tpu_torch.tools.kernel_time import (antipa_bound_ms,
+                                                        antipa_residency)
     t_phase = time.perf_counter()
     cuda = device is None
     dev = torch.device("cuda", 0) if cuda else torch.device(device)
+    out = {"residency": None}
+    if cuda:
+        from firedancer_tpu_torch.kernels import build
+        out["residency"] = antipa_residency(torch, build.load("antipa_tail"))
+        note(f"phase 18: antipa_tail residency {json.dumps(out['residency'])}")
 
     def sync():
         if cuda:
@@ -4165,8 +4174,11 @@ def antipa_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
         if not np.array_equal(bits, np.resize(host, n)):
             raise AssertionError(f"phase 18a: {n} lanes differ from the "
                                  f"host on {int((bits != np.resize(host, n)).sum())}")
+    per = (out["residency"] or {}).get("lanes_a_block")
     note(f"phase 18a: antipa_tail == plain == host (antipa_k_host) at "
-         f"{', '.join(map(str, lanes))} lanes, 0 lanes differing: "
+         f"{', '.join(map(str, lanes))} lanes"
+         + (f" (last block {', '.join(str(n % per or per) for n in lanes)} "
+            f"of {per} lanes)" if per else "") + ", 0 lanes differing: "
          f"{len(edges)} edge lanes fed digests directly ({int(host[:len(edges)].sum())} "
          f"accept: the halving's edge scalars as k and k + L, c's 32nd "
          f"window >= 8, order-2 and order-4 forgeries with v even and "
@@ -4211,7 +4223,7 @@ def antipa_phase(pool, reset_counts, counts, note, cuda_ms, dev_ms,
              f"{int(r.sum())} accept == as built == strict fused; the host "
              f"twin on {len(idx)} seeded rows; antipa_tail == plain")
     note(f"phase 18b: launches {launches} for {len(buckets)} dispatches")
-    out = {"launches": launches["antipa_tail"], "err": 0, "times": {}}
+    out.update({"launches": launches["antipa_tail"], "err": 0, "times": {}})
     if cuda:
         for b, m, x, *_ in buckets:
             blob = torch.from_numpy(x).to(dev)
@@ -5628,7 +5640,7 @@ def main() -> int:
          "bound_by": a4["bound_by"], "library_ms": None,
          "shape": f"{BUCKETS[0][0]}x{BUCKETS[0][1]}",
          "ms_32768": a32["ms"], "device_ms_32768": a32["device_ms"],
-         "bound_ms_32768": a32["bound_ms"],
+         "bound_ms_32768": a32["bound_ms"], "residency": anti["residency"],
          "dispatch_ms": {k: {"antipa": v["dispatch_antipa_ms"],
                              "strict": v["dispatch_strict_ms"]}
                          for k, v in anti["times"].items()}})

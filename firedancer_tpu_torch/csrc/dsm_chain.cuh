@@ -81,6 +81,34 @@ struct vt_consts {
 #endif
 #define G4_TAB_WORDS (9 * 10)   // one rank's column of P's table
 
+// An fe as every fe25519.cuh operation leaves it (limb 0 and limbs 2..9
+// below 2^width, limb 1 below 2^26: its carry-in lands after the mask)
+// in 8 words: limbs of 26, 26, 26, 25, 26, 25, 26, 25, 26 and 25 bits,
+// 256 in all, low first.
+FD_FN int g4_pack_off(int l) { return l < 2 ? 26 * l : (51 * l + 1) / 2 + 1; }
+FD_FN int g4_pack_bits(int l) { return l < 3 ? 26 : 26 - (l & 1); }
+
+FD_FN void g4_pack(uint32_t *w, const fe &a) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) w[k] = 0;
+#pragma unroll
+  for (int l = 0; l < 10; l++) {
+    const int o = g4_pack_off(l), k = o / 32, b = o % 32;
+    w[k] |= a.v[l] << b;
+    if (b + g4_pack_bits(l) > 32) w[k + 1] |= a.v[l] >> (32 - b);
+  }
+}
+
+FD_FN void g4_unpack(fe &a, const uint32_t *w) {
+#pragma unroll
+  for (int l = 0; l < 10; l++) {
+    const int o = g4_pack_off(l), k = o / 32, b = o % 32;
+    uint32_t v = w[k] >> b;
+    if (b + g4_pack_bits(l) > 32) v |= w[k + 1] << (32 - b);
+    a.v[l] = v & ((1u << g4_pack_bits(l)) - 1);
+  }
+}
+
 // out = the q-th of a0..a3, by selects on q's bits.
 FD_FN void g4_sel(fe &out, int q, const fe &a0, const fe &a1, const fe &a2,
                   const fe &a3) {
@@ -230,26 +258,51 @@ FD_FN void g4_add_niels_cols(fe *p, int r0, const fe *col, bool neg) {
   g4_finish<true>(p, v, r0, neg);
 }
 
-// Entry e of the column at col.
+// Entry e of the column at col: one limb a word, or COMPACT, the limbs
+// packed into 8 words (g4_pack), 20 % less shared memory.
+template <bool COMPACT = false>
 FD_FN void g4_load(fe &out, const uint32_t *col, int e) {
+  if (!COMPACT) {
 #pragma unroll
-  for (int l = 0; l < 10; l++) out.v[l] = col[(e * 10 + l) * G4_TAB_STRIDE];
+    for (int l = 0; l < 10; l++) out.v[l] = col[(e * 10 + l) * G4_TAB_STRIDE];
+  } else {
+    uint32_t w[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) w[k] = col[(e * 8 + k) * G4_TAB_STRIDE];
+    g4_unpack(out, w);
+  }
 }
 
+template <bool COMPACT = false>
 FD_FN void g4_store(uint32_t *col, int e, const fe &a) {
+  if (!COMPACT) {
 #pragma unroll
-  for (int l = 0; l < 10; l++) col[(e * 10 + l) * G4_TAB_STRIDE] = a.v[l];
+    for (int l = 0; l < 10; l++) col[(e * 10 + l) * G4_TAB_STRIDE] = a.v[l];
+  } else {
+    uint32_t w[8];
+    g4_pack(w, a);
+#pragma unroll
+    for (int k = 0; k < 8; k++) col[(e * 8 + k) * G4_TAB_STRIDE] = w[k];
+  }
 }
 
 // ge_add_niels in place with entry e of P's table, negated for neg (the
-// plain version passes (Y + X, Y - X, Z, -2dT) then).
+// plain version passes (Y + X, Y - X, Z, -2dT) then).  COMPACT: a
+// g4_niels_table<true>, whose entry 0, the identity, is picked from
+// constants by mask, so every lane still makes the add.
+template <bool COMPACT = false>
 FD_FN void g4_add_niels(fe *p, int r0, const uint32_t *tab, int e,
                         bool neg) {
   fe col[G4_RANKS];
 #pragma unroll
   for (int i = 0; i < G4_RANKS; i++) {
     fe n;
-    g4_load(col[i], tab + i, e);
+    g4_load<COMPACT>(col[i], tab + i, COMPACT ? (e ? e - 1 : 0) : e);
+    if (COMPACT) {
+      fe id;
+      fe_set(id, r0 + i != 3);
+      g4_pick(col[i], e == 0, id, col[i]);
+    }
     fe_neg(n, col[i]);
     g4_pick(col[i], neg && r0 + i == 3, n, col[i]);
   }
@@ -325,13 +378,16 @@ FD_FN void g4_add(fe *out, fe *t2d, const fe *lc, const fe *tc,
 // ge_niels_table(tab, p, 9, d2), each rank storing its column: entry 0
 // the identity (1, 1, 1, 0), entry 1 P, then repeated unified adds of P.
 // Rank 2 writes column 3 (2dT, made beside the next add's C) of every
-// entry but the last, which takes a round of its own.
+// entry but the last, which takes a round of its own.  COMPACT leaves
+// the identity out and packs the limbs: entry e at e - 1, 8 entries of 8
+// words a column (g4_add_niels<true> makes entry 0 from constants).
+template <bool COMPACT = false>
 FD_FN void g4_niels_table(uint32_t *tab, const fe *p, const fe &d2,
                           int r0) {
   fe cur[G4_RANKS], lp[G4_RANKS], lc[G4_RANKS], tc[G4_RANKS],
       t2d[G4_RANKS];
 #pragma unroll
-  for (int i = 0; i < G4_RANKS; i++) {
+  for (int i = 0; i < G4_RANKS && !COMPACT; i++) {
     fe id;
     fe_set(id, r0 + i != 3);
     g4_store(tab + i, 0, id);
@@ -342,7 +398,7 @@ FD_FN void g4_niels_table(uint32_t *tab, const fe *p, const fe &d2,
   for (int e = 1; e < 9; e++) {
 #pragma unroll
     for (int i = 0; i < G4_RANKS; i++)
-      if (r0 + i != 3) g4_store(tab + i, e, lc[i]);
+      if (r0 + i != 3) g4_store<COMPACT>(tab + i, e - COMPACT, lc[i]);
     if (e == 8) {
 #pragma unroll
       for (int i = 0; i < G4_RANKS; i++) fe_mul(t2d[i], tc[i], d2);
@@ -351,7 +407,7 @@ FD_FN void g4_niels_table(uint32_t *tab, const fe *p, const fe &d2,
     }
 #pragma unroll
     for (int i = 0; i < G4_RANKS; i++)
-      if (r0 + i == 2) g4_store(tab + i + 1, e, t2d[i]);
+      if (r0 + i == 2) g4_store<COMPACT>(tab + i + 1, e - COMPACT, t2d[i]);
     if (e < 8) g4_sums(lc, tc, cur, r0);
   }
   g4_sync();

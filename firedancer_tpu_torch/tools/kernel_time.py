@@ -5,7 +5,7 @@
         [--label L] [--kernels msm,verify_tail,r_check,dsm_tail_q,
         dsm_base,sha512,decompress,reduce_recode,rlc_recode,poh_spans,
         mixin_tree,gf2_recover,bmtree_walk,antipa_tail] [--lanes N,...]
-        [--sass]
+        [--sass] [--phases]
 
 Imports firedancer_tpu_torch from DIR (default: the checkout that holds
 this script), builds its kernels, prints the chosen kernels' ptxas -v
@@ -37,7 +37,13 @@ On inputs made from fixed seeds:
                them;
   antipa_tail  at the same shapes, on the same signatures' keys, R, S
                and digests, as the antipa mode's dispatch_blob gives
-               them, each beside its bound (antipa_bound_ms);
+               them, each beside its bound (antipa_bound_ms) and the SM
+               clock nvidia-smi reads after it; its residency (registers,
+               shared bytes, blocks an SM) where the checkout's library
+               reports it; with --phases, one lane's time split by
+               phase: a timing-only build of csrc/antipa_tail.cu with
+               -DAP_CLOCKS (phase_split), whose clock64() stamps at the
+               phase edges give each phase's cycles over the lanes;
   dsm_tail_q   at the same shapes' 128-byte ones, on the same
                signatures' windows (reduce_recode), decompressed keys
                and R's y;
@@ -78,7 +84,8 @@ On inputs made from fixed seeds:
                length and depth.
 The last line is one JSON object: the label, the card's name and power
 limit (nvidia-smi), the call times in ms, the device times in ms, the
-launches and the other device ops a call, and the device-time method.
+launches and the other device ops a call, the device-time method, the
+SM clocks read after the antipa_tail timings and the phase splits.
 To compare two checkouts, run it for each in turn on one card, one run
 after another: A, B, B, A.
 """
@@ -151,6 +158,108 @@ def antipa_bound_ms(n: int, int_ops_per_s: float) -> tuple[float, str]:
     tb = n * AP_BYTES / 3.35e12
     to = n * (AP_SQR * 55 + AP_MUL * 100 + AP_SCALAR_OPS) / int_ops_per_s
     return max(tb, to) * 1e3, "bytes" if tb > to else "operations"
+
+
+def antipa_two_pipe_ms(n: int, int_ops_per_s: float) -> float:
+    """antipa_tail's operation bound on n lanes if the field products'
+    multiply-adds (IMAD) issue on the FMA pipe while the scalar half's
+    operations take the integer pipe, each at int_ops_per_s, and a
+    scheduler issues one instruction a cycle (twice int_ops_per_s in
+    all): the larger of the multiply-adds over one pipe and all
+    operations over both."""
+    mads = AP_SQR * 55 + AP_MUL * 100
+    return n * max(mads, AP_SCALAR_OPS,
+                   (mads + AP_SCALAR_OPS) / 2) / int_ops_per_s * 1e3
+
+
+def clocks_lib(build):
+    """(library, phase names, stamps a lane) of the timing-only build of
+    the checkout's csrc/antipa_tail.cu: nvcc with -DAP_CLOCKS into its
+    _build/clocks-<hash>, whose fd_antipa_tail takes an (n, stamps)
+    int64 stamp output after the stream, whose fd_antipa_tail_phases
+    names the phases as name:first-last stamp, ';' between them, and
+    whose fd_antipa_tail_nstamp gives the stamps a lane.  Never loaded
+    by the wrapper."""
+    import ctypes
+    out = build.BUILD / f"clocks-{build._src_hash()}"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libantipa_tail_clocks.so"
+    if not lib.exists():
+        res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DAP_CLOCKS",
+                              "-o", str(lib), str(build.CSRC /
+                                                  "antipa_tail.cu")],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc -DAP_CLOCKS failed:\n{res.stdout}"
+                               f"{res.stderr}")
+    dll = ctypes.CDLL(str(lib))
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    dll.fd_antipa_tail.argtypes = [p, ll, p, ll, p, ll, p, ll, p, i, p, p, p]
+    dll.fd_antipa_tail.restype = i
+    dll.fd_antipa_tail_phases.restype = ctypes.c_char_p
+    names = [(name, *map(int, span.split("-"))) for name, span in (
+        part.rsplit(":", 1) for part in
+        dll.fd_antipa_tail_phases().decode().split(";"))]
+    dll.fd_antipa_tail_nstamp.restype = i
+    return dll, names, dll.fd_antipa_tail_nstamp()
+
+
+def phase_split(torch, dll, names, nstamp, consts, a_, r_, s_, digest,
+                want, runs: int = 3) -> dict[str, list[float]]:
+    """{phase: [mean, median, max] cycles a lane} of the timing-only
+    build on these inputs: each phase's stamps differenced a lane (one
+    SM's clock64), over the lanes, from the last of runs calls; its bits
+    must equal want, the served kernel's."""
+    n = a_.shape[0]
+    ok = torch.empty(n, dtype=torch.uint8, device=a_.device)
+    clk = torch.zeros((n, nstamp), dtype=torch.int64, device=a_.device)
+    for _ in range(runs):
+        rc = dll.fd_antipa_tail(
+            a_.data_ptr(), a_.stride(0), r_.data_ptr(), r_.stride(0),
+            s_.data_ptr(), s_.stride(0), digest.data_ptr(),
+            digest.stride(0), consts.data_ptr(), n, ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, clk.data_ptr())
+        if rc:
+            raise RuntimeError(f"antipa_tail clocks build: CUDA error {rc}")
+    torch.cuda.synchronize()
+    if not torch.equal(ok.bool(), want):
+        raise AssertionError("antipa_tail clocks build: bits differ")
+    st = clk.cpu().numpy()
+    out = {}
+    for name, a, b in names:
+        d = (st[:, b] - st[:, a]).astype(np.float64)
+        out[name] = [float(d.mean()), float(np.median(d)), float(d.max())]
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock now (nvidia-smi clocks.sm), MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def antipa_residency(torch, lib) -> dict[str, int] | None:
+    """antipa_tail's registers, static and dynamic shared bytes,
+    blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    threads and lanes a block and stack bytes, from the library's
+    fd_antipa_tail_residency; None where the library has none."""
+    import ctypes
+    fn = getattr(lib, "fd_antipa_tail_residency", None)
+    if fn is None:
+        return None
+    out = (ctypes.c_int * 7)()
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(0):
+        rc = fn(ctypes.addressof(out))
+    if rc:
+        raise RuntimeError(f"fd_antipa_tail_residency: CUDA error {rc}")
+    keys = ("registers", "static_shared_bytes", "dynamic_shared_bytes",
+            "blocks_an_sm", "threads_a_block", "lanes_a_block",
+            "stack_bytes")
+    return dict(zip(keys, out))
 
 
 def cuda_ms(torch, fn, runs: int = RUNS, warmup: int = 3) -> list[float]:
@@ -324,6 +433,9 @@ def main() -> int:
                          "(x 128) instead of the default shapes")
     ap.add_argument("--sass", action="store_true",
                     help="print each kernel's static SASS opcode counts")
+    ap.add_argument("--phases", action="store_true",
+                    help="split antipa_tail's lane time by phase (a "
+                         "timing-only -DAP_CLOCKS build)")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     unknown = set(kernels) - set(SOURCES)
@@ -375,6 +487,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     times, dev_times, launches, others, methods = {}, {}, {}, {}, set()
+    sm_clocks, phases = {}, {}
+    if "antipa_tail" in kernels:
+        res = antipa_residency(torch, build.load("antipa_tail"))
+        print(f"{args.label} antipa_tail residency: {json.dumps(res)}")
 
     def profiled(key: str, kernel: str, fn, runs: int = RUNS):
         d, k, o, how = device_ms(torch, fn, ENTRIES[kernel], runs)
@@ -554,16 +670,33 @@ def main() -> int:
                   lambda: rck.r_check(qx, qz, r_, ok_t))
         if "antipa_tail" in kernels:
             from firedancer_tpu_torch.ops import antipa_tail as at
-            timed(f"antipa_tail {n}x{ml}", "antipa_tail",
+            key = f"antipa_tail {n}x{ml}"
+            timed(key, "antipa_tail",
                   lambda: at.antipa_tail(a_, r_, s_, digest))
+            sm_clocks[key] = sm_clock_mhz()
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             clock_hz = float(subprocess.run(
                 ["nvidia-smi", "--query-gpu=clocks.max.sm",
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, check=True).stdout.split()[0]) * 1e6
             b_ms, b_by = antipa_bound_ms(n, sms * 64 * clock_hz)
-            print(f"{args.label} antipa_tail {n}x{ml}: bound {b_ms:.5f} ms "
-                  f"({b_by})")
+            print(f"{args.label} {key}: device {dev_times[key]:.5f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}; IMAD on the FMA pipe "
+                  f"beside the integer pipe: "
+                  f"{antipa_two_pipe_ms(n, sms * 64 * clock_hz):.5f}), "
+                  f"SM clock {sm_clocks[key]:.0f} MHz after it")
+            if args.phases:
+                dll, names, nstamp = clocks_lib(build)
+                want = at.antipa_tail(a_, r_, s_, digest)
+                split = phase_split(torch, dll, names, nstamp,
+                                    at.kernel_consts(dev), a_, r_, s_,
+                                    digest, want)
+                mhz = sm_clock_mhz()
+                phases[key] = {"sm_clock_mhz": mhz, "cycles": split}
+                for name, (mean, med, mx) in split.items():
+                    print(f"{args.label} {key} phase {name}: mean "
+                          f"{mean:.0f}, median {med:.0f}, max {mx:.0f} "
+                          f"cycles ({mean / mhz:.2f} us at {mhz:.0f} MHz)")
         if ml != 128:
             continue
         if "decompress" in kernels:
@@ -609,7 +742,8 @@ def main() -> int:
     print(json.dumps({"label": args.label, "card": card, "ms": times,
                       "device_ms": dev_times, "launches": launches,
                       "other_device_ops": others,
-                      "device_method": sorted(methods)}))
+                      "device_method": sorted(methods),
+                      "sm_clock_mhz": sm_clocks, "phases": phases}))
     return 0
 
 

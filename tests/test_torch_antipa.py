@@ -10,13 +10,13 @@ on honest, corrupted and torsion-forged rows, and at lengths past the
 row against the host twin; the host twin (verify_one_host_antipa)
 against JAX's on the golden corpora; and the antipa tail's edge lanes,
 fed digests directly, against the host.  Every comparison is exact.
-The JAX graph runs eagerly at one shape (8 lanes for the whole path):
-its compiles take most of this file's time."""
+The JAX graph runs eagerly at one shape (8 lanes: the whole path, the
+halving and the chain, which then share their loops' compiles): its
+compiles take most of this file's time."""
 
 import json
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +38,10 @@ from test_scalar_divstep import _halve_model
 L = sc.L
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 MAXLEN = 64
+# the JAX graph's one shape in this file, rows x message bytes: that of
+# tests/test_ed25519_antipa.py, so the two files' eager loops compile
+# once between them (the XLA cache)
+ROWS, JAX_ML = 16, 96
 
 
 def _k_bytes(ks):
@@ -67,8 +71,15 @@ def test_halve_scalar_matches_jax_and_the_model():
     kb = _k_bytes(ks)
     got = _halved(*sc.halve_scalar(sc.bytes_to_limbs(torch.from_numpy(kb),
                                                      22)))
-    want = _halved(*jax.jit(jsc.halve_scalar)(
-        jsc.bytes_to_limbs(jnp.asarray(kb), 22)))
+    # the JAX function on ROWS scalars a call, the shape of the halving
+    # inside the JAX verify_batch_antipa below, whose loops it shares
+    want = []
+    for i in range(0, len(ks), ROWS):
+        part = np.zeros((ROWS, 32), np.uint8)
+        part[:len(kb[i:i + ROWS])] = kb[i:i + ROWS]
+        want += _halved(*jsc.halve_scalar(
+            jsc.bytes_to_limbs(jnp.asarray(part), 22)))
+    want = want[:len(ks)]
     model = [_halve_model(k) for k in ks]
     assert got == want == model
     assert [ed._divstep_halve_host(k) for k in ks] == model
@@ -108,9 +119,11 @@ def _affine(p) -> list[tuple[int, int]]:
 
 def test_double_scalar_mul_halved_matches_jax():
     """[u]P + [v]Q over 32 windows, seeded digits 0..15 and the points of
-    seeded public keys, as affine points: the port's chain == JAX's."""
+    seeded public keys, as affine points: the port's chain == JAX's.  On
+    ROWS lanes, the shape of the chain inside the JAX verify_batch_antipa
+    of test_verify_batch_antipa_matches_jax, which shares its loop."""
     rng = np.random.default_rng(17)
-    n = 4
+    n = ROWS
     pubs = np.array([list(ed.keypair_from_seed(rng.bytes(32))[0])
                      for _ in range(2 * n)], np.uint8)
     wins = rng.integers(0, 16, (2, 32, n)).astype(np.uint32)
@@ -150,17 +163,24 @@ def _rows():
 
 
 def test_verify_batch_antipa_matches_jax():
-    """The plain path's bits == JAX's verify_batch_antipa's (eager, one
-    shape) == the host twin's, and the packed blob form's too: strict's
-    bits on the honest and corrupted rows; on the torsion rows antipa
-    accepts exactly the forgeries whose order divides v, where strict
-    rejects them all."""
+    """The plain path's bits == JAX's verify_batch_antipa's (eager, at
+    ROWS x JAX_ML: the rows past these and the bytes past a row are zero,
+    and a lane's bit depends on its own row, to its length) == the host
+    twin's, and the packed blob form's too: strict's bits on the honest
+    and corrupted rows; on the torsion rows antipa accepts exactly the
+    forgeries whose order divides v, where strict rejects them all."""
     m, ln, s, p = _rows()
     got = ed.verify_batch_antipa(*(torch.from_numpy(a) for a in (m, ln, s,
                                                                  p)))
     blob = ed.verify_blob_antipa(torch.from_numpy(tv.pack_blob(m, ln, s, p)))
+    n = len(ln)
+    pad = [np.zeros((ROWS, JAX_ML), np.uint8), np.zeros(ROWS, ln.dtype),
+           np.zeros((ROWS, 64), np.uint8), np.zeros((ROWS, 32), np.uint8)]
+    pad[0][:n, :m.shape[1]] = m
+    for dst, a in zip(pad[1:], (ln, s, p)):
+        dst[:n] = a
     want = np.asarray(jed.verify_batch_antipa(
-        *(jnp.asarray(a) for a in (m, ln, s, p)))).tolist()
+        *(jnp.asarray(a) for a in pad))).tolist()[:n]
     host = [ed.verify_one_host_antipa(bytes(s[i]), bytes(m[i, :ln[i]]),
                                       bytes(p[i])) for i in range(len(m))]
     assert got.tolist() == blob.tolist() == want == host

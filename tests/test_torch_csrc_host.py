@@ -14,7 +14,11 @@ threads (msm's points, the four ranks of the chain in vt_lane4,
 dsm_tail_q_lane4 and dsm_base_lane4, each holding one coordinate), the
 harness runs those threads in lockstep and passes what the warp's
 shuffles would through arrays; each point step of the four-rank chain is
-also held alone against its plain function.  The leader lane's lanes
+also held alone against its plain function.  antipa_tail.cu's lane runs
+as its block does: the prologue's parts (ap_scalars, the scalar warp's;
+ap_point for A and for R), then the chain's four ranks fed what the
+shared memory hands on (ap_lane_points, ap_chain_lane4), each part also
+held alone, with the compact tables' packed words (g4_pack).  The leader lane's lanes
 (poh_spans.cu's hashes and lane body, the schedule warp's producer and
 the FMA-pipe forms of an add, a shift and a rotation in sha256.cuh, and
 mixin_tree.cu's trees as its pairs of warps walk them) build into a second, smaller harness and are
@@ -287,11 +291,46 @@ int main() {
       uint8_t in[160];
       rd(in, sizeof in);
       bool ok[4];
-      uint32_t ta[G4_TAB_WORDS * G4_RANKS], tr[G4_TAB_WORDS * G4_RANKS];
-      ap_lane4(c, in, in + 32, in + 64, in + 96, ok, ta, tr, 0);
+      uint32_t ta[AP_TAB_WORDS * G4_RANKS], tr[AP_TAB_WORDS * G4_RANKS];
+      ap_lane4(c, in, in + 32, in + 64, in + 96, ok, ta, tr);
       const uint8_t b = ok[0], b2 = ok[2];
       fwrite(&b, 1, 1, stdout);
       fwrite(&b2, 1, 1, stdout);
+    }
+  } else if (mode == 'e') {     // (s, digest) lanes -> the scalar warp's
+    for (int i = 0; i < n; i++) {   // S < L and its 33 digit words
+      uint8_t in[96];
+      rd(in, sizeof in);
+      uint32_t dig[AP_NWIN];
+      const uint8_t ok_s = ap_scalars(in, in + 32, dig);
+      fwrite(&ok_s, 1, 1, stdout);
+      fwrite(dig, sizeof dig, 1, stdout);
+    }
+  } else if (mode == 'p') {     // consts, then (pub, r) lanes -> A's
+    ap_consts c;                // and R's prechecks, then each rank's
+    rd(&c, sizeof c);           // coordinate of -A and of R
+    for (int i = 0; i < n; i++) {
+      uint8_t in[64];
+      rd(in, sizeof in);
+      fe xa, ya, xr, yr, pa[4], pr[4];
+      const uint8_t ok[2] = {ap_point(c.v, in, false, xa, ya),
+                             ap_point(c.v, in + 32, true, xr, yr)};
+      ap_lane_points(pa, pr, xa, ya, xr, yr, 0);
+      fwrite(ok, 1, 2, stdout);
+      for (int q = 0; q < 4; q++) {
+        fwrite(pa[q].v, 4, 10, stdout);
+        fwrite(pr[q].v, 4, 10, stdout);
+      }
+    }
+  } else if (mode == 'P') {     // 10 limbs -> g4_unpack(g4_pack) and
+    for (int i = 0; i < n; i++) {   // the 8 packed words
+      fe a, back;
+      uint32_t w[8];
+      rd(&a, sizeof a);
+      g4_pack(w, a);
+      g4_unpack(back, w);
+      fwrite(back.v, 4, 10, stdout);
+      fwrite(w, 4, 8, stdout);
     }
   } else if (mode == 'i') {     // z -> 1 / z and the batches run
     for (int i = 0; i < n; i++) {
@@ -1498,3 +1537,114 @@ def test_antipa_lane_matches_the_host_and_plain(harness):
     assert rec[:, 0].tolist() == rec[:, 1].tolist()
     assert rec[:, 0].astype(bool).tolist() == plain.tolist() == host
     assert any(host) and not all(host)
+
+
+def _antipa_rows(case: str) -> list:
+    """(pub, r, s, digest) 160-byte rows: chip_smoke's edge lanes (the
+    halving's edge ks as k and k + L, c's carry digit, the torsion
+    forgeries with v even and odd, the prechecks' edges), or seeded
+    random keys, R, S (some >= L) and digests, half of them signatures."""
+    if case == "edge_lanes":
+        return antipa_edge_lanes()
+    rng = np.random.default_rng(2121)
+    msgs, lens, sigs, pubs = tv.make_example_batch(48, 64, True, 2121,
+                                                   sign_pool=8)
+    bt = torch.from_numpy(tv.pack_blob(msgs, lens, sigs, pubs))
+    digest = sk.sha512_ram(bt[:, :64], bt[:, 64:96], bt[:, 128:160],
+                           bt[:, 160:]).numpy()
+    rows = [bytes(pubs[i]) + bytes(sigs[i]) + bytes(digest[i])
+            for i in range(len(pubs))]
+    return rows + [rng.bytes(160) for _ in range(48)]
+
+
+@pytest.mark.parametrize("case", ["edge_lanes", "seeded"])
+def test_antipa_scalar_warp_digits_match_the_halving(harness, case):
+    """The scalar warp's half of a lane (ap_scalars), as it hands it over
+    to the chain warps: S < L, and 33 signed digits (-8..8) a scalar that
+    sum to u mod 2^128, to -v (|v| mod 2^128, negated where v >= 0, so
+    the R table is R's own) and to c = v S mod L split at 2^128, with
+    (u, v) the divstep model's halving of k = digest mod L."""
+    from firedancer_tpu_torch.ops import ed25519 as ped
+    rows = _antipa_rows(case)
+    n = len(rows)
+    out = np.frombuffer(harness(b"e", n, 0, b"".join(r[64:] for r in rows)),
+                        np.uint8).reshape(n, 133)
+    digits = out[:, 1:].view(np.int8).reshape(n, 33, 4)
+    assert int(np.abs(digits.astype(int)).max()) <= 8
+    vals = (digits.astype(object) * np.array([16 ** w for w in range(33)],
+                                             dtype=object)[:, None]).sum(1)
+    m128, parity = (1 << 128) - 1, set()
+    for row, ok_s, got in zip(rows, out[:, 0], vals):
+        s_ = int.from_bytes(row[64:96], "little")
+        k = int.from_bytes(row[96:], "little") % sc.L
+        u, v = ped._divstep_halve_host(k)
+        c = v * s_ % sc.L
+        assert bool(ok_s) == (s_ < sc.L)
+        assert list(got) == [u & m128, (abs(v) & m128) * (-1 if v >= 0 else 1),
+                             c & m128, c >> 128]
+        parity.add(v % 2)
+    assert parity == {0, 1}
+
+
+@pytest.mark.parametrize("case", ["edge_lanes", "seeded"])
+def test_antipa_points_reach_the_ranks(harness, case):
+    """The prologue's points (ap_point: A and R each decompressed by one
+    thread) and their handover to the chain (ap_lane_points): each rank's
+    coordinate of -A = (-x, y, 1, -xy) and of R = (x, y, 1, xy) equals
+    the plain decompression's, and the prechecks are the plain ones (A
+    decompresses and is not of small order; R decompresses and passes
+    the byte test)."""
+    from firedancer_tpu_torch.ops import antipa_tail as at
+    rows = _antipa_rows(case)
+    n = len(rows)
+    consts = at.kernel_consts(torch.device("cpu")).numpy().astype(np.int32)
+    out = np.frombuffer(harness(b"p", n, 0, consts.tobytes() + b"".join(
+        r[:64] for r in rows)), np.uint8).reshape(n, 322)
+    enc = torch.from_numpy(np.frombuffer(b"".join(r[:64] for r in rows),
+                                         np.uint8).reshape(n, 64).copy())
+    ok_a, a_pt = cv.decompress(enc[:, :32])
+    ok_r, r_pt = cv.decompress(enc[:, 32:])
+    assert out[:, 0].astype(bool).tolist() == (
+        ok_a & ~cv.is_small_order_affine(a_pt)).tolist()
+    assert out[:, 1].astype(bool).tolist() == (
+        ok_r & ~rc._parse_r_bytes(enc[:, 32:])[2]).tolist()
+    assert not out[:, :2].all() and out[:, :2].all(1).any()
+    p = fe.P
+    ax, ay = fe.to_ints(a_pt.X), fe.to_ints(a_pt.Y)
+    rx, ry = fe.to_ints(r_pt.X), fe.to_ints(r_pt.Y)
+    ranks = out[:, 2:].copy().view(np.uint32).reshape(n, 4, 20)
+    for q in range(4):
+        pa, pr = _planes(ranks[:, q], 2)
+        got_a, got_r = fe.to_ints(pa), fe.to_ints(pr)
+        for i in range(n):
+            want_a = (-ax[i] % p, ay[i], 1, -ax[i] * ay[i] % p)[q]
+            want_r = (rx[i], ry[i], 1, rx[i] * ry[i] % p)[q]
+            if ok_a[i]:
+                assert got_a[i] == want_a, (q, i)
+            if ok_r[i]:
+                assert got_r[i] == want_r, (q, i)
+
+
+@pytest.mark.parametrize("case", ["edges", "seeded"])
+def test_packed_table_words_keep_the_limbs(harness, case):
+    """g4_pack and g4_unpack (the antipa tables' 8-word columns) give
+    back every limb of an fe that fe25519.cuh's operations leave: limb 1
+    up to 2^26 - 1, the others below their widths."""
+    widths = [26, 26, 26, 25, 26, 25, 26, 25, 26, 25]
+    if case == "edges":
+        rows = [[(1 << w) - 1 for w in widths], [0] * 10,
+                [(1 << w) - 1 if i % 2 else 0 for i, w in enumerate(widths)],
+                [0 if i % 2 else (1 << w) - 1 for i, w in enumerate(widths)]]
+    else:
+        rng = np.random.default_rng(77)
+        rows = [[int(rng.integers(0, 1 << w)) for w in widths]
+                for _ in range(500)]
+    a = np.array(rows, np.uint32)
+    out = np.frombuffer(harness(b"P", len(rows), 0, a.tobytes()),
+                        np.uint32).reshape(len(rows), 18)
+    assert out[:, :10].tolist() == a.tolist()
+    vals = [sum(int(w) << (32 * k) for k, w in enumerate(r[10:]))
+            for r in out]
+    offs = np.cumsum([0] + widths[:-1])
+    assert vals == [sum(int(v) << int(o) for v, o in zip(r, offs))
+                    for r in rows]

@@ -516,11 +516,12 @@ def test_bmtree_walk_kernel_on_unaligned_rows(cuda, at):
         torch.from_numpy(idxs), proofs, torch.from_numpy(depths)))
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 9, 4097])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 4097])
 def test_antipa_tail_kernel_matches_plain_and_host(cuda, n):
     """antipa_tail on chip_smoke's edge lanes (fed digests directly) and
     adversarial lanes with their real digests, at lane counts around its
-    blocks of 8: bits equal the plain version's and antipa_k_host's, one
+    warps of 8 lanes and its blocks of 32: bits equal the plain
+    version's and antipa_k_host's, one
     launch a call; and the antipa mode's dispatch_blob equals strict's
     on the adversarial rows."""
     from chip_smoke import antipa_edge_lanes

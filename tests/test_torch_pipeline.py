@@ -1,15 +1,21 @@
-"""The port's VerifyPipeline over the port's SigVerifier (device="cpu")
-against the JAX package's VerifyPipeline over jax.jit(ed.verify_batch),
-at the shapes of tests/test_pipeline.py (16 x 256, and the ladder
-[(4, 256), (2, 1232)]): the same txn stream must give the same accepted
-payloads in the same order, and the same integer counters in
-VerifyMetrics.snapshot() (all but compile_ns, a time).
+"""The port's strict slice against the JAX package's jitted
+ed.verify_batch, at ONE compiled shape, (16, 1232): every case is
+zero-padded to it and its verdict trimmed back (a lane's bit depends on
+its own row, and on no byte past its length), so the module pays one XLA
+compile (minutes on a CPU host) for all of them.
 
-The jitted verify_batch runs at one compiled shape, (16, 1232), each
-dispatch zero-padded to it and its verdict trimmed back, so the module
-pays one XLA compile (about 90 s on a CPU host) instead of one per
-bucket shape; packed-row frags reach it through a dispatch_blob that
-unpacks the rows."""
+First the verify slice (64-byte rows, the kernels' plain versions):
+verify_blob and verify_batch on adversarial and ragged lanes, the
+SigVerifier surfaces, the three strict layouts (each ends with the
+strict finish, ops/r_check.py) beside both host verifiers, and
+malformed message lengths.  Then the port's VerifyPipeline over the
+port's SigVerifier (device="cpu") against the JAX package's
+VerifyPipeline over the same jitted function, at the shapes of
+tests/test_pipeline.py (16 x 256, and the ladder [(4, 256), (2,
+1232)]): the same txn stream must give the same accepted payloads in
+the same order, and the same integer counters in
+VerifyMetrics.snapshot() (all but compile_ns, a time); packed-row frags
+reach the JAX side through a dispatch_blob that unpacks the rows."""
 
 import dataclasses
 import random
@@ -18,17 +24,22 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from firedancer_tpu.disco import pipeline as jpipe
+from firedancer_tpu.models import verifier as jver
 from firedancer_tpu.ops import ed25519 as jed
+from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.ballet import txn as txn_lib
 from firedancer_tpu_torch.disco import pipeline as pipe
+from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.models.verifier import SigVerifier, VerifierConfig
 from firedancer_tpu_torch.ops import ed25519 as ed
 from _torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = 16
 MAXLEN = 256
+SLICE_ML = 64   # the verify slice's rows
 LADDER = [(4, 256), (2, 1232)]
 _SEEDS = [bytes([i + 1]) * 32 for i in range(12)]
 _PUBS = [ed.keypair_from_seed(s)[0] for s in _SEEDS]
@@ -69,6 +80,126 @@ class _JaxFn:
 @pytest.fixture(scope="module")
 def jfn():
     return _JaxFn()
+
+
+@pytest.fixture(scope="module")
+def slice_batch(jfn):
+    """Adversarial lanes plus ragged valid ones, with the JAX package's
+    jitted verify_batch bits (jfn, the module's one compile)."""
+    msgs, lens, sigs, pubs, kinds = tv.make_adversarial_batch(BATCH, SLICE_ML)
+    rng = np.random.default_rng(11)
+    ragged = rng.integers(0, SLICE_ML + 1, BATCH - 11).astype(np.int32)
+    m2, l2, s2, p2 = tv.make_example_batch(BATCH - 11, SLICE_ML, True, 12,
+                                           lens=ragged)
+    msgs[11:], lens[11:], sigs[11:], pubs[11:] = m2, l2, s2, p2
+    kinds[11:] = ["valid"] * (BATCH - 11)
+    want = jfn(msgs, lens, sigs, pubs)
+    return msgs, lens, sigs, pubs, kinds, want
+
+
+def test_verify_blob_matches_jax_verify_batch(slice_batch):
+    msgs, lens, sigs, pubs, kinds, want = slice_batch
+    blob_np = tv.pack_blob(msgs, lens, sigs, pubs)
+    got = ed.verify_blob(interop.blob_from_numpy(blob_np, "cpu")).numpy()
+    assert got.tolist() == want.tolist()
+    assert [k for k, w in zip(kinds, want) if w] == [
+        k for k in kinds if k == "valid"]
+    assert got.tolist() == ed.host_verify_blob(blob_np)
+    assert got.tolist() == jver.host_verify_blob(blob_np).tolist()
+
+
+def test_verify_batch_four_arrays_matches_blob(slice_batch):
+    msgs, lens, sigs, pubs, _, want = slice_batch
+    got = ed.verify_batch(*interop.batch_from_numpy(msgs, lens, sigs, pubs,
+                                                    "cpu"))
+    assert got.numpy().tolist() == want.tolist()
+
+
+def test_sig_verifier_dispatch_surfaces(slice_batch):
+    msgs, lens, sigs, pubs, _, want = slice_batch
+    ver = tv.SigVerifier(tv.VerifierConfig(BATCH, SLICE_ML), device="cpu")
+    blob = tv.pack_blob(msgs, lens, sigs, pubs)
+    for verdict in (ver.dispatch_blob(blob), ver(msgs, lens, sigs, pubs),
+                    ver.packed_dispatch(msgs, lens, sigs, pubs)):
+        assert verdict.is_ready()
+        verdict.copy_to_host_async()
+        assert np.asarray(verdict).tolist() == want.tolist()
+    with pytest.raises(ValueError):
+        ver.dispatch_blob(np.zeros((BATCH + 1, SLICE_ML + ed.PACKED_EXTRA),
+                                   np.uint8))
+
+
+@pytest.fixture(scope="module")
+def layout_rows(jfn):
+    """Adversarial lanes, then ragged valid ones, as a packed blob, with
+    the JAX package's jitted verify_batch bits."""
+    msgs, lens, sigs, pubs, kinds = tv.make_adversarial_batch(BATCH, SLICE_ML,
+                                                              seed=17)
+    m2, l2, s2, p2 = tv.make_example_batch(
+        BATCH - 11, SLICE_ML, True, 18,
+        lens=np.random.default_rng(19).integers(0, SLICE_ML + 1, BATCH - 11))
+    msgs[11:], lens[11:], sigs[11:], pubs[11:] = m2, l2, s2, p2
+    kinds[11:] = ["valid"] * (BATCH - 11)
+    want = jfn(msgs, lens, sigs, pubs)
+    return tv.pack_blob(msgs, lens, sigs, pubs), kinds, want
+
+
+@pytest.mark.parametrize("tail", ed.TAILS)
+def test_layouts_match_jax_verify_batch_and_host(layout_rows, tail):
+    """The three strict layouts (each ends with the strict finish,
+    ops/r_check.py) against the JAX device graph and both host
+    verifiers."""
+    blob_np, kinds, want = layout_rows
+    got = ed.verify_blob(interop.blob_from_numpy(blob_np, "cpu"),
+                         tail=tail).tolist()
+    assert got == want.tolist()
+    assert got == ed.host_verify_blob(blob_np)
+    assert got == jver.host_verify_blob(blob_np).tolist()
+    assert [k for k, b in zip(kinds, got) if b] == [
+        k for k in kinds if k == "valid"]
+
+
+def test_malformed_lengths_against_the_jax_device_graph(jfn):
+    """Lengths outside [0, ml], through the JAX package's verify_batch
+    (its XLA graph at the module's one jitted shape, 16 x 1232: the rows
+    past these four and the bytes past a row's ml are zero, the bytes
+    lane 0's hash reads), the port's three layouts and both host
+    verifiers, on these lanes (ml = 64):
+      0: len = ml + 16, signed over the row's bytes and 16 zero bytes;
+      1: len = -1, signed over the empty message;
+      2: len = 2^31 - 1, signed over the row's ml bytes;
+      3: len = ml, a valid signature.
+    The port and both host verifiers clamp a length to [0, ml] (no kernel
+    reads past its row): lanes 1-3 accept, lane 0 rejects.  The JAX
+    device graph does not clamp: it hashes past the row (zeros) for lane
+    0 and accepts it; it hashes a 63-byte prefix of R || A for lane 1 and
+    a wrapped int32 length for lane 2, and rejects both.  That is a fault
+    of the reference (its device graph disagrees with its own host
+    verifier), pinned here as it stands until both packages settle it
+    together (ROADMAP section 3)."""
+    ml = SLICE_ML
+    seed = bytes(range(32))
+    pub = ed.keypair_from_seed(seed)[0]
+    msg = np.random.default_rng(8).bytes(ml)
+    rows = [(ml + 16, ed.sign(seed, msg + bytes(16))),
+            (-1, ed.sign(seed, b"")),
+            (2**31 - 1, ed.sign(seed, msg)),
+            (ml, ed.sign(seed, msg))]
+    n = len(rows)
+    msgs = np.tile(np.frombuffer(msg, np.uint8), (n, 1))
+    lens = np.array([ln for ln, _ in rows], np.int32)
+    sigs = np.array([list(sg) for _, sg in rows], np.uint8)
+    pubs = np.tile(np.frombuffer(pub, np.uint8), (n, 1))
+    blob = tv.pack_blob(msgs, lens, sigs, pubs)
+    clamped = [False, True, True, True]
+    assert ed.host_verify_blob(blob) == clamped
+    assert jver.host_verify_blob(blob).tolist() == clamped
+    for tail in ed.TAILS:
+        assert ed.verify_blob(torch.from_numpy(blob),
+                              tail=tail).tolist() == clamped, tail
+    assert jfn(msgs, lens, sigs, pubs).tolist() == [True, False,
+                                                           False, True]
+
 
 
 def make_signed_txn(rng: random.Random, nonce: int, nsig: int = 1,

@@ -1,27 +1,22 @@
 """The strict finish (firedancer_tpu_torch/ops/r_check.py) on the CPU, where
 r_check runs its plain version, and the three strict layouts that end
-with it, against the JAX package.
+with it.
 
-Seeded rows (adversarial lanes and ragged valid ones) go through the
-port's verify_blob in each layout, the JAX package's jitted verify_batch
-(one compile, at the shape tests/test_torch_verify.py compiles) and both
-host verifiers; the 1,443 Wycheproof / CCTV / malleability vectors go
-through each layout against their golden bits.  The kernel against the
+The 1,443 Wycheproof / CCTV / malleability vectors go through each
+layout against their golden bits; the finish's forms and arguments are
+checked.  The layouts against the JAX package's jitted verify_batch and
+both host verifiers on seeded rows are tests/test_torch_verify.py's (the
+strict slice's one compile of the JAX reference); the kernel against the
 plain version is tests/test_torch_kernels.py's (marked gpu).
 """
 
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from firedancer_tpu.models import verifier as jver
-from firedancer_tpu.ops import ed25519 as jed
-from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import ed25519 as ed
 from firedancer_tpu_torch.ops import f25519 as fe
@@ -30,35 +25,6 @@ from _torch_threads import one_torch_thread  # noqa: F401
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 BATCH, MAXLEN = 16, 64
-
-
-@pytest.fixture(scope="module")
-def rows():
-    """Adversarial lanes, then ragged valid ones, as a packed blob, with
-    the JAX package's jitted verify_batch bits."""
-    msgs, lens, sigs, pubs, kinds = tv.make_adversarial_batch(BATCH, MAXLEN,
-                                                              seed=17)
-    m2, l2, s2, p2 = tv.make_example_batch(
-        BATCH - 11, MAXLEN, True, 18,
-        lens=np.random.default_rng(19).integers(0, MAXLEN + 1, BATCH - 11))
-    msgs[11:], lens[11:], sigs[11:], pubs[11:] = m2, l2, s2, p2
-    kinds[11:] = ["valid"] * (BATCH - 11)
-    want = np.asarray(jax.jit(jed.verify_batch)(
-        jnp.asarray(msgs), jnp.asarray(lens), jnp.asarray(sigs),
-        jnp.asarray(pubs)))
-    return tv.pack_blob(msgs, lens, sigs, pubs), kinds, want
-
-
-@pytest.mark.parametrize("tail", ed.TAILS)
-def test_layouts_match_jax_verify_batch_and_host(rows, tail):
-    blob_np, kinds, want = rows
-    got = ed.verify_blob(interop.blob_from_numpy(blob_np, "cpu"),
-                         tail=tail).tolist()
-    assert got == want.tolist()
-    assert got == ed.host_verify_blob(blob_np)
-    assert got == jver.host_verify_blob(blob_np).tolist()
-    assert [k for k, b in zip(kinds, got) if b] == [
-        k for k in kinds if k == "valid"]
 
 
 def _corpus_blob():

@@ -9,7 +9,10 @@ part divides, though the strict rules reject it (ROADMAP section 3).
 The JAX function runs under jax.jit, as every caller runs it (used
 eagerly it crashes this jaxlib's CPU compiler, see
 tests/test_ed25519_rlc.py).  Its one compile, shared by the module, takes
-minutes on a CPU host: this file holds nothing else.
+minutes on a CPU host: this file holds nothing else.  Each batch is a
+case a select, so the module's many cases put it early in a
+file-by-file schedule of workers (pytest-xdist's loadfile orders files
+by their count of tests), where its compile overlaps the others'.
 """
 
 import functools
@@ -60,25 +63,27 @@ def jax_rlc():
     return jax.jit(functools.partial(jed.verify_batch_rlc, m=M))
 
 
+@pytest.mark.parametrize("select", SELECTS)
 @pytest.mark.parametrize("name", list(BATCHES))
-def test_verify_batch_rlc_matches_jax(jax_rlc, name):
+def test_verify_batch_rlc_matches_jax(jax_rlc, name, select):
     arrs = BATCHES[name]()
     z = np.random.default_rng(len(name)).integers(0, 256, (BATCH, 16),
                                                   np.uint8)
     want_ok, want_pre = (np.asarray(t) for t in jax_rlc(*arrs, z))
     args = interop.batch_from_numpy(*arrs, "cpu")
-    for select in SELECTS:
-        ok, pre = ed.verify_batch_rlc(*args, torch.from_numpy(z), m=M,
-                                      select=select)
-        assert bool(ok) == bool(want_ok), select
-        assert pre.tolist() == want_pre.tolist(), select
+    ok, pre = ed.verify_batch_rlc(*args, torch.from_numpy(z), m=M,
+                                  select=select)
+    assert bool(ok) == bool(want_ok)
+    assert pre.tolist() == want_pre.tolist()
     assert bool(want_ok) == (name == "clean")
     if name == "noncanonical_s":
         assert want_pre.tolist() == [i != 3 for i in range(BATCH)]
 
 
+@pytest.mark.parametrize("select", SELECTS)
 @pytest.mark.parametrize("z_low", [0, 1])
-def test_mixed_order_r_passes_under_even_z_in_both_packages(jax_rlc, z_low):
+def test_mixed_order_r_passes_under_even_z_in_both_packages(jax_rlc, z_low,
+                                                            select):
     """cctv vector 388: R has a part of order 2 and the residual [S]B - R
     - [k]A is that part, so the batch equation holds for every even z."""
     with open(os.path.join(os.path.dirname(__file__), "golden",
@@ -96,11 +101,10 @@ def test_mixed_order_r_passes_under_even_z_in_both_packages(jax_rlc, z_low):
     want_ok, want_pre = (np.asarray(t) for t in jax_rlc(msgs, lens, sigs,
                                                         pubs, z))
     args = interop.batch_from_numpy(msgs, lens, sigs, pubs, "cpu")
-    for select in SELECTS:
-        ok, pre = ed.verify_batch_rlc(*args, torch.from_numpy(z), m=M,
-                                      select=select)
-        assert bool(ok) == bool(want_ok), select
-        assert pre.tolist() == want_pre.tolist(), select
+    ok, pre = ed.verify_batch_rlc(*args, torch.from_numpy(z), m=M,
+                                  select=select)
+    assert bool(ok) == bool(want_ok)
+    assert pre.tolist() == want_pre.tolist()
     assert want_pre.all() and not vec["ok"]
     assert not ed.verify_one_host(sig, msg, pub)
     assert bool(want_ok) == (z_low == 0)

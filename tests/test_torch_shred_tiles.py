@@ -179,6 +179,13 @@ def test_lane_tiles_under_the_mux_equal_the_jax_tiles():
             for n in names:
                 _wait(lambda: jt.cnc[n].signal_query() == Cnc.SIGNAL_RUN,
                       120, f"{n} RUN")
+            # the child counts the shred tile's datagrams only: its port
+            # is ephemeral on the loopback, where other tests send too
+            # (one stray datagram stands for them)
+            sender = ("127.0.0.1", vts["shred"].tsock.port)
+            stray = UdpSock(bind_ip="127.0.0.1")
+            stray.sock.sendto(b"stray", ("127.0.0.1", child.port))
+            stray.close()
             lnk = jt.links["net"]
             chunk = lnk.dcache.chunk0
             for f in frags:
@@ -195,9 +202,14 @@ def test_lane_tiles_under_the_mux_equal_the_jax_tiles():
 
             _wait(done, 120, "every set recovered and the slot stored")
             got_udp = []
-            _wait(lambda: got_udp.extend(child.recv_burst()) or len(got_udp)
-                  >= jt.metrics["shred"].snapshot()["turbine_tx_cnt"], 30,
-                  "the retransmits")
+
+            def retransmits():
+                got_udp.extend(p for p in child.recv_burst()
+                               if tuple(p.addr) == sender)
+                return len(got_udp) >= jt.metrics["shred"].snapshot()[
+                    "turbine_tx_cnt"]
+
+            _wait(retransmits, 30, "the retransmits")
             for n in names:
                 jt.cnc[n].signal(Cnc.SIGNAL_HALT)
             for th in ths:

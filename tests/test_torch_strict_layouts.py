@@ -1,20 +1,20 @@
 """The three strict layouts on the CPU (the kernels' plain versions):
 verify_batch(tail="fused" | "split" | "unfused") and
 SigVerifier(strict_tail=...) give the same bits, those of the host
-verifier and of the golden corpora; and the JAX package's device graph
-on malformed message lengths, beside the port and both host verifiers.
+verifier and of the golden corpora.  The JAX package's device graph on
+malformed message lengths, beside the port and both host verifiers, is
+tests/test_torch_verify.py's (the strict slice's one compile of the JAX
+reference).
 """
 
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from firedancer_tpu.models import verifier as jver
-from firedancer_tpu.ops import ed25519 as jed
 from firedancer_tpu_torch import interop
 from firedancer_tpu_torch.models import verifier as tv
 from firedancer_tpu_torch.ops import decompress as dc
@@ -116,45 +116,3 @@ def test_sig_verifier_surfaces_in_each_layout(tail):
     assert rver._fn.keywords == {"tail": tail}
     bits = np.asarray(rver(clean[0], clean[1], bad, clean[3]))
     assert bits.tolist() == [i != 9 for i in range(16)]
-
-
-def test_malformed_lengths_against_the_jax_device_graph():
-    """Lengths outside [0, ml], through the JAX package's verify_batch run
-    eagerly (its XLA graph, not jitted), the port's three layouts and
-    both host verifiers, on these lanes (ml = 64):
-      0: len = ml + 16, signed over the row's bytes and 16 zero bytes;
-      1: len = -1, signed over the empty message;
-      2: len = 2^31 - 1, signed over the row's ml bytes;
-      3: len = ml, a valid signature.
-    The port and both host verifiers clamp a length to [0, ml] (no kernel
-    reads past its row): lanes 1-3 accept, lane 0 rejects.  The JAX
-    device graph does not clamp: it hashes past the row (zeros) for lane
-    0 and accepts it; it hashes a 63-byte prefix of R || A for lane 1 and
-    a wrapped int32 length for lane 2, and rejects both.  That is a fault
-    of the reference (its device graph disagrees with its own host
-    verifier), pinned here as it stands until both packages settle it
-    together (ROADMAP section 3)."""
-    ml = 64
-    seed = bytes(range(32))
-    pub = ed.keypair_from_seed(seed)[0]
-    msg = np.random.default_rng(8).bytes(ml)
-    rows = [(ml + 16, ed.sign(seed, msg + bytes(16))),
-            (-1, ed.sign(seed, b"")),
-            (2**31 - 1, ed.sign(seed, msg)),
-            (ml, ed.sign(seed, msg))]
-    n = len(rows)
-    msgs = np.tile(np.frombuffer(msg, np.uint8), (n, 1))
-    lens = np.array([ln for ln, _ in rows], np.int32)
-    sigs = np.array([list(sg) for _, sg in rows], np.uint8)
-    pubs = np.tile(np.frombuffer(pub, np.uint8), (n, 1))
-    blob = tv.pack_blob(msgs, lens, sigs, pubs)
-    clamped = [False, True, True, True]
-    assert ed.host_verify_blob(blob) == clamped
-    assert jver.host_verify_blob(blob).tolist() == clamped
-    for tail in ed.TAILS:
-        assert ed.verify_blob(torch.from_numpy(blob),
-                              tail=tail).tolist() == clamped, tail
-    device = np.asarray(jed.verify_batch(
-        jnp.asarray(msgs), jnp.asarray(lens), jnp.asarray(sigs),
-        jnp.asarray(pubs)))
-    assert device.tolist() == [True, False, False, True]

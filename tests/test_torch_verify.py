@@ -1,19 +1,20 @@
 """The port's verify slice as a whole, on the CPU (the kernels' plain
-versions), against the JAX package.
+versions).
 
-One jitted ed.verify_batch shape (batch 16, maxlen 64) is the reference
-for the packed-blob path: a module fixture compiles it once.  The real
-conformance corpora (1,443 vectors) go through the port's verify_batch
-and must give their golden bits and agree with the JAX package's host
-verifier.  The serving surface (SigVerifier, its verdict future, device
-resolution) is checked here too.
+The real conformance corpora (1,443 vectors) go through the port's
+verify_batch and must give their golden bits and agree with the JAX
+package's host verifier; zero rows and malformed lengths reject or clamp
+as the host verifiers do; CPU tensors take the plain versions; device
+resolution raises without a card.  The slice against the JAX package's
+jitted verify_batch (the packed-blob path, the SigVerifier surfaces, the
+three strict layouts, malformed lengths against the device graph) is
+tests/test_torch_pipeline.py's, beside the pipeline, so that one compile
+of the JAX reference serves every strict comparison.
 """
 
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,56 +29,6 @@ from firedancer_tpu_torch.ops import verify_tail as vt
 from _torch_threads import one_torch_thread  # noqa: F401
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-BATCH, MAXLEN = 16, 64
-
-
-@pytest.fixture(scope="module")
-def slice_batch():
-    """Adversarial lanes plus ragged valid ones, with the JAX package's
-    jitted verify_batch bits (one compile for the module)."""
-    msgs, lens, sigs, pubs, kinds = tv.make_adversarial_batch(BATCH, MAXLEN)
-    rng = np.random.default_rng(11)
-    ragged = rng.integers(0, MAXLEN + 1, BATCH - 11).astype(np.int32)
-    m2, l2, s2, p2 = tv.make_example_batch(BATCH - 11, MAXLEN, True, 12,
-                                           lens=ragged)
-    msgs[11:], lens[11:], sigs[11:], pubs[11:] = m2, l2, s2, p2
-    kinds[11:] = ["valid"] * (BATCH - 11)
-    want = np.asarray(jax.jit(jed.verify_batch)(
-        jnp.asarray(msgs), jnp.asarray(lens), jnp.asarray(sigs),
-        jnp.asarray(pubs)))
-    return msgs, lens, sigs, pubs, kinds, want
-
-
-def test_verify_blob_matches_jax_verify_batch(slice_batch):
-    msgs, lens, sigs, pubs, kinds, want = slice_batch
-    blob_np = tv.pack_blob(msgs, lens, sigs, pubs)
-    got = ed.verify_blob(interop.blob_from_numpy(blob_np, "cpu")).numpy()
-    assert got.tolist() == want.tolist()
-    assert [k for k, w in zip(kinds, want) if w] == [
-        k for k in kinds if k == "valid"]
-    assert got.tolist() == ed.host_verify_blob(blob_np)
-    assert got.tolist() == jver.host_verify_blob(blob_np).tolist()
-
-
-def test_verify_batch_four_arrays_matches_blob(slice_batch):
-    msgs, lens, sigs, pubs, _, want = slice_batch
-    got = ed.verify_batch(*interop.batch_from_numpy(msgs, lens, sigs, pubs,
-                                                    "cpu"))
-    assert got.numpy().tolist() == want.tolist()
-
-
-def test_sig_verifier_dispatch_surfaces(slice_batch):
-    msgs, lens, sigs, pubs, _, want = slice_batch
-    ver = tv.SigVerifier(tv.VerifierConfig(BATCH, MAXLEN), device="cpu")
-    blob = tv.pack_blob(msgs, lens, sigs, pubs)
-    for verdict in (ver.dispatch_blob(blob), ver(msgs, lens, sigs, pubs),
-                    ver.packed_dispatch(msgs, lens, sigs, pubs)):
-        assert verdict.is_ready()
-        verdict.copy_to_host_async()
-        assert np.asarray(verdict).tolist() == want.tolist()
-    with pytest.raises(ValueError):
-        ver.dispatch_blob(np.zeros((BATCH + 1, MAXLEN + ed.PACKED_EXTRA),
-                                   np.uint8))
 
 
 def test_padding_rows_and_malformed_lengths_reject():
