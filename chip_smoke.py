@@ -47,7 +47,13 @@ antipa_tail kernel against its plain version and the host on edge lanes
 fed digests directly, SigVerifier(mode="antipa") at the serving
 buckets against strict and the host twin (sha512 and antipa_tail
 kernels), the engine, and a verify tile with FDTPU_VERIFY_MODE=antipa
-on wire txns and torsion forgeries.  Each path runs with the launch counts set to 0
+on wire txns and torsion forgeries.  Then the leader's tail (phase 19):
+leader-bench with two fee-payer pack shards and the merge tile, poh_dev
+at the clock defaults, the shred tile's leader role cutting signed 32:32
+FEC sets (the sign tile holding the key, the parity on the GF(2)
+kernel) into a store, and a follower shred tile admitting every shred on
+the card into shred_recover and its own store, in spawned processes
+(launches read from the tiles' drain manifests).  Each path runs with the launch counts set to 0
 just before it and read just after.  Then it times the kernels, their plain versions, the torch
 finishes and the whole calls, and counts launches under torch.profiler.
 Every time is printed beside the card's name and power limit.  The
@@ -4368,6 +4374,317 @@ def _host_blob_antipa(blob):
     return V.host_verify_blob(blob, mode="antipa")
 
 
+# ---- phase 19: the leader's tail ----------------------------------------
+
+def _archived(path) -> dict:
+    """slot -> (entry-batch bytes, entries) of every slot a store's
+    SlotArchive holds."""
+    from firedancer_tpu_torch.ballet import entry as entry_lib
+    from firedancer_tpu_torch.flamenco.blockstore import SlotArchive
+    arch = SlotArchive(str(path))
+    try:
+        return {s: (arch.get(s), entry_lib.deserialize_batch(arch.get(s)))
+                for s in arch.slots()}
+    finally:
+        arch.close()
+
+
+def leader_tail_spec(tag, device, hpt, tps, n_src, seed, workdir, key_path,
+                     keys):
+    """Phase 19's topology: leader-bench with [leader] pack_shards = 2 at
+    hpt x tps (source -> verify -> leader_pack:0..1 -> leader_merge ->
+    poh_dev -> sink, the sink capturing every entry poh_dev publishes),
+    and the leader's tail beside the sink on poh_dev's link: shred (the
+    leader role, 32:32) <-> sign, shred -> store; the shred tile's second
+    fan-out link is the net in-link of a follower shred tile whose
+    turbine stakes only the leader (its admission on the card) ->
+    shred_recover -> sink, and -> its own store.  Both stores archive
+    their complete slots.  Returns (cfg, spec)."""
+    from firedancer_tpu_torch.app import config as app_config
+    from firedancer_tpu_torch.disco import topo as topo_mod
+    cfg = app_config.load(environ={})
+    cfg["name"] = tag
+    cfg["topology"] = "leader-bench"
+    cfg["development"]["source_count"] = n_src
+    cfg["development"]["bench_seed"] = seed
+    cfg["tiles"]["verify"]["device"] = device or ""
+    cfg["leader"].update(pack_shards=2, hashes_per_tick=hpt,
+                         ticks_per_slot=tps, device=device or "",
+                         capture_path=str(workdir / "entries.cap"))
+    cfg["supervision"]["drain_timeout_s"] = 120.0
+    front = app_config.build_topology(cfg)
+    ext = {"device": device or None}
+    follower = {"identity": keys["me"].hex(), "fanout": 200, "port": 0,
+                "slots_per_epoch": 432_000,
+                "stakes": {keys["leader"].hex(): [1000, "", 0],
+                           keys["me"].hex(): [0, "", 0]}}
+    L, T, IL = topo_mod.LinkSpec, topo_mod.TileSpec, topo_mod.InLink
+    links = (L("shred_sign", 16, 128), L("sign_shred", 16, 128),
+             L("s_store", 4096, 1280), L("s_net", 4096, 1280),
+             L("f_store", 4096, 1280), L("f_rec", 4096, 1280),
+             L("r_sink", 64, 32768))
+    tiles = (
+        T("shred", "shred", (IL("poh_sink"),),
+          ("shred_sign", "s_store", "s_net"),
+          {"fec_data_cnt": SHRED_K, **ext}),
+        T("sign", "sign", (IL("shred_sign"),), ("sign_shred",),
+          {"key_path": str(key_path)}),
+        T("store", "store", (IL("s_store"),), (),
+          {"max_slots": 64, "archive_path": str(workdir / "leader.slots"),
+           **ext}),
+        T("fshred", "shred", (IL("s_net"),), ("f_store", "f_rec"),
+          {"net_ins": ["s_net"], "turbine": follower,
+           "sig_backend": "device", **ext}),
+        T("fstore", "store", (IL("f_store"),), (),
+          {"max_slots": 64,
+           "archive_path": str(workdir / "follower.slots"), **ext}),
+        T("frec", "shred_recover", (IL("f_rec"),), ("r_sink",), dict(ext)),
+        T("rsink", "sink", (IL("r_sink"),), (),
+          {"capture_path": str(workdir / "recovered.cap")}))
+    spec = topo_mod.TopoSpec(front.app, front.links + links,
+                             front.tiles + tiles, wksp_mb=160).validate()
+    return cfg, spec
+
+
+def leader_tail_phase(reset_counts, counts, note, device=None,
+                      hpt=POH_HASHES_PER_TICK, tps=POH_TICKS_PER_SLOT,
+                      n_src=512, seed=2, slots=2, workdir=None):
+    """Phase 19: the leader's tail in spawned processes (leader_tail_spec):
+    verified txns through the sharded pack and its merge into poh_dev's
+    chain, cut into signed 32:32 FEC sets (each root signed by the sign
+    tile through the keyguard, each set's parity one launch of the GF(2)
+    kernel), stored, and admitted by a follower on the card (sha512,
+    verify_tail, r_check and bmtree_walk) into shred_recover (GF(2)) and
+    its own store.  It runs until `slots` slots are complete in both
+    stores and every txn is in the chain, then drain()s.  Checks: both
+    archives hold every slot poh_dev published, complete, each slot's
+    entries byte for byte the captured ones, the chain re-verifies from
+    the seed, the recovered set payloads are the follower's slot bytes;
+    sign_cnt == fec_set_cnt, refuse_cnt 0, the follower's
+    shred_sig_fail_cnt 0, the shards' sched_txn_cnt sum to the accepted
+    txns (both shards scheduled some), drain() True, every exit code 0;
+    on the card the tiles' drain manifests count one gf2_recover launch
+    a set in the leader's shred process, poh_spans and mixin_tree as
+    15d, and as many bmtree_walk, sha512_ram, verify_tail and r_check
+    launches as admission bursts in the follower's.  It prints the
+    slot's wall time (the leader store's complete_slot polled every 5
+    ms), each set's cut in the tile (make_fec_set with its signing) and
+    the keyguard round trip (both from the tile's drain manifest), a
+    set's cut in this process (make_fec_set with a fixed signature)
+    against its encode launch's device time (CUDA events), and shreds a
+    second into the leader's store over the measured slot.  device None
+    is the card.  The default seed's four source keys split two and two
+    between the shards' fee-payer partitions.  Returns the numbers for
+    the kernels record.  Raises on any failed check."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from firedancer_tpu_torch.ballet import entry as entry_lib
+    from firedancer_tpu_torch.ballet import shred as sl
+    from firedancer_tpu_torch.disco import keyguard
+    from firedancer_tpu_torch.disco.leader_tiles import PohDevTile
+    from firedancer_tpu_torch.disco.run import SupervisionPolicy, TopoRun
+    from firedancer_tpu_torch.disco.tiles import read_capture
+    from firedancer_tpu_torch.ops import gf2_recover as gf2
+
+    tag = f"cs{os.getpid()}t"
+    t_phase = time.perf_counter()
+    own_dir = workdir is None
+    workdir = Path(workdir or tempfile.mkdtemp(prefix="fdtpu_phase19_"))
+    keys = shred_keys()
+    kpath = workdir / "leader.json"
+    keyguard.keypair_write(str(kpath), LEADER_SEED, keys["leader"])
+    cfg, spec = leader_tail_spec(tag, device, hpt, tps, n_src, seed,
+                                 workdir, kpath, keys)
+    _shm_check(spec.wksp_mb << 20, note)
+    old_env = {k: os.environ.get(k)
+               for k in ("OMP_NUM_THREADS", "FDTPU_DRAIN_DIR")}
+    os.environ["OMP_NUM_THREADS"] = "1"
+    # each tile's drain manifest: the shred tiles', poh_dev's and
+    # shred_recover's record their kernel launches
+    os.environ["FDTPU_DRAIN_DIR"] = str(workdir / "drain")
+    done_at = {}       # leader store's complete_slot -> (time, stored)
+    try:
+        t0 = time.perf_counter()
+        run = TopoRun(spec, policy=SupervisionPolicy.from_cfg(cfg))
+        try:
+            run.wait_ready(timeout=cfg["supervision"]["boot_grace_s"])
+            t_boot = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            packs = [t.name for t in spec.tiles if t.kind == "leader_pack"]
+
+            def tail_done():
+                sm = run.metrics("store")
+                done_at.setdefault(sm["complete_slot"], (
+                    time.perf_counter(), sm["shred_store_cnt"]))
+                v = run.metrics("verify:0")
+                sched = sum(run.metrics(p)["sched_txn_cnt"] for p in packs)
+                return (v["verify_pass_cnt"] == n_src and sched == n_src
+                        and run.metrics("poh_dev")["mixin_cnt"]
+                        == run.metrics("leader_merge")["mb_merge_cnt"]
+                        and sm["complete_slot"] >= slots
+                        and run.metrics("fstore")["complete_slot"] >= slots)
+
+            _wait_for(tail_done, 600, f"{slots} slots stored by both "
+                      f"stores and every txn in the chain", run)
+            t_run = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            drained = run.drain()
+            t_drain = time.perf_counter() - t0
+            m = {t.name: run.metrics(t.name) for t in spec.tiles}
+            man = {n: run._load_drain_manifest(n)["tile_state"]
+                   for n in ("shred", "fshred", "poh_dev", "frec")}
+        finally:
+            run.close()
+    finally:
+        for k, val in old_env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    if not drained or set(run.exitcodes.values()) != {0}:
+        raise AssertionError(f"phase 19: drain() {drained}, exit codes "
+                             f"{run.exitcodes}")
+    done_bit = PohDevTile.SLOT_DONE_BIT
+    recs = read_capture(str(workdir / "entries.cap"))
+    cap = {}
+    for s, p in recs:
+        cap.setdefault(s & ~done_bit, []).append(p)
+    ents = [entry_lib.Entry.deserialize(p)[0] for _, p in recs]
+    chain_ok = entry_lib.verify_chain(bytes(32), ents)
+    lead, foll = (_archived(workdir / f"{w}.slots")
+                  for w in ("leader", "follower"))
+    bad = [(w, s) for w, arch in (("leader", lead), ("follower", foll))
+           for s in sorted(set(arch) | set(cap))
+           if s not in arch or s not in cap
+           or [e.serialize() for e in arch[s][1]] != cap[s]]
+    rec = {}
+    for s, p in read_capture(str(workdir / "recovered.cap")):
+        rec.setdefault(s, []).append(p)
+    rec_bad = [s for s in rec if s not in foll
+               or b"".join(rec[s]) != foll[s][0]]
+    sh, fsh, gm = m["shred"], m["fshred"], m["sign"]
+    sched = [m[p]["sched_txn_cnt"] for p in packs]
+    on_card = device is None
+    la, fl = man["shred"]["launches"], man["fshred"]["launches"]
+    pl = man["poh_dev"]["launches"]
+    n_sets = sh["fec_set_cnt"]
+    if not (chain_ok and not bad and not rec_bad and len(lead) >= slots
+            and gm["sign_cnt"] == n_sets > 0 and gm["refuse_cnt"] == 0
+            and sh["unshred_entry_cnt"] == 0
+            and m["store"]["parse_fail_cnt"] == 0
+            and fsh["shred_sig_fail_cnt"] == 0
+            and fsh["shred_rx_cnt"] == sh["shred_tx_cnt"] // 2
+            and m["frec"]["fec_fail_cnt"] == 0
+            and m["frec"]["fec_host_fallback_cnt"] == 0
+            and sum(sched) == m["verify:0"]["verify_pass_cnt"] == n_src
+            and min(sched) > 0
+            and m["leader_merge"]["drain_drop_cnt"] == 0
+            and (not on_card or (
+                la["gf2_recover"] == man["shred"]["fec_set_cnt"] > 0
+                and pl["poh_spans"] == (man["poh_dev"]["dispatch_cnt"]
+                                        + man["poh_dev"][
+                                            "splice_dispatch_cnt"])
+                and pl["mixin_tree"] == man["poh_dev"]["splice_dispatch_cnt"]
+                and fl["bmtree_walk"] == fl["sha512_ram"]
+                == fl["verify_tail"] == fl["r_check"]
+                == man["fshred"]["sig_batch_cnt"] > 0
+                and man["frec"]["launches"]["gf2_recover"]
+                == man["frec"]["fec_dispatch_cnt"] + 1))):
+        raise AssertionError(
+            f"phase 19: chain {chain_ok}, slots captured {sorted(cap)}, "
+            f"leader archive {sorted(lead)}, follower {sorted(foll)}, "
+            f"differing {bad}, recovered differing {rec_bad}; shred {sh}, "
+            f"sign {gm}, follower {fsh}, recover {m['frec']}, shards "
+            f"{sched}, verify {m['verify:0']}; at the drain {man}")
+    # the slot's wall time and the store's shred rate over the last slot
+    # whose close and its predecessor's the poll both saw (slot 1's close
+    # includes the boot's tail)
+    pairs = [s for s in sorted(done_at) if s > 1 and s - 1 in done_at]
+    t_slot = shreds_s = None
+    if pairs:
+        (t_a, n_a), (t_b, n_b) = done_at[pairs[-1] - 1], done_at[pairs[-1]]
+        t_slot = t_b - t_a
+        shreds_s = (n_b - n_a) / t_slot
+    sign_us = [ns / 1e3 for ns in man["shred"]["sign_ns"]]
+    cut_ms = [ns / 1e6 for ns in man["shred"]["cut_ns"]]
+    # one set's cut in this process at the tile's batch_max, a fixed
+    # signature in place of the keyguard, against its encode launch
+    batch, size = [], 0
+    for p in (p for s in sorted(cap) for p in cap[s]):
+        batch.append(entry_lib.Entry.deserialize(p)[0])
+        size += len(p)
+        if size >= 16 << 10:
+            break
+    blob = entry_lib.serialize_batch(batch)
+    sig64 = bytes(64)
+
+    def cut():
+        return sl.make_fec_set(blob, 1, 1, 1, 0, lambda r: sig64,
+                               data_cnt=SHRED_K, code_cnt=SHRED_K,
+                               torch_device=device)
+
+    reset_counts()
+    for _ in range(3):
+        cut()
+    walls = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        cut()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    cut_here = statistics.median(walls)
+    enc_ms = _launch_ms(torch, gf2, "gf2_recover", cut)
+    n_cut = counts()["gf2_recover"]
+    if on_card and n_cut != 2 * (3 + RUNS):
+        raise AssertionError(f"phase 19: {2 * (3 + RUNS)} cuts launched "
+                             f"gf2_recover {n_cut} times")
+    launches = {"shred.gf2_recover": la.get("gf2_recover", 0),
+                "frec.gf2_recover": man["frec"]["launches"]["gf2_recover"],
+                "poh_spans": pl["poh_spans"], "mixin_tree": pl["mixin_tree"],
+                **{f"fshred.{k}": fl.get(k, 0) for k in (
+                    "sha512_ram", "verify_tail", "r_check", "bmtree_walk")}}
+    note(f"phase 19: the leader's tail in processes (leader-bench, "
+         f"pack_shards 2, poh_dev at {hpt} x {tps}, 32:32 sets): {n_src} "
+         f"txns accepted and scheduled once each by the two shards "
+         f"({sched[0]} + {sched[1]}), merged ({m['leader_merge']['mb_merge_cnt']}"
+         f" microblocks, {m['leader_merge']['merge_budget_defer_cnt']} "
+         f"deferred), {len(ents)} entries in {len(cap)} slots re-verify "
+         f"from the seed; {n_sets} FEC sets, sign_cnt {gm['sign_cnt']}, "
+         f"refuse_cnt {gm['refuse_cnt']}; both archives hold slots "
+         f"{sorted(lead)} complete, each slot's entries byte for byte "
+         f"poh_dev's, the last cut by the drain; the follower admitted "
+         f"{fsh['shred_rx_cnt']} shreds in {fsh['sig_batch_cnt']} bursts, "
+         f"shred_sig_fail {fsh['shred_sig_fail_cnt']}; shred_recover's "
+         f"{sum(map(len, rec.values()))} set payloads == the follower's "
+         f"slot bytes; drain() True in {t_drain:.3f} s, every tile exited "
+         f"0; boot {t_boot:.3f} s, run {t_run:.3f} s; launches in the "
+         f"tiles' processes (drain manifests) {launches}")
+    slot_txt = ("the poll saw no two consecutive slots close: slot wall "
+                "time and shred rate not measured" if t_slot is None else
+                f"slot {pairs[-1]} closed {t_slot:.4f} s after slot "
+                f"{pairs[-1] - 1} in the leader's store (Agave's slot "
+                f"{AGAVE_SLOT_MS:.0f} ms); {shreds_s:.1f} shreds a second "
+                f"into the leader's store over it")
+    note(f"phase 19: {slot_txt}; a set's cut in the shred tile, "
+         f"signing included: median {statistics.median(cut_ms):.4f} ms, "
+         f"max {max(cut_ms):.4f} ms over {len(cut_ms)} sets; the keyguard "
+         f"round trip: median {statistics.median(sign_us):.1f} us, max "
+         f"{max(sign_us):.1f} us; in this process a set of "
+         f"{len(blob)} bytes ({len(batch)} entries) cut by make_fec_set "
+         f"with a fixed signature {cut_here:.4f} ms (median of {RUNS}), "
+         f"its encode launch {_ms_text(enc_ms)} of device time")
+    if own_dir:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = {"launches": launches, "fec_sets": n_sets, "t_slot": t_slot,
+           "shreds_s": shreds_s, "cut_ms": statistics.median(cut_ms),
+           "sign_us": statistics.median(sign_us), "cut_here_ms": cut_here,
+           "encode_ms": enc_ms, "phase_s": time.perf_counter() - t_phase}
+    note(f"phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5491,6 +5808,10 @@ def main() -> int:
         # buckets, the engine and a verify tile in antipa mode
         anti = antipa_phase(pool, reset_counts, counts, note, cuda_ms,
                             dev_ms, int_ops_per_s, buckets=buckets)
+    # ---- phase 19: the leader's tail: the sharded pack, poh_dev, the
+    # shred tile's leader role with the sign tile, the stores and a
+    # follower admitting every shred on the card
+    tail = leader_tail_phase(reset_counts, counts, note)
 
     # ---- the kernels record: the strict kernels at the serving bucket
     # (the first, where their plain versions were timed), the RLC kernels
@@ -5613,7 +5934,12 @@ def main() -> int:
          "library_ms": shred["c_lib"],
          "library": "torch.bmm fp16, the product alone",
          "device_ms_by": "CUDA events around each launch",
-         "shape": f"{SHRED_BATCH_SETS} sets x 32:32 x {SHRED_SZ} bytes"},
+         "shape": f"{SHRED_BATCH_SETS} sets x 32:32 x {SHRED_SZ} bytes",
+         "leader_tail_launches": {
+             "shred": tail["launches"]["shred.gf2_recover"],
+             "shred_recover": tail["launches"]["frec.gf2_recover"]},
+         "leader_tail_fec_sets": tail["fec_sets"],
+         "leader_tail_encode_ms": tail["encode_ms"]},
         {"name": "bmtree_walk", "route": "cuda",
          "source": "firedancer_tpu_torch/csrc/bmtree_walk.cu",
          "replaces": "firedancer_tpu/ballet/bmtree.py:84 batch_walk_roots",
@@ -5623,7 +5949,8 @@ def main() -> int:
          "bound_ms": shred["d_bound"][0], "bound_by": shred["d_bound"][1],
          "bound_term": shred["d_term"], "library_ms": None,
          "device_ms_by": "CUDA events around each launch",
-         "shape": f"{SIG_BATCH} shreds of a 32:32 set (depth 6)"}]
+         "shape": f"{SIG_BATCH} shreds of a 32:32 set (depth 6)",
+         "leader_tail_launches": tail["launches"]["fshred.bmtree_walk"]}]
     # the antipa mode's hand kernel (the JAX package runs these steps as
     # XLA device code); launches from phase 18b's dispatches, times at
     # 4096 x 128 (plain there) and 32768 x 128
@@ -5644,6 +5971,15 @@ def main() -> int:
          "dispatch_ms": {k: {"antipa": v["dispatch_antipa_ms"],
                              "strict": v["dispatch_strict_ms"]}
                          for k, v in anti["times"].items()}})
+    # phase 19's launches in the tail's processes (the follower's
+    # admission, poh_dev) beside each row's own
+    for row in kernels:
+        key = {"poh_spans": "poh_spans", "mixin_tree": "mixin_tree",
+               "sha512_ram": "fshred.sha512_ram",
+               "verify_tail": "fshred.verify_tail",
+               "r_check": "fshred.r_check"}.get(row["name"])
+        if key is not None:
+            row["leader_tail_launches"] = tail["launches"][key]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -5800,7 +6136,42 @@ def antipa_only() -> int:
     return 0
 
 
+def leader_tail_only() -> int:
+    """Phase 19 alone: python3 chip_smoke.py --phase 19.  Builds the
+    kernels, runs leader_tail_phase on the card and prints its numbers;
+    no {"ok": ...} line, which only the whole run prints."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        from firedancer_tpu_torch.kernels import build
+        from firedancer_tpu_torch.ops import gf2_recover as gf2
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing: {exc}",
+              file=sys.stderr)
+        return 2
+    card = smi("name,power.limit")
+    print(f"card: {card}")
+    build.build_all()
+
+    def reset_counts():
+        gf2.gf2_recover.launches = 0
+
+    def counts() -> dict:
+        return {"gf2_recover": gf2.gf2_recover.launches}
+
+    def note(msg: str):
+        print(f"{msg}  [{card}]", flush=True)
+
+    print(json.dumps(leader_tail_phase(reset_counts, counts, note)))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase", "19"]:
+        sys.exit(leader_tail_only())
     if sys.argv[1:] == ["--phase", "16"]:
         sys.exit(shred_only())
     if sys.argv[1:] == ["--phase", "18"]:

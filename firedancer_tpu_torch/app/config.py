@@ -8,9 +8,9 @@ The compiled-in defaults are DEFAULT_TOML below, with the JAX package's
 values; a user file overlays it key by key; FDTPU_* environment variables
 overlay scalars last (FDTPU_LAYOUT_VERIFY_TILE_COUNT=4 sets [layout]
 verify_tile_count).  build_topology materializes `verify-bench` and
-`leader-bench` (with one pack tile: `[leader] pack_shards > 1` needs the
-leader_merge tile and raises NotImplementedError), each with the metric
-tile when `[tiles.metric] prometheus_port` is set; the `fdtpu` topology
+`leader-bench` (`[leader] pack_shards > 1`: that many fee-payer shards of
+the pack tile and the leader_merge tile), each with the metric tile
+when `[tiles.metric] prometheus_port` is set; the `fdtpu` topology
 needs tiles the port does not have yet, and `[autotune] enabled` the
 autotuner, and both raise NotImplementedError.
 """
@@ -77,8 +77,8 @@ poh_spec_ticks = 4          # PoH speculation depth: ticks pre-hashed per
                             # rest of the window)
 mb_per_tick = 8             # mixin steps per tick (capped at
                             # hashes_per_tick - 1; excess microblocks defer)
-pack_shards = 1             # leader_pack tiles (> 1: the sharded pack and
-                            # its leader_merge tile, not ported)
+pack_shards = 1             # leader_pack tiles (> 1: fee-payer shards of
+                            # the pack, merged by the leader_merge tile)
 native_pack = -1            # pack schedule hot loop: -1 or 1 = the C
                             # scheduler (raises when the host library does
                             # not build), 0 = the Python scheduler
@@ -241,7 +241,7 @@ def load(path: str | None = None, environ=os.environ) -> dict:
 
 # the tiles each topology the port does not build yet is missing
 _MISSING = {
-    "fdtpu": "net, quic, pack, bank, poh, sign",
+    "fdtpu": "net, quic, pack, bank, poh",
 }
 
 
@@ -351,23 +351,41 @@ def _topo_leader_bench(cfg: dict) -> TopoSpec:
     """source -> verify[v] -> leader_pack -> poh_dev -> sink: the leader
     write-side harness.  Verified txns feed the fee-priority pack
     scheduler, whose microblocks mix into the device PoH chain; the sink
-    collects serialized entries (capture_path, for re-verification)."""
+    collects serialized entries (capture_path, for re-verification).
+    With [leader] pack_shards = N > 1 the pack is N fee-payer shards
+    (leader_pack:s) merged by leader_merge before poh_dev."""
     ld = dict(cfg.get("leader") or {})
-    if int(ld.get("pack_shards", 1)) > 1:
-        raise NotImplementedError(
-            "[leader] pack_shards > 1: the sharded pack and its "
-            "leader_merge tile are not ported")
     b, nverify, egress_packed = _source_and_verify(cfg, "-leader",
                                                    "verify_pack")
     mtxn = int(ld.get("max_txn_per_microblock", 31))
     mb_mtu = 4 + mtxn * (4 + 1280)          # serialize_txn_batch wire
     b.link("pack_poh", depth=256, mtu=mb_mtu)
-    b.tile("leader_pack", "leader_pack",
-           ins=[f"verify_pack:{v}" for v in range(nverify)],
-           outs=["pack_poh"], packed_egress=int(egress_packed),
-           max_txn=mtxn, max_pending=int(ld.get("max_pending", 4096)),
-           block_us=int(ld.get("block_us", 400_000)),
-           native_pack=int(ld.get("native_pack", -1)))
+    shards = max(1, int(ld.get("pack_shards", 1)))
+    pack_kw = dict(packed_egress=int(egress_packed), max_txn=mtxn,
+                   max_pending=int(ld.get("max_pending", 4096)),
+                   block_us=int(ld.get("block_us", 400_000)),
+                   native_pack=int(ld.get("native_pack", -1)))
+    if shards == 1:
+        b.tile("leader_pack", "leader_pack",
+               ins=[f"verify_pack:{v}" for v in range(nverify)],
+               outs=["pack_poh"], **pack_kw)
+    else:
+        # sharded pack: every shard sees every verified txn and keeps
+        # only its fee-payer partition; leader_merge interleaves the
+        # per-shard microblocks and re-enforces the GLOBAL block budgets
+        # (a txn payload caps writable accounts at ~38, 16 B per merge
+        # item — size the shard->merge links for the worst case)
+        merge_mtu = mb_mtu + 24 + 40 * mtxn * 16  # MERGE_HDR + items
+        for s in range(shards):
+            b.link(f"pack_merge:{s}", depth=64, mtu=merge_mtu)
+            b.tile(f"leader_pack:{s}", "leader_pack",
+                   ins=[f"verify_pack:{v}" for v in range(nverify)],
+                   outs=[f"pack_merge:{s}"],
+                   shard_cnt=shards, shard_idx=s, **pack_kw)
+        b.tile("leader_merge", "leader_merge",
+               ins=[f"pack_merge:{s}" for s in range(shards)],
+               outs=["pack_poh"],
+               block_us=int(ld.get("block_us", 400_000)))
     mixin_max = int(ld.get("mixin_txn_max", 32))
     entry_mtu = 48 + mixin_max * (4 + 1280)  # Entry.serialize wire
     b.link("poh_sink", depth=512, mtu=entry_mtu)

@@ -14,8 +14,10 @@ topology commands.
     postmortem   render a flight-recorder bundle
     drain        graceful quiesce + shutdown
     ready        block until every tile is RUN
+    keys         new PATH: write an identity keypair (the sign tile's
+                 key_path), print its public key; pubkey PATH: print it
 
-The JAX package's other commands (autotune, fleet, keys, configure, mem,
+The JAX package's other commands (autotune, fleet, configure, mem,
 version, ledger) are not offered.
 """
 
@@ -522,6 +524,23 @@ def cmd_ready(cfg, args):
         jt.close()
 
 
+def cmd_keys(cfg, args):
+    """`keys new PATH` writes a fresh identity keypair in the JSON format
+    the sign tile reads (disco/keyguard.py) and prints its public key in
+    hex; `keys pubkey PATH` prints the public key of one."""
+    from ..disco import keyguard
+    from ..ops import ed25519 as ed
+    if args.action == "new":
+        seed = os.urandom(32)
+        pub, _, _ = ed.keypair_from_seed(seed)
+        keyguard.keypair_write(args.path, seed, pub)
+        print(pub.hex())
+        return 0
+    _, pub = keyguard.keypair_read(args.path)
+    print(pub.hex())
+    return 0
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fdtpuctl", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -567,6 +586,9 @@ def main(argv=None):
                          "[supervision] drain_timeout_s, else 10)")
     sp = sub.add_parser("ready")
     sp.add_argument("--timeout", type=float, default=60.0)
+    sp = sub.add_parser("keys", help="write or read an identity keypair")
+    sp.add_argument("action", choices=["new", "pubkey"])
+    sp.add_argument("path")
     args = p.parse_args(argv)
 
     from . import config as config_mod
@@ -575,7 +597,7 @@ def main(argv=None):
         "run": cmd_run, "topo": cmd_topo, "monitor": cmd_monitor,
         "trace": cmd_trace, "top": cmd_top, "slo": cmd_slo,
         "postmortem": cmd_postmortem, "drain": cmd_drain,
-        "ready": cmd_ready,
+        "ready": cmd_ready, "keys": cmd_keys,
     }[args.cmd](cfg, args)
 
 

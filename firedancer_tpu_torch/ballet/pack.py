@@ -207,6 +207,22 @@ class _Held:
     rmask: int      # 256-bit readonly bloom bitset (Python path)
 
 
+def writable_key_costs(h: _Held) -> dict:
+    """Per-account write cost contributions of one held txn: unique
+    writable account key -> cost.total.  Derived from the parsed payload
+    (not the scheduler state) so it works on both the native and the
+    Python path — the sharded merge wire rides on this."""
+    parsed = h.parsed
+    o = parsed.acct_addr_off
+    payload = h.payload
+    out = {}
+    for i in range(parsed.acct_addr_cnt):
+        if parsed.is_writable(i):
+            k = acct_key(payload[o + i * 32:o + (i + 1) * 32])
+            out[k] = h.cost.total
+    return out
+
+
 @dataclass
 class Microblock:
     bank: int

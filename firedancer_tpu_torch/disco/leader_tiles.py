@@ -1,16 +1,20 @@
-"""The leader lane's tiles: the pack scheduler and the device PoH tile
-(ref: fd_pack.c between dedup and the banks, fd_poh_tile.c's hashing
-core); the port's own copy of firedancer_tpu/disco/tiles.py's
-LeaderPackTile and PohDevTile.  The leader-bench data plane is
+"""The leader lane's tiles: the pack scheduler, its shard merge and the
+device PoH tile (ref: fd_pack.c between dedup and the banks,
+fd_poh_tile.c's hashing core); the port's own copy of
+firedancer_tpu/disco/tiles.py's LeaderPackTile, LeaderMergeTile and
+PohDevTile.  The leader-bench data plane is
 
     source -> verify -> leader_pack -> poh_dev -> sink
 
+or, with [leader] pack_shards = N > 1,
+
+    source -> verify -> leader_pack:0..N-1 -> leader_merge -> poh_dev -> sink
+
 PohDevTile runs the chain, the tick splices and the entry re-checks on
 the PoH spans kernel and the microblock mixins on the mixin-tree kernel.
-The sharded pack (shard_cnt > 1) and its LeaderMergeTile are not ported
-and raise NotImplementedError.
 """
 
+import struct
 import time
 from collections import deque
 
@@ -39,8 +43,23 @@ class LeaderPackTile:
     unbounded), block_us (end_block cadence, default 400_000),
     packed_egress (consume arena frags), native_pack (-1 or 1: the C
     scheduler, which raises when the host library does not build; 0: the
-    Python scheduler).  shard_cnt > 1 (the sharded pack with its merge
-    tile) raises NotImplementedError."""
+    Python scheduler), shard_cnt/shard_idx (fee-payer sharding;
+    shard_cnt > 1 switches egress to the merge wire).
+
+    Sharding: with shard_cnt > 1 every shard consumes ALL verify links and
+    keeps only the txns whose fee payer hashes to it
+    (acct_key(fee_payer) % shard_cnt — deterministic, so a respawned
+    shard steers identically).  The fee payer is always writable, so a
+    fee payer's whole conflict neighborhood lands on one shard;
+    cross-shard write conflicts are serialized by microblock order at the
+    merge.  Sharded microblocks egress in a merge wire (budget header +
+    serialized batch) to LeaderMergeTile, which owns the GLOBAL block
+    budgets."""
+
+    # merge wire: n_acct u32 | cost u64 | vote_cost u64 | data u32 |
+    # n_acct * (acct_key u64 | write_cost u64) | serialize_txn_batch
+    MERGE_HDR = struct.Struct("<IQQI")
+    MERGE_ITEM = struct.Struct("<QQ")
 
     # pack.Pack.metrics -> tile metric slots (synced by delta)
     _PACK_METRICS = (
@@ -54,10 +73,6 @@ class LeaderPackTile:
     )
 
     def init(self, ctx):
-        if int(ctx.cfg.get("shard_cnt", 1)) > 1:
-            raise NotImplementedError(
-                "LeaderPackTile shard_cnt > 1: the sharded pack and its "
-                "leader_merge tile are not ported")
         native_pack = int(ctx.cfg.get("native_pack", -1))
         if native_pack not in (-1, 0, 1):
             raise ValueError(f"native_pack {native_pack}: need -1, 0 or 1")
@@ -66,6 +81,8 @@ class LeaderPackTile:
             max_txn_per_microblock=ctx.cfg.get("max_txn", 31),
             max_pending=ctx.cfg.get("max_pending", 0),
             native=native_pack != 0)
+        self.shard_cnt = int(ctx.cfg.get("shard_cnt", 1))
+        self.shard_idx = int(ctx.cfg.get("shard_idx", 0))
         self.block_us = ctx.cfg.get("block_us", 400_000)
         self._block_t0 = time.monotonic_ns()
         self._mb_seq = 0
@@ -84,6 +101,15 @@ class LeaderPackTile:
         ctx.metrics.set("pending", self.pack.pending)
 
     def _insert(self, ctx, payload: bytes):
+        if self.shard_cnt > 1:
+            # deterministic fee-payer steering: a broken header steers to
+            # shard 0, whose full parse rejects it with the real error
+            fp = txn_lib.fee_payer(payload)
+            shard = (pack_lib.acct_key(fp) % self.shard_cnt
+                     if fp is not None else 0)
+            if shard != self.shard_idx:
+                return
+            ctx.metrics.add("shard_steer_cnt")
         ctx.metrics.add("txn_in_cnt")
         try:
             parsed = txn_lib.parse(payload)
@@ -134,14 +160,34 @@ class LeaderPackTile:
             mb = self.pack.schedule(0)
             if mb is None:
                 break
-            ctx.publish(entry_lib.serialize_txn_batch(mb.payloads),
-                        sig=self._mb_seq)
+            payload = entry_lib.serialize_txn_batch(mb.payloads)
+            if self.shard_cnt > 1:
+                payload = self._merge_wire(mb) + payload
+            ctx.publish(payload, sig=self._mb_seq)
             self._mb_seq += 1
             ctx.metrics.add("cu_consumed",
                             sum(h.cost.total for h in mb.txns))
             self.pack.done(0)
             progressed = True
         return progressed
+
+    def _merge_wire(self, mb) -> bytes:
+        """Budget header for LeaderMergeTile's global accounting: total /
+        vote cost, data bytes, and per-account write costs (u64 keys —
+        the merge never re-parses).  Accounts are unique across the
+        microblock's txns by construction (write-write conflicts are
+        excluded within one microblock)."""
+        total = vote = data = 0
+        items: dict = {}
+        for h in mb.txns:
+            total += h.cost.total
+            if h.cost.is_simple_vote:
+                vote += h.cost.total
+            data += len(h.payload)
+            for k, c in pack_lib.writable_key_costs(h).items():
+                items[k] = items.get(k, 0) + c
+        return self.MERGE_HDR.pack(len(items), total, vote, data) + \
+            b"".join(self.MERGE_ITEM.pack(k, c) for k, c in items.items())
 
     def after_credit(self, ctx):
         if self.pack.pending:
@@ -178,6 +224,122 @@ class LeaderPackTile:
     def fini(self, ctx):
         self._emit(ctx)
         self._sync_pack(ctx)
+
+
+class LeaderMergeTile:
+    """Shard-merge stage of the sharded leader lane: consumes the
+    merge-wire microblock frags from every leader_pack shard and
+    interleaves them round-robin into ONE tick-stream, enforcing the
+    GLOBAL block/vote/data and per-account write budgets here — each
+    shard's Pack only pre-filters against its local copy, so this tile is
+    the consensus-critical accounting authority.
+
+    Admission: one pass over the shards per round starting at a rotating
+    cursor, admitting at most one head microblock per shard per pass (the
+    round-robin interleave).  A head that would overflow a budget stays
+    queued (merge_budget_defer_cnt) until the block rolls; a full pass
+    with queued work but zero admissions counts merge_stall_cnt.
+    Admitted frags re-publish the inner serialize_txn_batch payload
+    (merge header stripped) with this tile's own monotonic microblock
+    seq, so PohDevTile sees exactly the single-packer wire.
+
+    Drain convergence: any single shard microblock fits a fresh budget
+    (see pack.MergeBudget), so resetting the block always unblocks.
+    cfg: block_us (end_block cadence, default 400_000)."""
+
+    def init(self, ctx):
+        self.budget = pack_lib.MergeBudget()
+        self.block_us = ctx.cfg.get("block_us", 400_000)
+        self._block_t0 = time.monotonic_ns()
+        # iidx -> deque of (cost, vote, data, items, inner)
+        self._qs: dict = {}
+        self._rr = 0
+        self._mb_seq = 0
+        self._drain_stall = 0
+
+    def on_frag(self, ctx, iidx, meta, payload):
+        b = bytes(payload)
+        hdr, item = LeaderPackTile.MERGE_HDR, LeaderPackTile.MERGE_ITEM
+        try:
+            n_items, cost, vote, data = hdr.unpack_from(b, 0)
+            items = [item.unpack_from(b, hdr.size + item.size * i)
+                     for i in range(n_items)]
+            inner = b[hdr.size + item.size * n_items:]
+        except struct.error:
+            ctx.metrics.add("parse_fail_cnt")
+            return
+        self._qs.setdefault(iidx, deque()).append(
+            (cost, vote, data, items, inner))
+        ctx.metrics.add("mb_rx_cnt")
+        self._admit(ctx)
+
+    def _admit(self, ctx) -> bool:
+        keys = sorted(self._qs)
+        if not keys:
+            return False
+        admitted_any = False
+        while True:
+            progressed = False
+            deferred = False
+            for off in range(len(keys)):
+                q = self._qs[keys[(self._rr + off) % len(keys)]]
+                if not q:
+                    continue
+                cost, vote, data, items, inner = q[0]
+                if not self.budget.try_admit(cost, vote, data, items):
+                    ctx.metrics.add("merge_budget_defer_cnt")
+                    deferred = True
+                    continue
+                q.popleft()
+                ctx.publish(inner, sig=self._mb_seq)
+                self._mb_seq += 1
+                ctx.metrics.add("mb_merge_cnt")
+                progressed = True
+            self._rr = (self._rr + 1) % len(keys)
+            if not progressed:
+                if deferred:
+                    ctx.metrics.add("merge_stall_cnt")
+                break
+            admitted_any = True
+        ctx.metrics.set("merge_q", sum(len(q) for q in self._qs.values()))
+        return admitted_any
+
+    def house(self, ctx):
+        if (time.monotonic_ns() - self._block_t0) // 1000 >= self.block_us:
+            self.budget.end_block()
+            self._block_t0 = time.monotonic_ns()
+        self._admit(ctx)
+
+    def after_credit(self, ctx):
+        if any(self._qs.values()):
+            self._admit(ctx)
+
+    def drain(self, ctx) -> bool:
+        """Drain-protocol hook: flush every queued microblock.  Budget
+        resets force progress (any one microblock fits a fresh block);
+        the drop path is an unreachable safety net, never silent."""
+        self._admit(ctx)
+        if not any(self._qs.values()):
+            return True
+        self.budget.end_block()
+        self._block_t0 = time.monotonic_ns()
+        if self._admit(ctx):
+            self._drain_stall = 0
+            return not any(self._qs.values())
+        self._drain_stall += 1
+        if self._drain_stall >= 3:
+            n = sum(len(q) for q in self._qs.values())
+            ctx.metrics.add("drain_drop_cnt", n)
+            for q in self._qs.values():
+                q.clear()
+            return True
+        return False
+
+    def fini(self, ctx):
+        self._admit(ctx)
+        if any(self._qs.values()):
+            self.budget.end_block()
+            self._admit(ctx)
 
 
 class PohDevTile:

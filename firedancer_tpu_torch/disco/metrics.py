@@ -11,9 +11,11 @@ coordination (prometheus_render renders them as Prometheus text).
 
 The schema is a plain dict (kind -> slot defs).  A slot def is either a
 bare name (COUNTER) or a (name, kind) tuple.  The schema, the footprint
-and the histogram layout are the JAX package's exactly, so a block either
-package writes reads the same through the other's MetricsBlock, and a
-workspace laid out by one is joined at the same offsets by the other.
+and the histogram layout are the JAX package's exactly, apart from the
+port's own slots that PORT_SLOTS appends after a kind's JAX slots; so a
+block either package writes reads the same through the other's
+MetricsBlock, and a workspace laid out by one is joined at the same
+offsets by the other.
 
 Histograms: each block also carries up to MAX_HISTS fixed 32-bucket
 geomspace histograms (HIST defs below, the shm mirror of utils.hist.Histf).
@@ -219,6 +221,16 @@ TILE_SLOTS: dict[str, list] = {
     "sink": ["frag_cnt"],
 }
 
+# Slots the port appends after a kind's JAX slots.  Every slot before them
+# sits at the JAX package's offset, so either package reads the shared
+# ones the same; only the port writes these.
+PORT_SLOTS: dict[str, list] = {
+    # the leader role's entries that a plain halt left unshredded: fini
+    # could not get the open slot's root signed, as the sign tile had
+    # already gone down (a drain cuts that slot while it still serves)
+    "shred": ["unshred_entry_cnt"],
+}
+
 BLOCK_SLOTS = 128  # fixed slot area per tile, room to grow every kind
 
 # -- shm histograms ---------------------------------------------------------
@@ -244,7 +256,7 @@ TILE_HISTS: dict[str, list] = {
 
 def slot_defs(kind: str) -> list[tuple[str, str]]:
     out = []
-    for s in MUX_SLOTS + TILE_SLOTS.get(kind, []):
+    for s in MUX_SLOTS + TILE_SLOTS.get(kind, []) + PORT_SLOTS.get(kind, []):
         out.append((s, COUNTER) if isinstance(s, str) else tuple(s))
     return out
 

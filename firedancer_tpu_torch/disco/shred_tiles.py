@@ -1,22 +1,22 @@
-"""The turbine shred lane's tiles: batched leader-signature admission, the
-shred tile's ingress and retransmit role, FEC recovery and the store
-(ref: src/app/fdctl/run/tiles/fd_shred.c, fd_fec_resolver.c feeding
-fd_store.c); the port's own copy of firedancer_tpu/disco/tiles.py's
-_ShredSigBatcher, ShredTile, StoreTile, ShredRecoverIngest and
-ShredRecoverTile.  A follower's data plane is
+"""The shred lane's tiles: the shred tile's leader role (FEC sets cut from
+poh entries, each root signed through the keyguard), batched
+leader-signature admission and the retransmit role, FEC recovery and the
+store (ref: src/app/fdctl/run/tiles/fd_shred.c, fd_fec_resolver.c
+feeding fd_store.c); the port's own copy of firedancer_tpu/disco/
+tiles.py's _ShredSigBatcher, ShredTile, StoreTile, ShredRecoverIngest and
+ShredRecoverTile.  A leader's tail and a follower's data plane are
 
+    poh_dev -> shred <-> sign ; shred -> store ; shred -> (net)
     net -> shred -> shred_recover -> (replay) ; shred -> store
 
-The shred tile admits a burst of shreds with one launch of the merkle
-walk kernel (ops/bmtree_walk.py) and one strict ed25519 dispatch of the
-roots (SigVerifier, the sha512 and verify_tail kernels); shred_recover
-recovers a burst of FEC sets with one launch of the GF(2) kernel
-(ops/gf2_recover.py) through the rotating-buffer PackedDispatchEngine;
-the store's Blockstore recovers each set with one launch of it.  The
-shred tile's leader role (cutting FEC sets from poh entries, signing
-each root through the keyguard and the sign tile) is not ported: a
-shred tile with an entry in-link or a shred_sign out-link raises
-NotImplementedError.
+The leader's shred tile computes each set's parity with one launch of
+the GF(2) kernel (ops/gf2_recover.py, through reedsol.encode).  A
+follower's shred tile admits a burst of shreds with one launch of the
+merkle walk kernel (ops/bmtree_walk.py) and one strict ed25519 dispatch
+of the roots (SigVerifier, the sha512 and verify_tail kernels);
+shred_recover recovers a burst of FEC sets with one launch of the GF(2)
+kernel through the rotating-buffer PackedDispatchEngine; the store's
+Blockstore recovers each set with one launch of it.
 """
 
 import time
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ballet import entry as entry_lib
 from ..ballet import reedsol as rs
 from ..ballet import shred as shred_lib
 from ..models.verifier import (PackedDispatchEngine, SigVerifier, Verdict,
@@ -36,6 +37,7 @@ from ..ops import r_check as rck
 from ..ops import sha512_kernel as sk
 from ..ops import verify_tail as vt
 from ..ops.ed25519 import verify_one_host
+from .keyguard import ROLE_LEADER, KeyguardClient, KeyguardDown
 
 # sig of a poh entry frag: slot | SLOT_DONE_BIT (leader_tiles.PohDevTile)
 SLOT_DONE_BIT = 1 << 63
@@ -177,34 +179,76 @@ class _ShredSigBatcher:
 
 
 class ShredTile:
-    """Shred tile, turbine ingress and retransmit role (ref:
-    src/app/fdctl/run/tiles/fd_shred.c over fd_shred_dest.c): admits raw
-    shreds from the net links named in cfg `net_ins` by batched
-    leader-signature verification, fans each admitted shred out to every
-    out link, and, when turbine is configured, sends it over UDP to its
-    children in the turbine tree (exactly once per shred).
+    """Shredder tile (ref: src/app/fdctl/run/tiles/fd_shred.c over
+    src/disco/shred/fd_shredder.c + fd_shred_dest.c), in both roles.
 
-    cfg: net_ins, turbine: {identity: hexpub, fanout, port,
+    Leader: accumulates a slot's entries from its entry in-links (poh
+    frames, sig = slot | SLOT_DONE_BIT on a slot's last entry) and cuts a
+    merkle FEC set at the done bit, at a slot change (a missed done
+    marker closes the slot) and at batch_max bytes, signing each root
+    through the keyguard (the shred_sign request link to the sign tile,
+    its reply on sign_shred); each set's parity is one launch of the
+    GF(2) kernel.  The shreds fan out to every out link except
+    shred_sign and, with turbine, each goes over UDP to its turbine tree
+    root.  A drain cuts the open slot while the sign tile still serves
+    (the drain order puts sign after shred); at a plain halt the sign
+    tile may go down first, and the entries this tile then cannot shred
+    are counted in unshred_entry_cnt, never raised.
+
+    Retransmit: admits raw shreds from the net links named in cfg
+    `net_ins` by batched leader-signature verification, fans each
+    admitted shred out to every out link, and, with turbine, sends it
+    over UDP to its children in the turbine tree (exactly once per
+    shred); a drain admits the open burst.
+
+    cfg: shred_version, fec_data_cnt (default 32: 32:32 sets), batch_max
+    (default 16 KiB), net_ins, turbine: {identity: hexpub, fanout, port,
     slots_per_epoch, stakes: {hexpub: [stake, ip, port]}};
     batched-admission knobs sig_batch (default 32), sig_flush_age_us
     (default 2000), sig_backend ("device" | "host"); device (None: the
-    GPU).  Without turbine, shreds pass through unverified, as in the
-    JAX tile.  The leader role (entry in-links, the shred_sign out-link
-    to the keyguard) raises NotImplementedError."""
+    GPU).  Without turbine, net shreds pass through unverified, as in the
+    JAX tile.  Entry in-links without a shred_sign out-link raise
+    ValueError at init."""
+
+    # per-set timings kept for the drain manifest
+    _TIMES_MAX = 4096
 
     def init(self, ctx):
+        self.kgc = (KeyguardClient(ctx, "shred_sign", "sign_shred")
+                    if "shred_sign" in ctx.tile.out_links else None)
+        self.version = ctx.cfg.get("shred_version", 1)
+        self.data_cnt = ctx.cfg.get("fec_data_cnt", 32)
+        self._fanout = [i for i, ln in enumerate(ctx.tile.out_links)
+                        if ln != "shred_sign"]
+        self.batch_max = ctx.cfg.get("batch_max", 16 << 10)
+        self.device = ctx.cfg.get("device") or None
         self.net_ins = set(ctx.cfg.get("net_ins", ()))
+        # fail at wiring time, not on the first FEC cut: a topology that
+        # feeds this tile entries (any non-net in-link) but gives it no
+        # shred_sign out-link could never sign a merkle root
         entry_ins = [il.link for il in ctx.tile.in_links
                      if il.link not in self.net_ins]
-        if entry_ins or "shred_sign" in ctx.tile.out_links:
-            raise NotImplementedError(
-                f"shred tile in-links {entry_ins}, out-links "
-                f"{list(ctx.tile.out_links)}: the leader role (FEC sets cut "
-                "from poh entries, roots signed through disco/keyguard.py "
-                "and the sign tile) is not ported; only net_ins in-links "
-                "are")
-        self._fanout = list(range(len(ctx.tile.out_links)))
+        if entry_ins and self.kgc is None:
+            raise ValueError(
+                f"shred tile receives entries on {entry_ins} but has no "
+                "'shred_sign' out link to the keyguard; wire one or make "
+                "this a net-ins-only retransmit tile")
+        self.slot = None
+        self.entries = []
+        self._size = 0
+        self.fec_idx = 0
         self._launch0 = None
+        self._gf2_0 = None
+        self._sign_ns = deque(maxlen=self._TIMES_MAX)
+        self._cut_ns = deque(maxlen=self._TIMES_MAX)
+        if entry_ins:
+            # the parity kernel builds and launches once BEFORE RUN, so
+            # the first cut does not stall the mux loop
+            shred_lib.make_fec_set(
+                b"", 0, 0, self.version, 0, lambda root: bytes(64),
+                data_cnt=self.data_cnt, code_cnt=self.data_cnt,
+                torch_device=self.device)
+            self._gf2_0 = gf2.gf2_recover.launches
         self._init_turbine(ctx)
 
     def _init_turbine(self, ctx):
@@ -260,8 +304,9 @@ class ShredTile:
             self.stake_ci.set_stakes(ep, self._stake_map)
         return self.stake_ci.sdest_for(slot, self._leaders)
 
-    def _turbine_send(self, ctx, shreds, raws):
-        """Retransmit: each shred to its children in the turbine tree."""
+    def _turbine_send(self, ctx, shreds, raws, first: bool):
+        """Leader (first=True): each shred to its turbine tree root.
+        Retransmitter: each shred to its children in the tree."""
         if self.turbine is None or not shreds:
             return
         from ..waltz.aio import Pkt
@@ -269,14 +314,72 @@ class ShredTile:
         if sd is None:
             return
         pkts = []
-        for s, raw in zip(shreds, raws):
-            for idx in sd.compute_children([s], self.tree_fanout)[0]:
-                d = sd.idx_to_dest(idx)
+        if first:
+            for s, raw in zip(shreds, raws):
+                d = sd.idx_to_dest(sd.compute_first([s])[0])
                 if d is not None and d.ip and d.pubkey != self.identity:
                     pkts.append(Pkt(raw, d.addr))
+        else:
+            for s, raw in zip(shreds, raws):
+                for idx in sd.compute_children([s], self.tree_fanout)[0]:
+                    d = sd.idx_to_dest(idx)
+                    if d is not None and d.ip and d.pubkey != self.identity:
+                        pkts.append(Pkt(raw, d.addr))
         if pkts:
             self.tsock.send_burst(pkts)
             ctx.metrics.add("turbine_tx_cnt", len(pkts))
+
+    def _sign(self, root: bytes) -> bytes:
+        t0 = time.monotonic_ns()
+        sig = self.kgc.sign(ROLE_LEADER, root)
+        self._sign_ns.append(time.monotonic_ns() - t0)
+        return sig
+
+    def _cut(self, ctx, slot_complete: bool):
+        """One signed FEC set of the entries held (the slot's last when
+        slot_complete).  The entries stay held until the set is made, so
+        a failed signing leaves them to be counted."""
+        if not self.entries and not slot_complete:
+            return
+        t0 = time.monotonic_ns()
+        fs = shred_lib.make_fec_set(
+            entry_lib.serialize_batch(self.entries), self.slot,
+            parent_off=1 if self.slot else 0, version=self.version,
+            fec_set_idx=self.fec_idx,
+            sign_fn=self._sign,
+            data_cnt=self.data_cnt, code_cnt=self.data_cnt,
+            slot_complete=slot_complete, torch_device=self.device)
+        self._cut_ns.append(time.monotonic_ns() - t0)
+        self.entries = []
+        self._size = 0
+        self.fec_idx += self.data_cnt
+        ctx.metrics.add("fec_set_cnt")
+        raws = fs.data_shreds + fs.code_shreds
+        for raw in raws:
+            for out in self._fanout:
+                ctx.publish(raw, sig=self.slot, out=out)
+                ctx.metrics.add("shred_tx_cnt")
+        if self.turbine is not None:
+            self._turbine_send(ctx, [shred_lib.parse(r) for r in raws],
+                               raws, first=True)
+
+    def _on_entry(self, ctx, meta, payload):
+        sig = int(meta["sig"])
+        slot = sig & ~SLOT_DONE_BIT
+        done = bool(sig & SLOT_DONE_BIT)
+        if self.slot is None:
+            self.slot = slot
+        if slot != self.slot:  # missed the done marker: close anyway
+            self._cut(ctx, True)
+            self.slot, self.fec_idx = slot, 0
+        e, _ = entry_lib.Entry.deserialize(payload)
+        self.entries.append(e)
+        self._size += len(payload)
+        if done:
+            self._cut(ctx, True)
+            self.slot, self.fec_idx = slot + 1, 0
+        elif self._size >= self.batch_max:
+            self._cut(ctx, False)  # mid-slot set: bound FEC batch size
 
     def _on_net_shred(self, ctx, payload):
         """Turbine ingress (non-leader): verify the leader signature,
@@ -329,7 +432,7 @@ class ShredTile:
                 ctx.publish(raw, sig=s.slot, out=out)
             ctx.metrics.add("shred_rx_cnt")
             if self._leaders(s.slot) != self.identity:
-                self._turbine_send(ctx, [s], [raw])
+                self._turbine_send(ctx, [s], [raw], first=False)
 
     def after_credit(self, ctx):
         if self.turbine is not None and self._sigb.due():
@@ -337,18 +440,61 @@ class ShredTile:
             self._admit(ctx, self._sigb.flush())
 
     def on_frag(self, ctx, iidx, meta, payload):
-        self._on_net_shred(ctx, payload)
+        if ctx.tile.in_links[iidx].link in self.net_ins:
+            self._on_net_shred(ctx, payload)
+            return
+        held = len(self.entries)
+        try:
+            self._on_entry(ctx, meta, payload)
+        except KeyguardDown:
+            if not self.kgc.halting():
+                raise
+            # a plain halt took the sign tile down first: the entries
+            # held and this frame's (a slot change fails before taking
+            # it) stay unshredded, counted; the loop exits
+            lost = len(self.entries) + (len(self.entries) == held)
+            ctx.metrics.add("unshred_entry_cnt", lost)
+            self.entries = []
+            ctx.halt()
+
+    def drain(self, ctx) -> bool:
+        """Drain-protocol hook: the leader role cuts the open slot (its
+        last set flagged slot-complete, as fini would) while the sign tile
+        still serves; the retransmit role admits its open burst."""
+        if self.entries and self.slot is not None:
+            self._cut(ctx, True)
+            self.slot, self.fec_idx = self.slot + 1, 0
+        if self.turbine is not None and len(self._sigb):
+            self._admit(ctx, self._sigb.flush())
+        return True
 
     def drain_manifest(self, ctx) -> dict:
         """The drain manifest's record of this tile: the admission
         kernels' launches since its warm-up (0 on the CPU, where the
-        plain versions run) beside its burst count."""
+        plain versions run) beside its burst count; for the leader role
+        the GF(2) kernel's launches since its warm-up beside the FEC sets
+        cut, and each set's keyguard round trip and cut (make_fec_set,
+        the signing included) in ns."""
         now = _admission_launches()
-        return {"launches": {k: now[k] - self._launch0[k] for k in now}
-                if self._launch0 is not None else {},
-                "sig_batch_cnt": ctx.metrics.get("sig_batch_cnt")}
+        out = {"launches": {k: now[k] - self._launch0[k] for k in now}
+               if self._launch0 is not None else {},
+               "sig_batch_cnt": ctx.metrics.get("sig_batch_cnt")}
+        if self._gf2_0 is not None:
+            out["launches"]["gf2_recover"] = (gf2.gf2_recover.launches
+                                              - self._gf2_0)
+            out.update(fec_set_cnt=ctx.metrics.get("fec_set_cnt"),
+                       sign_ns=list(self._sign_ns),
+                       cut_ns=list(self._cut_ns))
+        return out
 
     def fini(self, ctx):
+        if self.entries and self.slot is not None:
+            try:
+                self._cut(ctx, True)
+            except KeyguardDown:
+                # a plain halt: the sign tile went down first
+                ctx.metrics.add("unshred_entry_cnt", len(self.entries))
+                self.entries = []
         if self.turbine is not None:
             try:
                 self._admit(ctx, self._sigb.flush())  # drain the tail

@@ -1,8 +1,8 @@
 """The host tiles of the verify-bench topology and the port's tile
 registry (ref: the fd_topo_run_tile_t vtables in src/app/fdctl/run/tiles/
 and the TILES[] registry in src/app/fdctl/main.c:33-48); the port's own
-copy of firedancer_tpu/disco/tiles.py's SourceTile, DedupTile and
-SinkTile.
+copy of firedancer_tpu/disco/tiles.py's SourceTile, DedupTile, SinkTile
+and SignTile.
 
 A tile is a class with any subset of the mux callbacks (disco/mux.py).
 The registry maps kind -> class; a tile process looks its class up by
@@ -11,11 +11,13 @@ TileSpec.kind.  The verify-bench data plane is
     source -> verify -> dedup -> sink
 
 with the port's VerifyTile (disco/verify_tile.py) dispatching to the card;
-the leader-bench topology adds the leader_pack and poh_dev tiles
-(disco/leader_tiles.py), and the follower's turbine shred lane the
-shred, shred_recover and store tiles (disco/shred_tiles.py); the metric
-tile serves /metrics and /healthz over every tile's block.  The net,
-quic, bank and later tiles are not ported yet; neither are the source's executable transfers, stream
+the leader-bench topology adds the leader_pack, leader_merge and poh_dev
+tiles (disco/leader_tiles.py); the shred, shred_recover and store tiles
+(disco/shred_tiles.py) run the leader's tail and the follower's turbine
+shred lane, the sign tile here holding the leader's key
+(disco/keyguard.py); the metric tile serves /metrics and /healthz over
+every tile's block.  The net, quic, bank and later tiles are not ported
+yet; neither are the source's executable transfers, stream
 adoption and blockhash feedback, nor the dedup tile's sharded tcache and
 restart preload: those options raise NotImplementedError.
 """
@@ -26,7 +28,7 @@ import numpy as np
 
 from ..ballet import txn as txn_lib
 from ..tango.tcache import NativeTCache
-from .leader_tiles import LeaderPackTile, PohDevTile
+from .leader_tiles import LeaderMergeTile, LeaderPackTile, PohDevTile
 from .pipeline import LAT_PRIO_BIT
 from .shred_tiles import ShredRecoverTile, ShredTile, StoreTile
 from .verify_tile import VerifyTile
@@ -371,6 +373,35 @@ def read_capture(path: str) -> list[tuple[int, bytes]]:
     return out
 
 
+class SignTile:
+    """Key-isolation signer (ref: src/app/fdctl/run/tiles/fd_sign.c).  The
+    only tile whose process reads the private key; serves role-typed
+    signing requests arriving on in-links and replies on the SAME-INDEX
+    out link (in_links[i] requests -> out_links[i] responses), signing
+    with the host signer (ops/ed25519.py sign).  Requests whose payload
+    shape is illegal for the role are refused with an empty frag.
+
+    cfg: key_path (JSON keypair file, disco/keyguard.py's format)."""
+
+    def init(self, ctx):
+        from ..ops import ed25519 as ed
+        from . import keyguard
+        self._kg = keyguard
+        self._ed = ed
+        self.seed, self.pub = keyguard.keypair_read(ctx.cfg["key_path"])
+
+    def on_frag(self, ctx, iidx, meta, payload):
+        role = payload[0] if payload else 0
+        msg = bytes(payload[1:])
+        if not self._kg.role_payload_ok(role, msg):
+            ctx.metrics.add("refuse_cnt")
+            ctx.publish(b"", sig=role, out=iidx)
+            return
+        sig = self._ed.sign(self.seed, msg)
+        ctx.metrics.add("sign_cnt")
+        ctx.publish(sig, sig=role, out=iidx)
+
+
 class MetricTile:
     """Prometheus exporter over HTTP (ref: run/tiles/fd_metric.c:135-263),
     snapshotting every tile's shared-memory metrics block: the same
@@ -392,9 +423,11 @@ TILES: dict[str, type] = {
     "dedup": DedupTile,
     "sink": SinkTile,
     "leader_pack": LeaderPackTile,
+    "leader_merge": LeaderMergeTile,
     "poh_dev": PohDevTile,
     "shred": ShredTile,
     "shred_recover": ShredRecoverTile,
     "store": StoreTile,
+    "sign": SignTile,
     "metric": MetricTile,
 }

@@ -200,8 +200,23 @@ def test_leader_pack_tile_equals_the_jax_tile(native_pack):
 
 
 def test_leader_pack_tile_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="leader_merge"):
-        lt.LeaderPackTile().init(_Ctx(dict(shard_cnt=2, shard_idx=0)))
+    # the sharded pack boots: shard 1 of 2 keeps its fee-payer partition
+    # and publishes the merge wire (tests/test_torch_leader_shard.py
+    # holds both against the JAX tiles)
+    ctx = _Ctx(dict(shard_cnt=2, shard_idx=1, native_pack=0))
+    tile = lt.LeaderPackTile()
+    tile.init(ctx)
+    ws = _pack_txns()
+    for w in ws:
+        tile.on_frag(ctx, 0, None, w)
+    tile.fini(ctx)
+    owned = [w for w in ws if (txn_lib.fee_payer(w) is not None and
+             lt.pack_lib.acct_key(txn_lib.fee_payer(w)) % 2 == 1)]
+    assert ctx.metrics.d["shard_steer_cnt"] == len(owned) > 0
+    hdr = lt.LeaderPackTile.MERGE_HDR
+    inner = [p[hdr.size + 16 * hdr.unpack_from(p, 0)[0]:] for p, _ in ctx.out]
+    got = [t for p in inner for t in entry_lib.deserialize_txn_batch(p)[0]]
+    assert got and set(got) <= set(owned)
     with pytest.raises(ValueError):
         lt.LeaderPackTile().init(_Ctx(dict(native_pack=2)))
 
@@ -454,9 +469,16 @@ def test_leader_bench_config_boots_and_refuses_shards():
     poh = [t for t in spec.tiles if t.kind == "poh_dev"][0].cfg
     assert (poh["hashes_per_tick"], poh["ticks_per_slot"],
             poh["spec_ticks"], poh["mb_per_tick"]) == (16, 8, 4, 8)
+    # the sharded pack boots: two fee-payer shards merged before poh_dev
     cfg["leader"]["pack_shards"] = 2
-    with pytest.raises(NotImplementedError, match="leader_merge"):
-        app_config.build_topology(cfg)
+    spec = app_config.build_topology(cfg)
+    assert [(t.name, t.kind) for t in spec.tiles][2:5] == [
+        ("leader_pack:0", "leader_pack"), ("leader_pack:1", "leader_pack"),
+        ("leader_merge", "leader_merge")]
+    merge = [t for t in spec.tiles if t.kind == "leader_merge"][0]
+    assert [il.link for il in merge.in_links] == ["pack_merge:0",
+                                                   "pack_merge:1"]
+    assert list(merge.out_links) == ["pack_poh"]
     # the JAX package's XLA scan unroll has no counterpart in the kernel
     with pytest.raises(NotImplementedError, match="unroll"):
         app_config.load(environ={"FDTPU_LEADER_UNROLL": "8"})

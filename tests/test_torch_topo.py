@@ -168,8 +168,14 @@ def test_layout_schema_equals_the_jax_package():
     from firedancer_tpu.disco import autotune as jautotune
     assert pautotune.pod_footprint() == jautotune.pod_footprint()
     assert pautotune.KNOBS == jautotune.KNOBS
+    # the port's own slots follow a kind's JAX slots, which keep their
+    # offsets
+    assert set(pmetrics.PORT_SLOTS) <= set(jmetrics.TILE_SLOTS)
     for kind in set(jmetrics.TILE_SLOTS) | set(pmetrics.TILE_SLOTS):
-        assert pmetrics.slot_defs(kind) == jmetrics.slot_defs(kind)
+        port_only = [(n, pmetrics.COUNTER) if isinstance(n, str)
+                     else tuple(n) for n in pmetrics.PORT_SLOTS.get(kind, [])]
+        assert pmetrics.slot_defs(kind) == (jmetrics.slot_defs(kind)
+                                            + port_only)
         assert pmetrics.hist_defs(kind) == jmetrics.hist_defs(kind)
     for k in ("KIND_FRAG", "KIND_BURST", "KIND_COALESCE", "KIND_DEVICE",
               "KIND_COMPILE", "KIND_DISPATCH", "KIND_PUBLISH",
@@ -284,18 +290,21 @@ def test_config_layers_and_refusals(tmp_path):
     assert spec.tiles[1].cfg["buckets"] == [[16, 256]]
     with pytest.raises(ValueError, match="deadline_us"):
         pconfig.load(environ={"FDTPU_LATENCY_DEADLINE_USS": "3"})
-    for topo_name, missing in (("fdtpu", "net, quic, pack, bank, poh, "
-                                         "sign$"),
-                               ("leader-bench", "leader_merge")):
-        c = pconfig.load(environ={})
-        c["topology"] = topo_name
-        c["leader"]["pack_shards"] = 2     # leader-bench boots at 1
-        with pytest.raises(NotImplementedError, match=missing) as exc:
-            pconfig.build_topology(c)
-        if topo_name == "fdtpu":
-            # the port has the shred lane's tiles
-            assert "shred" not in str(exc.value)
-            assert "store" not in str(exc.value)
+    c = pconfig.load(environ={})
+    c["topology"] = "fdtpu"
+    with pytest.raises(NotImplementedError,
+                       match="net, quic, pack, bank, poh$") as exc:
+        pconfig.build_topology(c)
+    # the port has the shred lane's tiles and the sign tile
+    for kind in ("shred", "store", "sign"):
+        assert kind not in str(exc.value)
+    # the sharded pack boots: two shards and the merge tile
+    c = pconfig.load(environ={})
+    c["topology"] = "leader-bench"
+    c["leader"]["pack_shards"] = 2
+    assert [t.kind for t in pconfig.build_topology(c).tiles] == [
+        "source", "verify", "leader_pack", "leader_pack", "leader_merge",
+        "poh_dev", "sink"]
     c = pconfig.load(environ={})
     c["autotune"]["enabled"] = 1
     with pytest.raises(NotImplementedError, match="Autotuner"):
